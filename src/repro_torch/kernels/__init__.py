@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels for the port, one package per kernel, each
+with ``csrc/`` (the CUDA source), ``ref.py`` (its plain torch version)
+and ``ops.py`` (the checked wrapper):
+
+- sbts_step/  |N(v) ∩ S_k| by AND + popcount over packed words — the
+              device SBTS engine's conflict counts (replaces
+              ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``)
+
+A wrapper runs the plain version for tensors on the CPU and launches
+its kernel for CUDA tensors, or raises; it never falls back.  Each
+launch adds one to ``LAUNCHES[name]``, so a run can show which kernels
+its path went through.
+"""
+
+#: kernel name -> launches since the last `reset_launches`.
+LAUNCHES: dict[str, int] = {"selection_counts": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
