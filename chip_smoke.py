@@ -28,8 +28,29 @@ each printed as one JSON line:
    C4K8@16x16 conflict graphs; every best must be an independent set.
    Iterations/s and peak device memory, then 16 iterations under
    `torch.profiler` for the card's busy share of a lock-step.
-6. times: the kernel per call (CUDA events, after warm-up), its bound,
-   its plain version and the ``torch._int_mm`` yardstick.
+6. conflict kernels vs plain versions: `conflict_matrix` (dense int8)
+   and `conflict_matrix_packed` (packed words) on the card against
+   their plain torch versions on the card, with tolerance zero, on the
+   features of the graphs above and of the five 16x16 workload graphs
+   (|V_C| up to 16656), on ragged random features, and with every
+   vertex in one op; the packed kernel, unpacked, must equal the dense.
+7. conflict route: `build_conflict_graph(use_kernel="packed-cuda")`
+   must give rows byte-equal to the host build (``use_kernel=False``)
+   on C4K8@16x16 and the five 16x16 workload graphs, with
+   ``bus_pressure`` True and False, and the dense entry point
+   `conflict_matrix(use_cuda=True)` must agree with it.  Both routes'
+   walls (with the garbage collector's pauses inside each), and the
+   CUDA route's split into encode, host-to-device copy, kernel and
+   device-to-host copy.  The launch counts are reset just
+   before and read just after: both conflict kernels must have
+   launched.
+8. 16x16 workloads: `map_dfg` at the port's defaults on four workload
+   graphs of the generator (`core.workloads`) on a 16x16 fabric; each
+   (II, routing PEs) must equal the pinned `GOLDEN_16X16`.
+9. times: `selection_counts` per call (CUDA events, after warm-up), its
+   bound, its plain version and the ``torch._int_mm`` yardstick; both
+   conflict kernels at each 16x16 workload shape, with their bounds,
+   plain versions and the two host (numpy) formulations.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +58,7 @@ reports it, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -59,6 +81,16 @@ GOLDEN = {
     (5, 5, "bandmap"): (3, 0), (5, 5, "busmap"): (3, 5),
 }
 
+# (II, routing PEs) of the 16x16 workload graphs under `map_dfg`'s
+# defaults on a 16x16 fabric; tests/test_torch_workloads.py holds this
+# table to the JAX package's map_dfg.  reduce32 is left out: it does
+# not map in minutes (ROADMAP, Queue 3).
+GOLDEN_16X16 = {"scale_16x16_loop": (5, 0), "loop40": (5, 0),
+                "stencil16t3": (2, 0), "c2k6": (1, 0)}
+# The 16x16 workload graphs whose conflict graphs the kernels build.
+WORKLOADS_16X16 = ("scale_16x16_loop", "loop40", "stencil16t3",
+                   "reduce32", "c2k6")
+
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # device memory bytes/s, and 32-bit operations/s outside the tensor
 # cores (the float32 rate: the table has no int32 rate, and no 32-bit
@@ -66,6 +98,11 @@ GOLDEN = {
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 OPS_PER_WORD = 3          # AND + POPC + ADD per (k, v, word)
+# The least work of the conflict predicate: it is the union of three
+# equivalence relations (same op; same kind, slot and port; QUAD with
+# the same slot and PE), so each 32-bit output word is the OR of at most
+# three group masks with the diagonal cleared (csrc/conflict_matrix.cu).
+OPS_PER_OUT_WORD = 3
 
 
 def emit(obj: dict) -> None:
@@ -128,6 +165,228 @@ def conflict_graph(dfg, cgra, mode: str):
     raise RuntimeError("no schedulable II found")
 
 
+def workload_dfgs() -> dict:
+    """The 16x16 workload graphs, by name: the generator's "16x16"
+    sweep and its |V_C| ~ 10^4 loop (`core.workloads`)."""
+    from repro_torch.core import scale_16x16_loop, sweep_specs
+    specs = {s.name: s for s in sweep_specs("16x16")}
+    return {name: scale_16x16_loop() if name == "scale_16x16_loop"
+            else specs[name].build() for name in WORKLOADS_16X16}
+
+
+def random_features(n: int, seed: int, one_op: bool = False):
+    """``int32 [n, 8]`` features with every field in a small range, so
+    that many pairs share a kind, op, slot, port or PE; ``one_op`` puts
+    every vertex in op 5, where every off-diagonal pair conflicts."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    feat = np.stack([rng.integers(-1, 4, n), rng.integers(0, 8, n),
+                     rng.integers(0, 3, n), rng.integers(-1, 3, n),
+                     rng.integers(-1, 3, n), rng.integers(-1, 3, n),
+                     rng.integers(-1, 2, n), rng.integers(0, 3, n)],
+                    axis=1).astype(np.int32).reshape(n, 8)
+    if one_op:
+        feat[:, 1] = 5
+    return torch.from_numpy(feat)
+
+
+def check_conflict_kernels(feats: dict, dev) -> dict:
+    """Both conflict kernels on the card against their plain versions on
+    the card, and the packed kernel against the dense one, on every
+    ``label -> int32 [n, 8]`` case of ``feats``."""
+    import torch
+    from repro_torch.core.bitset import unpack_words
+    from repro_torch.kernels.conflict_matrix import (conflict_matrix_dense,
+                                                     conflict_matrix_words)
+    from repro_torch.kernels.conflict_matrix.ref import (
+        conflict_matrix_packed_plain, conflict_matrix_plain)
+    max_err = {"conflict_matrix": 0, "conflict_matrix_packed": 0}
+    cases = []
+    for label, feat in feats.items():
+        f = feat.to(dev)
+        n = f.shape[0]
+        dense, words = conflict_matrix_dense(f), conflict_matrix_words(f)
+        torch.cuda.synchronize()
+        dense_plain = conflict_matrix_plain(f)
+        words_plain = conflict_matrix_packed_plain(f)
+        torch.cuda.synchronize()
+        bits, bits_plain = unpack_words(words), unpack_words(words_plain)
+        err_d = int((dense.int() - dense_plain.int()).abs().max()) \
+            if n else 0
+        err_p = int((bits.int() - bits_plain.int()).abs().max()) \
+            if n else 0
+        max_err["conflict_matrix"] = max(max_err["conflict_matrix"], err_d)
+        max_err["conflict_matrix_packed"] = max(
+            max_err["conflict_matrix_packed"], err_p)
+        cases.append(dict(case=label, n=n, words=words.shape[1],
+                          edges=int(dense.sum()), max_abs_err_dense=err_d,
+                          max_abs_err_packed=err_p))
+        check(dense.shape == (n, n) and dense.dtype == torch.int8,
+              f"{label}: dense output {tuple(dense.shape)} {dense.dtype}")
+        check(torch.equal(dense, dense_plain),
+              f"conflict_matrix != plain version: {label}")
+        check(torch.equal(words, words_plain),
+              f"conflict_matrix_packed != plain version: {label}")
+        check(torch.equal(bits[:, :n], dense.bool()) and
+              not bits[:, n:].any(),
+              f"packed kernel, unpacked, != dense kernel: {label}")
+        if label.startswith("one-op"):
+            check(int(dense.sum()) == n * (n - 1),
+                  f"{label}: every off-diagonal pair must conflict")
+    return dict(max_abs_err=max_err, cases=cases)
+
+
+class GCClock:
+    """Seconds the host's cyclic garbage collector has run while this
+    is entered (read through `gc.callbacks`), so that a wall timed
+    around Python code shows how much of it was a collection pause."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self._start = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._start
+
+    def __enter__(self) -> "GCClock":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+
+def conflict_route(route_graphs: dict, cgra, dev) -> list:
+    """`build_conflict_graph(use_kernel="packed-cuda")` against the host
+    build on each ``label -> schedule``, with ``bus_pressure`` True and
+    False; the CUDA route's group part timed step by step; and the dense
+    entry point against the packed one."""
+    import torch
+    from repro_torch.core import build_conflict_graph
+    from repro_torch.core.bitset import pack_bool_rows
+    from repro_torch.core.conflict import bitset_group_conflicts
+    from repro_torch.kernels.conflict_matrix import (
+        conflict_matrix, conflict_matrix_packed, conflict_matrix_words)
+    from repro_torch.kernels.conflict_matrix.ref import encode
+    rows = []
+    for label, sched in route_graphs.items():
+        row = dict(graph=label)
+        for bp in (True, False):
+            with GCClock() as gc_host:
+                t0 = time.perf_counter()
+                host = build_conflict_graph(sched, cgra, bus_pressure=bp)
+                t1 = time.perf_counter()
+            with GCClock() as gc_cuda:
+                cuda = build_conflict_graph(sched, cgra, bus_pressure=bp,
+                                            use_kernel="packed-cuda",
+                                            device=dev)
+                t2 = time.perf_counter()
+            same = cuda.bits.rows.tobytes() == host.bits.rows.tobytes()
+            row[f"bus_pressure={bp}"] = dict(
+                v_c=host.n, host_s=t1 - t0, cuda_s=t2 - t1,
+                host_gc_s=gc_host.seconds, cuda_gc_s=gc_cuda.seconds,
+                byte_equal=same)
+            check(same, f"{label}, bus_pressure={bp}: packed-cuda rows "
+                        f"differ from the host build")
+        # The CUDA route's group part, step by step, beside the host's
+        # (the rest of either route's wall is the vertex list and the
+        # dependency and bus-pressure edges, which both share).
+        t0 = time.perf_counter()
+        feat = encode(host.vertices)
+        t1 = time.perf_counter()
+        feat_dev = torch.from_numpy(feat).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        words = conflict_matrix_words(feat_dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        words.cpu()
+        t4 = time.perf_counter()
+        bitset_group_conflicts(host.vertices, host.op_vertices, sched.ii)
+        t5 = time.perf_counter()
+        row["cuda_split_s"] = dict(encode=t1 - t0, h2d=t2 - t1,
+                                   kernel=t3 - t2, d2h=t4 - t3)
+        row["host_group_s"] = t5 - t4
+        dense = conflict_matrix(host.vertices, use_cuda=True, device=dev)
+        packed = conflict_matrix_packed(host.vertices, use_cuda=True,
+                                        device=dev)
+        check(pack_bool_rows(dense).tobytes() == packed.tobytes(),
+              f"{label}: conflict_matrix(use_cuda=True) disagrees with "
+              f"conflict_matrix_packed(use_cuda=True)")
+        rows.append(row)
+    return rows
+
+
+def map_workloads(dfgs: dict, cgra) -> list:
+    """`map_dfg` at the port's defaults on the `GOLDEN_16X16` graphs;
+    each must map at II = MII with the pinned (II, routing PEs)."""
+    from repro_torch.core import map_dfg
+    from repro_torch.kernels import LAUNCHES
+    cases = []
+    for name, pair in GOLDEN_16X16.items():
+        before = LAUNCHES["selection_counts"]
+        t0 = time.perf_counter()
+        r = map_dfg(dfgs[name], cgra)
+        wall = time.perf_counter() - t0
+        cases.append(dict(case=name, ok=r.ok, ii=r.ii, mii=r.mii,
+                          routing_pes=r.n_routing_pes, v_c=r.cg_size[0],
+                          wall_s=wall,
+                          launches=LAUNCHES["selection_counts"] - before))
+        check(r.ok and r.mis_size == r.n_ops, f"{name}@16x16 failed")
+        check(r.ii == r.mii, f"{name}@16x16: II {r.ii} above MII {r.mii}")
+        check((r.ii, r.n_routing_pes) == pair,
+              f"{name}@16x16: (II, routing PEs) = "
+              f"{(r.ii, r.n_routing_pes)}, pinned {pair}")
+    return cases
+
+
+def time_conflict_kernels(workloads: dict, dev) -> list:
+    """Both conflict kernels at each workload's shape: ms (CUDA events,
+    after warm-up), the bound, the plain versions (2 calls after a
+    warm-up) and the two host formulations (one call each)."""
+    import torch
+    from repro_torch.core.bitset import pack_bool_rows
+    from repro_torch.core.conflict import bitset_group_conflicts
+    from repro_torch.kernels.conflict_matrix import (conflict_matrix_dense,
+                                                     conflict_matrix_words)
+    from repro_torch.kernels.conflict_matrix.ref import (
+        conflict_matrix_packed_plain, conflict_matrix_plain,
+        conflict_matrix_ref, encode)
+    rows = []
+    for name, (sched, cg) in workloads.items():
+        feat = encode(cg.vertices)
+        f = torch.from_numpy(feat).to(dev)
+        n = cg.n
+        w32 = 2 * -(-n // 64)
+        t0 = time.perf_counter()
+        pack_bool_rows(conflict_matrix_ref(feat))
+        t1 = time.perf_counter()
+        bitset_group_conflicts(cg.vertices, cg.op_vertices, sched.ii)
+        t2 = time.perf_counter()
+        host_ms = {"conflict_matrix_ref+pack_bool_rows": 1e3 * (t1 - t0),
+                   "bitset_group_conflicts": 1e3 * (t2 - t1)}
+        for kernel, fn, plain, out_bytes, reps in (
+                ("conflict_matrix", conflict_matrix_dense,
+                 conflict_matrix_plain, n * n, 20),
+                ("conflict_matrix_packed", conflict_matrix_words,
+                 conflict_matrix_packed_plain, 4 * n * w32, 50)):
+            nbytes = 4 * 8 * n + out_bytes     # features in, words out
+            ops = OPS_PER_OUT_WORD * -(-out_bytes // 4)
+            t_ops, t_bytes = ops / PEAK_OPS_S, nbytes / PEAK_BYTES_S
+            rows.append(dict(
+                kernel=kernel, graph=f"{name}@16x16", n=n, w32=w32,
+                ms=cuda_ms(lambda: fn(f), reps),
+                plain_ms=cuda_ms(lambda: plain(f), 2),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, ops=ops, bytes=nbytes, host_ms=host_ms))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -140,9 +399,11 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from repro_torch.core import CGRAConfig, DeviceSBTS, make_cnkm, map_dfg
+    from repro_torch.core import (CGRAConfig, DeviceSBTS,
+                                  build_conflict_graph, make_cnkm, map_dfg)
     from repro_torch.core.bitset import pack_bool, pack_words
     from repro_torch.core.conflict import constructive_init
+    from repro_torch.kernels.conflict_matrix.ref import encode
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels.sbts_step import selection_counts
     from repro_torch.kernels.sbts_step.ref import selection_counts_plain
@@ -164,9 +425,11 @@ def main() -> int:
     libs = _build.build_all()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries=sorted(libs),
-              ptxas=[ln.strip() for ln in
-                     _build.build_log("sbts_step").splitlines()
-                     if "registers" in ln or "spill" in ln]))
+              ptxas={name: [ln.strip() for ln in
+                            _build.build_log(name).splitlines()
+                            if "entry function" in ln
+                            or "registers" in ln or "spill" in ln]
+                     for name in sorted(libs)}))
 
     # ---- the main path's graphs
     graphs = {}
@@ -177,6 +440,9 @@ def main() -> int:
         cgra = CGRAConfig(rows=side, cols=side)
         sched, cg = conflict_graph(make_cnkm(n, m), cgra, mode)
         graphs[name] = (sched, cg, cgra)
+    cgra16 = CGRAConfig(rows=16, cols=16)
+    workloads = {name: conflict_graph(dfg, cgra16, "bandmap")
+                 for name, dfg in workload_dfgs().items()}
 
     # ---- 2. the kernel against its plain version
     gen = torch.Generator(device=dev)
@@ -318,7 +584,45 @@ def main() -> int:
         check(independent, f"{name}: a best is not an independent set")
     emit(dict(phase="full-width", card=card, runs=widths))
 
-    # ---- 6. times
+    # ---- 6. the conflict kernels against their plain versions
+    feats = {f"{name}": torch.from_numpy(encode(cg.vertices))
+             for name, (_, cg, _) in graphs.items()}
+    feats.update({f"{name}@16x16": torch.from_numpy(encode(cg.vertices))
+                  for name, (_, cg) in workloads.items()})
+    for n in (0, 1, 31, 32, 33, 63, 64, 65, 100, 1000, 4097):
+        feats[f"random n={n}"] = random_features(n, seed=n)
+    for n in (100, 777):
+        feats[f"one-op n={n}"] = random_features(n, seed=n, one_op=True)
+    vs_plain = check_conflict_kernels(feats, dev)
+    emit(dict(phase="conflict-kernels-vs-plain", tolerance=0, **vs_plain))
+
+    # ---- 7. the conflict route: "packed-cuda" against the host build
+    route_graphs = {"C4K8@16x16:bandmap": graphs["C4K8@16x16:bandmap"][0]}
+    route_graphs.update({f"{name}@16x16": sched
+                         for name, (sched, _) in workloads.items()})
+    reset_launches()
+    route = conflict_route(route_graphs, cgra16, dev)
+    route_launches = {name: LAUNCHES[name] for name in
+                      ("conflict_matrix", "conflict_matrix_packed")}
+    # The slow host oracle ("packed": dense numpy + pack) on one graph.
+    sched, cg, _ = graphs["C4K8@16x16:bandmap"]
+    t0 = time.perf_counter()
+    oracle = build_conflict_graph(sched, cgra16, bus_pressure=True,
+                                  use_kernel="packed")
+    t_oracle = time.perf_counter() - t0
+    check(oracle.bits.rows.tobytes() == cg.bits.rows.tobytes(),
+          "host 'packed' oracle differs from the host build")
+    emit(dict(phase="conflict-route", launches=route_launches, runs=route,
+              oracle=dict(graph="C4K8@16x16:bandmap", packed_s=t_oracle)))
+    for name, count in route_launches.items():
+        check(count > 0, f"the conflict route never launched {name}")
+
+    # ---- 8. the 16x16 workloads through map_dfg
+    reset_launches()
+    emit(dict(phase="workloads-16x16",
+              cases=map_workloads(workload_dfgs(), cgra16)))
+
+    # ---- 9. times
     times = []
     for name, (sched, cg, cgra) in graphs.items():
         eng = DeviceSBTS(cg.bits, k=1024, seed=5, device=dev)
@@ -350,7 +654,9 @@ def main() -> int:
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops=ops, bytes=nbytes, launches_per_iter=3))
-    emit(dict(phase="times", card=card, runs=times))
+    conflict_times = time_conflict_kernels(workloads, dev)
+    emit(dict(phase="times", card=card, runs=times,
+              conflict_runs=conflict_times))
 
     # ---- the kernel table: the full-width shape of the main path
     row = next(t for t in times
@@ -363,7 +669,22 @@ def main() -> int:
         launches=main_launches, max_abs_err=max_err, ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
-        shape=f"K={row['k']} n_pad={row['n_pad']} W={row['w']}")],
+        shape=f"K={row['k']} n_pad={row['n_pad']} W={row['w']}")] + [
+        dict(name=kernel, route="cuda",
+             source="src/repro_torch/kernels/conflict_matrix/csrc/"
+                    "conflict_matrix.cu",
+             replaces=replaces, launches=route_launches[kernel],
+             max_abs_err=vs_plain["max_abs_err"][kernel], ms=t["ms"],
+             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+             bound_by=t["bound_by"], library_ms=None,
+             shape=f"n={t['n']} ({t['graph']})")
+        for kernel, replaces in (
+            ("conflict_matrix",
+             "src/repro/kernels/conflict_matrix/kernel.py:148"),
+            ("conflict_matrix_packed",
+             "src/repro/kernels/conflict_matrix/kernel.py:116"))
+        for t in conflict_times
+        if t["kernel"] == kernel and t["graph"] == "reduce32@16x16"],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """BandMap core, ported: the mapper (`bandmap.map_dfg`) and everything
 on its path — scheduling with bandwidth allocation, the conflict graph,
 the MIS engines (numpy `mis.PortfolioSBTS` and the GPU-resident
-`mis_device.DeviceSBTS`), certificates and the validator.
+`mis_device.DeviceSBTS`), certificates and the validator — and the
+seeded workload generator (`workloads`) that drives it at 16x16 scale.
 """
 
 from .bandmap import MappingResult, compare_modes, map_dfg
@@ -20,6 +21,11 @@ from .options import (CertifyOptions, MapOptions, PortfolioOptions,
                       ScheduleOptions)
 from .schedule import ScheduledDFG, mii, res_mii, schedule_dfg
 from .tec import TEC
+from .workloads import (COMAP_16X16_SPECS, TraceRequest, WorkloadSpec,
+                        generate, make_loop_kernel, make_reduction,
+                        make_request_trace, make_stencil,
+                        make_tightly_coupled, permute_dfg,
+                        scale_16x16_loop, serve_catalog, sweep_specs)
 
 __all__ = [
     "MappingResult", "compare_modes", "map_dfg", "BitsetGraph",
@@ -32,4 +38,8 @@ __all__ = [
     "MapOptions", "ScheduleOptions", "CertifyOptions",
     "PortfolioOptions",
     "ScheduledDFG", "mii", "res_mii", "schedule_dfg", "TEC",
+    "COMAP_16X16_SPECS", "TraceRequest", "WorkloadSpec", "generate",
+    "make_loop_kernel", "make_reduction", "make_request_trace",
+    "make_stencil", "make_tightly_coupled", "permute_dfg",
+    "scale_16x16_loop", "serve_catalog", "sweep_specs",
 ]

@@ -164,25 +164,31 @@ def _dep_ok(prod: Vertex, cons: Vertex) -> bool:
 def build_conflict_graph(sched: ScheduledDFG, cgra: CGRAConfig,
                          use_kernel: bool | str = False,
                          bus_pressure: bool = False,
-                         tracer=None) -> ConflictGraph:
+                         tracer=None, device=None) -> ConflictGraph:
     """Build the mixed conflict graph.  With ``bus_pressure=False``
     (default) the adjacency is byte-identical to the seed formulation
     (`dense_conflicts_python` + `_dep_ok`); ``bus_pressure=True``
     additionally folds the provable bus-capacity structure in via
     :func:`bus_pressure_edges` (the pipeline default — see map_dfg).
 
-    ``use_kernel`` selects the occupancy/clique formulation.  Only
-    False (packed bitset rows on the host, the default and what
-    `map_dfg` uses) is ported; any other value raises
-    NotImplementedError until the conflict-matrix kernels have their
-    GPU counterparts (ROADMAP, Queue 2 items 2-3).
+    ``use_kernel`` selects the occupancy/clique formulation: False =
+    packed bitset rows on the host (default, and what `map_dfg` uses),
+    True = the dense-bool numpy oracle then `BitsetGraph.from_dense`,
+    "packed" = the oracle then the pack, "packed-cuda" = the packed-word
+    CUDA kernel (`kernels.conflict_matrix`) on ``device`` (default None,
+    meaning ``cuda``), whose int32 words are viewed as the uint64 rows
+    `BitsetGraph` holds — no python pack step; it raises where there is
+    no GPU.  The reference's "packed-pallas" raises ValueError naming
+    "packed-cuda": there is no silent alias.  ``device`` is read by the
+    "packed-cuda" route only.
 
     ``tracer`` (default None) records the build as a "conflict-build"
     span; the edge popcount for the span attrs is only paid on a live
     tracer."""
     from repro_torch.obs.trace import live
     with live(tracer).span("conflict-build", ii=sched.ii) as sp:
-        cg = _build_conflict_graph(sched, cgra, use_kernel, bus_pressure)
+        cg = _build_conflict_graph(sched, cgra, use_kernel, bus_pressure,
+                                   device)
         if tracer is not None:
             sp.set(n_vertices=cg.n,
                    n_edges=int(np.bitwise_count(cg.bits.rows).sum()) // 2)
@@ -191,7 +197,8 @@ def build_conflict_graph(sched: ScheduledDFG, cgra: CGRAConfig,
 
 def _build_conflict_graph(sched: ScheduledDFG, cgra: CGRAConfig,
                           use_kernel: bool | str = False,
-                          bus_pressure: bool = False) -> ConflictGraph:
+                          bus_pressure: bool = False,
+                          device=None) -> ConflictGraph:
     dfg, ii = sched.dfg, sched.ii
     vertices: list[Vertex] = []
     op_vertices: dict[int, list[int]] = {}
@@ -225,14 +232,26 @@ def _build_conflict_graph(sched: ScheduledDFG, cgra: CGRAConfig,
     # Group part (per-op cliques + occupancy clashes), emitted as packed
     # bitset rows directly: each group is one row-OR of its member mask,
     # never touching an n² bool matrix.  `dense_conflicts_python` below is
-    # kept as the loop oracle for the equivalence tests.
-    if use_kernel is not False:
-        raise NotImplementedError(
-            f"build_conflict_graph(use_kernel={use_kernel!r}): the "
-            f"conflict-matrix kernels are not ported yet (ROADMAP, "
-            f"Queue 2 items 2-3); only the host build "
-            f"(use_kernel=False) is available")
-    bits = bitset_group_conflicts(vertices, op_vertices, ii)
+    # kept as the loop oracle for the equivalence tests; the conflict-
+    # matrix kernels (kernels/conflict_matrix, CUDA) are the device
+    # formulation of the same rules, held byte-equal to this build in
+    # tests/test_torch_conflict_matrix.py and chip_smoke.py.
+    if use_kernel == "packed-pallas":
+        raise ValueError(
+            "build_conflict_graph(use_kernel='packed-pallas'): the port "
+            "has no Pallas kernel; its packed-word kernel is "
+            "use_kernel='packed-cuda'")
+    if use_kernel in ("packed", "packed-cuda"):
+        from repro_torch.kernels.conflict_matrix.ops import \
+            conflict_matrix_packed
+        bits = BitsetGraph(len(vertices))
+        bits.rows = conflict_matrix_packed(
+            vertices, use_cuda=use_kernel == "packed-cuda", device=device)
+    elif use_kernel:
+        from repro_torch.kernels.conflict_matrix.ops import conflict_matrix
+        bits = BitsetGraph.from_dense(np.asarray(conflict_matrix(vertices)))
+    else:
+        bits = bitset_group_conflicts(vertices, op_vertices, ii)
 
     # Routing ops re-driving IBUS_r clash with any port tuple on IBUS_r at
     # the same slot (edge rule 2, first clause).  A route with drive (ROW, r)

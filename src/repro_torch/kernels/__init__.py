@@ -2,9 +2,18 @@
 with ``csrc/`` (the CUDA source), ``ref.py`` (its plain torch version)
 and ``ops.py`` (the checked wrapper):
 
-- sbts_step/  |N(v) ∩ S_k| by AND + popcount over packed words — the
-              device SBTS engine's conflict counts (replaces
-              ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``)
+- sbts_step/        ``selection_counts``: |N(v) ∩ S_k| by AND +
+                    popcount over packed words — the device SBTS
+                    engine's conflict counts (replaces
+                    ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``)
+- conflict_matrix/  ``conflict_matrix`` and ``conflict_matrix_packed``:
+                    the conflict graph's occupancy/clique predicate
+                    over every vertex pair, as a dense int8 matrix and
+                    as packed bitset words — behind
+                    ``build_conflict_graph(use_kernel="packed-cuda")``
+                    (replace ``conflict_matrix_pallas`` and
+                    ``conflict_matrix_packed_pallas`` of
+                    ``repro/kernels/conflict_matrix/kernel.py``)
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
@@ -13,7 +22,8 @@ its path went through.
 """
 
 #: kernel name -> launches since the last `reset_launches`.
-LAUNCHES: dict[str, int] = {"selection_counts": 0}
+LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
+                             "conflict_matrix_packed": 0}
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 #: library name -> its CUDA sources (paths relative to this package).
 SOURCES = {
     "sbts_step": ("sbts_step/csrc/selection_counts.cu",),
+    "conflict_matrix": ("conflict_matrix/csrc/conflict_matrix.cu",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -104,11 +104,39 @@ def test_rows_i32_pads_with_empty_rows_and_words():
     assert words.numpy().tobytes() == g.rows_u32(128).tobytes()
 
 
-@pytest.mark.parametrize("use_kernel", [True, "packed", "packed-pallas"])
+@pytest.mark.parametrize("use_kernel",
+                         [True, "packed", "packed-pallas", "packed-cuda"])
 def test_conflict_kernels_not_ported_raise(use_kernel):
-    dfg, cgra = make_cnkm(1, 2), CGRAConfig()
-    sched = port_schedule.schedule_dfg(dfg, cgra, mode="bandmap", ii=1,
-                                       max_ii=1, jitter=0, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_conflict.build_conflict_graph(sched, cgra,
-                                           use_kernel=use_kernel)
+    """The occupancy/clique routes of `build_conflict_graph`: the host
+    oracles (True, "packed") give rows byte-equal to the reference's
+    same route and to the port's default build; "packed-pallas" has no
+    port and raises ValueError naming "packed-cuda"; "packed-cuda"
+    needs a GPU and raises without one."""
+    ref_dfg, dfg = ref_make_cnkm(2, 6), make_cnkm(2, 6)
+    ref_cgra, cgra = RefCGRA(), CGRAConfig()
+    ref_sched = ref_schedule.schedule_dfg(ref_dfg, ref_cgra, mode="busmap")
+    sched = port_schedule.schedule_dfg(dfg, cgra, mode="busmap")
+    if use_kernel == "packed-pallas":
+        with pytest.raises(ValueError, match="packed-cuda"):
+            port_conflict.build_conflict_graph(sched, cgra,
+                                               use_kernel=use_kernel)
+        return
+    if use_kernel == "packed-cuda":
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: tests/test_torch_gpu.py runs "
+                        "this route")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port_conflict.build_conflict_graph(sched, cgra,
+                                               use_kernel=use_kernel)
+        return
+    for bus_pressure in (False, True):
+        want = ref_conflict.build_conflict_graph(
+            ref_sched, ref_cgra, use_kernel=use_kernel,
+            bus_pressure=bus_pressure)
+        got = port_conflict.build_conflict_graph(
+            sched, cgra, use_kernel=use_kernel, bus_pressure=bus_pressure)
+        default = port_conflict.build_conflict_graph(
+            sched, cgra, bus_pressure=bus_pressure)
+        assert got.bits.rows.tobytes() == want.bits.rows.tobytes()
+        assert got.bits.rows.tobytes() == default.bits.rows.tobytes()
+        assert got.n_edges == default.n_edges

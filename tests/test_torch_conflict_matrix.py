@@ -1,0 +1,164 @@
+"""The port's conflict-matrix module against the JAX package: its
+`encode`, the plain torch versions of the two CUDA kernels (held to the
+Pallas kernels in interpret mode and to the numpy oracle) and the
+vertex-level entry points.  Every value is a bit or an integer, so
+every comparison is exact (tolerance zero)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import schedule_dfg as ref_schedule_dfg  # noqa: E402
+from repro.core.bitset import pack_bool_rows  # noqa: E402
+from repro.core.cgra import CGRAConfig as RefCGRA  # noqa: E402
+from repro.core.conflict import \
+    build_conflict_graph as ref_build  # noqa: E402
+from repro.core.kernels_cnkm import make_cnkm as ref_make_cnkm  # noqa: E402
+from repro.kernels.conflict_matrix import ops as ref_ops  # noqa: E402
+from repro.kernels.conflict_matrix import ref as ref_ref  # noqa: E402
+from repro.kernels.conflict_matrix.kernel import (  # noqa: E402
+    conflict_matrix_packed_pallas, conflict_matrix_pallas)
+from repro_torch.core import CGRAConfig, make_cnkm, schedule_dfg  # noqa: E402
+from repro_torch.core.bitset import n_words  # noqa: E402
+from repro_torch.core.conflict import build_conflict_graph  # noqa: E402
+from repro_torch.kernels.conflict_matrix import ops, ref  # noqa: E402
+
+
+def _graphs(n: int, m: int, mode: str = "bandmap", side: int = 4):
+    """The same kernel's conflict graph, built by both packages."""
+    ref_cgra, cgra = RefCGRA(rows=side, cols=side), \
+        CGRAConfig(rows=side, cols=side)
+    ref_sched = ref_schedule_dfg(ref_make_cnkm(n, m), ref_cgra, mode=mode)
+    sched = schedule_dfg(make_cnkm(n, m), cgra, mode=mode)
+    return ref_build(ref_sched, ref_cgra), build_conflict_graph(sched, cgra)
+
+
+def _random_features(n: int, seed: int) -> np.ndarray:
+    """Fields in small ranges, so that many pairs share a kind, op, slot,
+    port or PE; kinds beyond QUAD and -1 match no occupancy rule."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(-1, 4, n), rng.integers(0, 6, n),
+                     rng.integers(0, 3, n), rng.integers(-1, 3, n),
+                     rng.integers(-1, 3, n), rng.integers(-1, 3, n),
+                     rng.integers(-1, 2, n), rng.integers(0, 3, n)],
+                    axis=1).astype(np.int32).reshape(n, 8)
+
+
+def _words_as_u64(words: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(words.numpy()).view(np.uint64)
+
+
+@pytest.mark.parametrize("n,m,mode,side", [
+    (2, 4, "bandmap", 4), (2, 6, "busmap", 4), (3, 6, "bandmap", 4),
+    (2, 8, "busmap", 4), (4, 8, "busmap", 8)])
+def test_encode_matches_reference(n, m, mode, side):
+    ref_cg, cg = _graphs(n, m, mode, side)
+    want = ref_ref.encode(ref_cg.vertices)
+    got = ref.encode(cg.vertices)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    # C2K8 under busmap on 4x4 schedules routing ops: drive is encoded.
+    if (n, m, mode, side) == (2, 8, "busmap", 4):
+        assert (got[:, 7] > 0).any()
+
+
+@pytest.mark.parametrize("n,m,blk", [(2, 4, 32), (2, 6, 64), (4, 4, 128)])
+def test_dense_plain_equals_pallas_interpret(n, m, blk):
+    ref_cg, _ = _graphs(n, m)
+    feat = ref_ref.encode(ref_cg.vertices)
+    pallas = np.asarray(conflict_matrix_pallas(
+        jnp.asarray(feat), block=blk, interpret=True))
+    got = ref.conflict_matrix_plain(torch.from_numpy(feat))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy().astype(bool),
+                                  ref_ref.conflict_matrix_ref(feat))
+
+
+@pytest.mark.parametrize("n,m,bi,bj", [(2, 4, 32, 64), (2, 6, 64, 128),
+                                       (4, 4, 128, 256)])
+def test_packed_plain_equals_pallas_interpret(n, m, bi, bj):
+    ref_cg, _ = _graphs(n, m)
+    feat = ref_ref.encode(ref_cg.vertices)
+    nv = feat.shape[0]
+    pallas = np.ascontiguousarray(np.asarray(conflict_matrix_packed_pallas(
+        jnp.asarray(feat), block_i=bi, block_j=bj, interpret=True)))
+    got = ref.conflict_matrix_packed_plain(torch.from_numpy(feat))
+    assert got.dtype == torch.int32 and got.shape == (nv, 2 * n_words(nv))
+    assert got.numpy().tobytes() == \
+        np.ascontiguousarray(pallas[:, :2 * n_words(nv)]).tobytes()
+    assert (pallas[:, 2 * n_words(nv):] == 0).all()
+    np.testing.assert_array_equal(
+        _words_as_u64(got),
+        pack_bool_rows(ref_ref.conflict_matrix_ref(feat)))
+
+
+def test_plain_versions_on_ragged_sizes():
+    for n in range(131):
+        feat = _random_features(n, seed=n)
+        want = ref_ref.conflict_matrix_ref(feat)
+        t = torch.from_numpy(feat)
+        dense = ref.conflict_matrix_plain(t)
+        words = ref.conflict_matrix_packed_plain(t)
+        assert dense.shape == (n, n) and words.shape == (n, 2 * n_words(n))
+        np.testing.assert_array_equal(dense.numpy().astype(bool), want)
+        np.testing.assert_array_equal(_words_as_u64(words),
+                                      pack_bool_rows(want))
+        # The port's own oracle copy is the reference's.
+        np.testing.assert_array_equal(ref.conflict_matrix_ref(feat), want)
+
+
+def test_every_pair_of_one_op_conflicts():
+    feat = _random_features(70, seed=1)
+    feat[:, 1] = 3
+    dense = ref.conflict_matrix_plain(torch.from_numpy(feat)).numpy()
+    np.testing.assert_array_equal(dense, 1 - np.eye(70, dtype=np.int8))
+
+
+@pytest.mark.parametrize("n,m,mode", [(2, 6, "bandmap"), (3, 6, "busmap"),
+                                      (4, 4, "bandmap")])
+def test_host_entry_points_match_reference(n, m, mode):
+    ref_cg, cg = _graphs(n, m, mode)
+    want = ref_ops.conflict_matrix(ref_cg.vertices)
+    got = ops.conflict_matrix(cg.vertices)
+    assert got.dtype == bool
+    np.testing.assert_array_equal(got, want)
+    want_rows = ref_ops.conflict_matrix_packed(ref_cg.vertices)
+    got_rows = ops.conflict_matrix_packed(cg.vertices)
+    assert got_rows.dtype == np.uint64
+    assert got_rows.tobytes() == want_rows.tobytes()
+    # The tensor wrappers on CPU tensors run the plain versions.
+    feat = torch.from_numpy(ref.encode(cg.vertices))
+    np.testing.assert_array_equal(
+        ops.conflict_matrix_dense(feat).numpy().astype(bool), want)
+    assert _words_as_u64(ops.conflict_matrix_words(feat)).tobytes() == \
+        want_rows.tobytes()
+
+
+def test_use_cuda_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the host without one")
+    _, cg = _graphs(2, 4)
+    for fn in (ops.conflict_matrix, ops.conflict_matrix_packed):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(cg.vertices, use_cuda=True)
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(cg.vertices, use_cuda=True, device="cpu")
+
+
+@pytest.mark.parametrize("wrapper", [ops.conflict_matrix_dense,
+                                     ops.conflict_matrix_words])
+def test_tensor_wrappers_check_their_input(wrapper):
+    with pytest.raises(ValueError, match="meta"):
+        wrapper(torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+    with pytest.raises(TypeError):
+        wrapper(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        wrapper(torch.zeros((4, 7), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        wrapper(torch.zeros((8, 4), dtype=torch.int32).t())

@@ -1,12 +1,13 @@
-"""Tests of the port that need a CUDA GPU: the hand-written kernel
-against its plain torch version, and the engine on the card against the
-engine on the CPU.  They skip without a GPU; on the card they run with
+"""Tests of the port that need a CUDA GPU: the hand-written kernels
+against their plain torch versions, the engine on the card against the
+engine on the CPU, and the conflict build's CUDA route against the host
+build.  They skip without a GPU; on the card they run with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports only torch and the port (no JAX), so that it runs
-where JAX is not installed.  Every comparison is exact: the counts and
-the engine state are integers and bools.
+where JAX is not installed.  Every comparison is exact: the counts, the
+adjacency bits and the engine state are integers and bools.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ from repro_torch.core import (CGRAConfig, DeviceSBTS,  # noqa: E402
                               build_conflict_graph, make_cnkm, map_dfg,
                               mii, schedule_dfg)
 from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels.conflict_matrix import (  # noqa: E402
+    conflict_matrix_dense, conflict_matrix_words)
+from repro_torch.kernels.conflict_matrix.ref import (  # noqa: E402
+    conflict_matrix_packed_plain, conflict_matrix_plain)
 from repro_torch.kernels.sbts_step import selection_counts  # noqa: E402
 from repro_torch.kernels.sbts_step.ref import (  # noqa: E402
     selection_counts_plain)
@@ -83,3 +88,41 @@ def test_map_dfg_defaults_run_on_the_card(cuda):
                 device_seeds=64)
     assert r.ok and (r.ii, r.n_routing_pes) == (3, 0)
     assert LAUNCHES["selection_counts"] > before
+
+
+def _features(n, seed, device):
+    """``int32 [n, 8]`` with every field in a small range, so that many
+    pairs share a kind, op, slot, port or PE."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.tensor([-1, 0, 0, -1, -1, -1, -1, 0])
+    hi = torch.tensor([4, 8, 3, 3, 3, 3, 2, 3])
+    u = torch.rand((n, 8), generator=g)
+    return (lo + (u * (hi - lo)).long()).to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 33, 64, 100, 1000, 2049])
+def test_conflict_kernels_equal_plain_versions(cuda, n):
+    feat = _features(n, n, cuda)
+    before = (LAUNCHES["conflict_matrix"],
+              LAUNCHES["conflict_matrix_packed"])
+    dense, words = conflict_matrix_dense(feat), conflict_matrix_words(feat)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["conflict_matrix"],
+            LAUNCHES["conflict_matrix_packed"]) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert dense.device.type == "cuda" and dense.dtype == torch.int8
+    assert dense.shape == (n, n)
+    assert torch.equal(dense, conflict_matrix_plain(feat))
+    assert torch.equal(words, conflict_matrix_packed_plain(feat))
+
+
+def test_packed_cuda_route_equals_host_build(cuda):
+    dfg, cgra = make_cnkm(4, 8), CGRAConfig(rows=8, cols=8)
+    ii = mii(dfg, cgra)
+    sched = schedule_dfg(dfg, cgra, mode="busmap", ii=ii, max_ii=ii + 4,
+                         jitter=0, seed=0)
+    for bus_pressure in (True, False):
+        host = build_conflict_graph(sched, cgra, bus_pressure=bus_pressure)
+        got = build_conflict_graph(sched, cgra, bus_pressure=bus_pressure,
+                                   use_kernel="packed-cuda", device=cuda)
+        assert got.bits.rows.tobytes() == host.bits.rows.tobytes()
