@@ -51,6 +51,40 @@ each printed as one JSON line:
    bound, its plain version and the ``torch._int_mm`` yardstick; both
    conflict kernels at each 16x16 workload shape, with their bounds,
    plain versions and the two host (numpy) formulations.
+10. llm-serve: zamba2-1.2b at its published widths (the port's seeded
+   init, seed 0) served by `WaveServer` with 4 slots: 8 requests of
+   1000 prompt tokens, 32 new tokens each.  The launch counts are reset
+   just before the two waves and read just after: `ssd` 76 times (38
+   Mamba2 layers per prefill), `flash_attention` never (the cached
+   prefill takes the plain masked product, as the reference's does).
+   Teacher-forced prefill and decode logits against the no-cache
+   forward's: in fp32 compute with an fp32 cache within the reference's
+   hybrid tolerance (atol = rtol = 0.15, tests/test_models.py:100-106);
+   in bf16, as served, the prefill within it, and at each decode step
+   the same argmax wherever the no-cache forward's top-2 margin exceeds
+   twice it (the rule the CPU tests hold `WaveServer` to: 38 random
+   layers part bf16 roundings by more than 0.15).  Prefill and decode
+   tokens/s and peak device memory.
+11. llm-forward-long: the no-cache forward at (1, 8192), which takes
+   flash attention (8192^2 > 4096^2): `flash_attention` 6 times (the
+   shared block's invocations), `ssd` 38 times, every logit finite.
+   Wall and peak device memory.
+12. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
+   their plain versions on the card: the reference's kernel cases
+   (tests/test_kernels.py) in fp32 and bf16, a ragged SSD (S = 1000,
+   chunk 256), and the inputs one layer really got on the path
+   (captured during phases 10 and 11).  Tolerances: flash 2e-6 (fp32)
+   and 2e-2 (bf16), the reference's; SSD 1e-4 in fp32, the reference's,
+   and in bf16 one bf16 ulp of y (1e-4 + 2^-7 |y|: both sides compute
+   in fp32 and round y once) with the fp32 state at 1e-4.
+13. llm-times: both kernels at their path shapes (CUDA events, after
+   warm-up), their plain versions, their bounds, and for flash
+   `F.scaled_dot_product_attention(is_causal=True)` on the same bf16
+   tensors as the library yardstick (off the path; the SSD scan has no
+   single PyTorch call), with its error against the plain version:
+   it computes P V from bf16 P on tensor cores, and must meet the
+   kernel's own bf16 tolerance, which is what lets the flash bound
+   count all its products at the bf16 tensor-core rate.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
@@ -97,12 +131,28 @@ WORKLOADS_16X16 = ("scale_16x16_loop", "loop40", "stencil16t3",
 # lane operation issues faster, so the bound below is a floor).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_BF16_S = 989e12      # bf16 tensor cores, dense
 OPS_PER_WORD = 3          # AND + POPC + ADD per (k, v, word)
 # The least work of the conflict predicate: it is the union of three
 # equivalence relations (same op; same kind, slot and port; QUAD with
 # the same slot and PE), so each 32-bit output word is the OR of at most
 # three group masks with the diagonal cleared (csrc/conflict_matrix.cu).
 OPS_PER_OUT_WORD = 3
+# The LLM path: zamba2-1.2b served (4 slots, 8 requests of 1000 prompt
+# tokens, 32 new ones) and its no-cache forward at 8192 tokens.
+LLM_ARCH = "zamba2-1.2b"
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1000, 32
+LONG_SEQ = 8192
+LOGIT_TOL = 0.15        # the reference's hybrid tolerance (test_models.py)
+FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SSD_ATOL = 1e-4
+SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# The reference's kernel cases (tests/test_kernels.py:17-25, :70-75).
+FA_CASES = [(2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
+            (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
+            (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511)]
+SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
+             (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256)]
 
 
 def emit(obj: dict) -> None:
@@ -387,6 +437,427 @@ def time_conflict_kernels(workloads: dict, dev) -> list:
     return rows
 
 
+class Capture:
+    """Wraps ``module.name`` (a kernel's wrapper) while entered and keeps
+    a copy of the first call's arguments: the inputs the path really
+    gives the kernel.  The wrapped call still counts its own launch."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name = module, name
+        self.args = self.kwargs = None
+
+    def __enter__(self) -> "Capture":
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def _call(self, *args, **kwargs):
+        if self.args is None:
+            self.args = tuple(a.clone() for a in args)
+            self.kwargs = dict(kwargs)
+        return self.orig(*args, **kwargs)
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+class StepClock:
+    """Wall seconds (with a device sync at the end of each call) of every
+    call to ``module.name`` while entered."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name = module, name
+        self.seconds: list[float] = []
+
+    def __enter__(self) -> "StepClock":
+        import torch
+        self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+def top2_margin(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+class compute_dtype:
+    """While entered, the port's dense layers and embedding compute in
+    ``dtype`` (their default is bf16, as in the reference)."""
+
+    def __init__(self, dtype) -> None:
+        self.dtype = dtype
+
+    def __enter__(self) -> None:
+        from repro_torch.models import layers
+        self.saved = (layers.dense.__kwdefaults__["compute_dtype"],
+                      layers.embed.__defaults__)
+        layers.dense.__kwdefaults__["compute_dtype"] = self.dtype
+        layers.embed.__defaults__ = (self.dtype,)
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import layers
+        layers.dense.__kwdefaults__["compute_dtype"] = self.saved[0]
+        layers.embed.__defaults__ = self.saved[1]
+
+
+def teacher_forced(cfg, model, dev, wave, forced, s_max, cache_dtype):
+    """Prefill ``wave`` into a cache of ``cache_dtype``, then decode the
+    ``forced`` tokens one by one; each step's logits against the
+    no-cache forward's at the same position.  Per step: the max abs
+    error, its ratio to the reference's criterion (assert_allclose
+    with atol = rtol = 0.15, tests/test_models.py:100-106), the number
+    of rows whose no-cache top-2 margin exceeds twice the tolerance and
+    how many of those pick another argmax."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    seq = torch.cat([wave, forced], dim=1)
+    with torch.inference_mode():
+        full, _, _ = T.forward(cfg, model, {"tokens": seq})
+    out = dict(max_abs_err=[], tol_ratio=[], max_abs_logit=0.0,
+               clear_rows=[], argmax_flips=[])
+
+    def compare(got, want) -> None:
+        diff = (got - want).abs()
+        out["max_abs_err"].append(float(diff.max()))
+        out["tol_ratio"].append(float(
+            (diff / (LOGIT_TOL + LOGIT_TOL * want.abs())).max()))
+        out["max_abs_logit"] = max(out["max_abs_logit"],
+                                   float(want.abs().max()))
+        clear = top2_margin(want) > 2 * LOGIT_TOL
+        flips = got.argmax(-1) != want.argmax(-1)
+        out["clear_rows"].append(int(clear.sum()))
+        out["argmax_flips"].append(int((clear & flips).sum()))
+
+    cache = M.init_cache(cfg, wave.shape[0], s_max, dtype=cache_dtype,
+                         device=dev)
+    logits, cache = M.prefill_step(cfg, model, {"tokens": wave}, cache)
+    out["first_token"] = logits[:, -1].argmax(-1).cpu()
+    compare(logits[:, -1], full[:, wave.shape[1] - 1])
+    for t in range(forced.shape[1] - 1):
+        _, logits, cache = M.serve_step(
+            cfg, model, {"tokens": forced[:, t:t + 1]}, cache)
+        compare(logits[:, -1], full[:, wave.shape[1] + t])
+    return out
+
+
+def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
+    """Phase 10: `WaveServer` over two waves, with the launch counts read
+    around them; then teacher-forced prefill and decode against the
+    no-cache forward.  Emits the phase's line (with ``extra``) before
+    its checks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import WaveServer
+    from repro_torch.models import model as M
+
+    s_max = SERVE_PROMPT + SERVE_NEW + 8
+    server = WaveServer(cfg, model, slots=SERVE_SLOTS, s_max=s_max)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Capture(ssd_ops, "ssd") as cap, \
+            StepClock(M, "prefill_step") as pre, \
+            StepClock(M, "serve_step") as dec:
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = [server.run_wave(prompts[lo:lo + SERVE_SLOTS], SERVE_NEW)
+                for lo in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in ("ssd", "flash_attention")}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = np.concatenate(outs)
+    check(tokens.shape == (SERVE_REQUESTS, SERVE_NEW),
+          f"served tokens {tokens.shape}")
+
+    # Teacher-forced: the first wave's prompts and the tokens it got.
+    wave = torch.from_numpy(prompts[:SERVE_SLOTS]).to(dev)
+    forced = torch.from_numpy(tokens[:SERVE_SLOTS, :8]).to(dev)
+    tf = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        with compute_dtype(dtype):
+            tf[name] = teacher_forced(cfg, model, dev, wave, forced, s_max,
+                                      dtype)
+    first_token = tf["bf16"].pop("first_token")
+    tf["fp32"].pop("first_token")
+    # Where a wave's time goes: one more prefill and 8 decode steps under
+    # the profiler, against their unprofiled walls above.
+    cache = M.init_cache(cfg, SERVE_SLOTS, s_max, device=dev)
+
+    def prefill_once():
+        return M.prefill_step(cfg, model, {"tokens": wave}, cache)
+
+    def decode_8():
+        for t in range(forced.shape[1]):
+            M.serve_step(cfg, model, {"tokens": forced[:, t:t + 1]}, cache)
+
+    prof_pre = device_profile(prefill_once)
+    prof_dec = device_profile(decode_8)
+    n_dec = SERVE_SLOTS * (SERVE_NEW - 1)
+    dec_s = [sum(dec.seconds[i * (SERVE_NEW - 1):(i + 1) * (SERVE_NEW - 1)])
+             for i in range(2)]
+    step_ms = 1e3 * sum(dec_s) / (2 * (SERVE_NEW - 1))
+    row = dict(arch=cfg.name, slots=SERVE_SLOTS, requests=SERVE_REQUESTS,
+               prompt=SERVE_PROMPT, new=SERVE_NEW, launches=launches,
+               wall_s=wall, prefill_s=pre.seconds[:2], decode_s=dec_s,
+               prefill_tokens_per_s=[SERVE_SLOTS * SERVE_PROMPT / t
+                                     for t in pre.seconds[:2]],
+               decode_tokens_per_s=[n_dec / t for t in dec_s],
+               decode_step_ms_mean=step_ms, peak_mem_bytes=peak,
+               teacher_forced=tf,
+               prefill_profile=dict(
+                   prof_pre, busy_share=None if prof_pre["device_ms"] is None
+                   else prof_pre["device_ms"] / (1e3 * pre.seconds[1])),
+               decode_profile_8_steps=dict(
+                   prof_dec, busy_share=None if prof_dec["device_ms"] is None
+                   else prof_dec["device_ms"] / (forced.shape[1] * step_ms)),
+               tolerance=dict(atol=LOGIT_TOL, rtol=LOGIT_TOL),
+               sample=tokens[0, :8].tolist())
+    emit(dict(phase="llm-serve", **extra, **row))
+    check(((tokens >= 0) & (tokens < cfg.vocab)).all(), "token out of range")
+    check(launches["ssd"] == 2 * cfg.n_layers,
+          f"ssd launched {launches['ssd']} times, expected "
+          f"{2 * cfg.n_layers} (38 per prefill wave)")
+    check(launches["flash_attention"] == 0,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in serving; the cached prefill takes sdpa")
+    check(torch.equal(first_token,
+                      torch.from_numpy(tokens[:SERVE_SLOTS, 0]).long()),
+          "a replayed prefill disagrees with the served first token")
+    fp32, bf16 = tf["fp32"], tf["bf16"]
+    check(max(fp32["tol_ratio"]) <= 1.0,
+          f"fp32 teacher-forced logits differ from the no-cache forward by "
+          f"{max(fp32['max_abs_err']):.4f} (atol = rtol = {LOGIT_TOL})")
+    check(bf16["tol_ratio"][0] <= 1.0,
+          f"bf16 prefill logits differ from the no-cache forward by "
+          f"{bf16['max_abs_err'][0]:.4f} (atol = rtol = {LOGIT_TOL})")
+    check(sum(bf16["argmax_flips"]) == 0,
+          f"bf16 teacher-forced decode picks another token than the "
+          f"no-cache forward at {sum(bf16['argmax_flips'])} of "
+          f"{sum(bf16['clear_rows'])} rows whose top-2 margin exceeds "
+          f"{2 * LOGIT_TOL}")
+    return row, cap
+
+
+def llm_forward_long(cfg, model, dev, extra: dict):
+    """Phase 11: the no-cache forward at (1, LONG_SEQ) with the launch
+    counts read around it.  Emits the phase's line (with ``extra``)
+    before its checks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LONG_SEQ), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Capture(fa_ops, "flash_attention") as fa_cap, \
+            Capture(ssd_ops, "ssd") as ssd_cap, torch.inference_mode():
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, _, _ = T.forward(cfg, model, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in ("ssd", "flash_attention")}
+    finite = bool(torch.isfinite(logits).all())
+    row = dict(arch=cfg.name, seq=LONG_SEQ, launches=launches, wall_s=wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               logits_shape=list(logits.shape), finite=finite)
+    del logits
+    emit(dict(phase="llm-forward-long", **extra, **row))
+    n_inv = T.n_hybrid_attn_invocations(cfg)
+    check(launches["flash_attention"] == n_inv,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected {n_inv}")
+    check(launches["ssd"] == cfg.n_layers,
+          f"ssd launched {launches['ssd']} times, expected {cfg.n_layers}")
+    check(finite, "the long forward gave a non-finite logit")
+    return row, fa_cap, ssd_cap
+
+
+def _flash_err(q, k, v, q_offset, window) -> float:
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    got = flash_attention(q, k, v, q_offset=q_offset, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
+    check(bool(torch.isfinite(got).all()), "flash_attention gave a NaN")
+    return float((got.float() - want.float()).abs().max())
+
+
+def _ssd_err(args, chunk: int) -> tuple[float, float, bool]:
+    """(max |dy|, max |d state|, within tolerance) of the kernel against
+    the plain version."""
+    import torch
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    y, fin = ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    wy, wf = ssd_chunked(*args, chunk=chunk)
+    dy = (y.float() - wy.float()).abs()
+    df = (fin - wf).abs()
+    rtol = SSD_RTOL[str(y.dtype).split(".")[1]]
+    ok = bool((dy <= SSD_ATOL + rtol * wy.float().abs()).all()) and \
+        bool((df <= SSD_ATOL + SSD_RTOL["float32"] * wf.abs()).all())
+    return float(dy.max()), float(df.max()), ok
+
+
+def llm_kernels_vs_plain(dev, captured: dict) -> dict:
+    """Phase 12: both kernels against their plain versions on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fa_cases, ssd_cases = [], []
+    for case in FA_CASES:
+        b, sq, sk, hq, hkv, d, window, q_offset = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                     (b, sk, hkv, d)))
+            name = str(dtype).split(".")[1]
+            err = _flash_err(q, k, v, q_offset, window)
+            fa_cases.append(dict(case=list(case), dtype=name, max_abs_err=err,
+                                 tolerance=FA_TOL[name]))
+            check(err <= FA_TOL[name], f"flash_attention {case} {name}: "
+                                       f"{err} > {FA_TOL[name]}")
+    for case in SSD_CASES:
+        b, s, h, p, n, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [torch.randn((b, s, h, p), generator=gen, device=dev),
+                    torch.nn.functional.softplus(torch.randn(
+                        (b, s, h), generator=gen, device=dev)),
+                    torch.randn((h,), generator=gen, device=dev) * 0.3,
+                    torch.randn((b, s, 1, n), generator=gen, device=dev),
+                    torch.randn((b, s, 1, n), generator=gen, device=dev)]
+            args = [a if i == 2 else a.to(dtype) for i, a in enumerate(args)]
+            dy, df, ok = _ssd_err(args, chunk)
+            name = str(dtype).split(".")[1]
+            ssd_cases.append(dict(case=list(case), dtype=name,
+                                  max_abs_err_y=dy, max_abs_err_state=df))
+            check(ok, f"ssd {case} {name}: |dy| {dy}, |dstate| {df}")
+    path = {}
+    q, k, v = captured["flash_long"].args
+    kw = captured["flash_long"].kwargs
+    path["flash_attention"] = dict(
+        shape=list(q.shape), dtype="bfloat16",
+        max_abs_err=_flash_err(q, k, v, kw.get("q_offset", 0),
+                               kw.get("window")))
+    check(path["flash_attention"]["max_abs_err"] <= FA_TOL["bfloat16"],
+          "flash_attention at the path's inputs exceeds 2e-2")
+    for label in ("ssd_long", "ssd_serve"):
+        cap = captured[label]
+        dy, df, ok = _ssd_err(cap.args, cap.kwargs["chunk"])
+        path[label] = dict(shape=list(cap.args[0].shape),
+                           chunk=cap.kwargs["chunk"], max_abs_err_y=dy,
+                           max_abs_err_state=df)
+        check(ok, f"ssd at the path's inputs ({label}): |dy| {dy}, "
+                  f"|dstate| {df}")
+    return dict(flash_attention=fa_cases, ssd=ssd_cases, path=path)
+
+
+def flash_bound(b, sq, sk, hq, d, nbytes) -> dict:
+    """The least time of causal attention on bf16 inputs: 4 d FLOP for
+    each visible (query, key) pair, all at the bf16 tensor-core rate.
+    Q K^T takes bf16 operands whose products are exact in fp32; P V may
+    take P rounded to bf16, since the library call that does so meets
+    the kernel's own bf16 tolerance in this run (`llm_times` checks)."""
+    pairs = sum(min(i + 1 + (sk - sq), sk) for i in range(sq))
+    flop = 4 * d * pairs * hq * b
+    t_ops, t_bytes = flop / PEAK_BF16_S, nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop, bytes=nbytes)
+
+
+def ssd_bound(b, s, h, p, n, chunk, nbytes) -> dict:
+    """The least time of the scan.  Per chunk of l real steps and head:
+    the causal half of the gate product with x (l (l + 1) P), the
+    inter-chunk term and the state update (2 l P N each), at the fp32
+    rate, since one operand of each is an fp32 value the scan computes
+    (the gate, the decays, the carried state); per chunk, the scores
+    C B^T shared by the heads of the one group (l (l + 1) N), at the
+    bf16 tensor-core rate, since both operands are bf16 inputs.  The
+    two units can run at once, so the larger time binds."""
+    flop_fp32 = flop_bf16 = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        flop_fp32 += h * (ln * (ln + 1) * p + 4 * ln * p * n)
+        flop_bf16 += ln * (ln + 1) * n
+    flop_fp32, flop_bf16 = b * flop_fp32, b * flop_bf16
+    t_ops = max(flop_fp32 / PEAK_OPS_S, flop_bf16 / PEAK_BF16_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop_fp32 + flop_bf16, flop_fp32=flop_fp32,
+                flop_bf16=flop_bf16, bytes=nbytes)
+
+
+def llm_times(captured: dict) -> list:
+    """Phase 13: both kernels at their path shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    rows = []
+    q, k, v = captured["flash_long"].args
+    b, sq, hq, d = q.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    lib_err = float((library().float() -
+                     flash_attention_ref(q, k, v).float()).abs().max())
+    rows.append(dict(
+        kernel="flash_attention", shape=list(q.shape), dtype="bfloat16",
+        ms=cuda_ms(lambda: flash_attention(q, k, v), 10),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 2),
+        library_ms=cuda_ms(library, 20),
+        library="torch.nn.functional.scaled_dot_product_attention",
+        library_max_abs_err=lib_err,
+        **flash_bound(b, sq, k.shape[1], hq, d, nbytes)))
+    check(lib_err <= FA_TOL["bfloat16"],
+          f"scaled_dot_product_attention differs from the plain version by "
+          f"{lib_err} > {FA_TOL['bfloat16']}: the flash bound's bf16 rate "
+          f"for P V does not hold")
+    for label in ("ssd_long", "ssd_serve"):
+        args = captured[label].args
+        chunk = captured[label].kwargs["chunk"]
+        bsz, s, h, p = args[0].shape
+        n = args[3].shape[-1]
+        nbytes = sum(t.numel() * t.element_size() for t in args) + \
+            args[0].numel() * args[0].element_size() + 4 * bsz * h * p * n
+        rows.append(dict(
+            kernel="ssd", label=label, shape=list(args[0].shape),
+            chunk=chunk, n=n, dtype="bfloat16",
+            ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10),
+            plain_ms=cuda_ms(lambda: ssd_chunked(*args, chunk=chunk), 3),
+            library_ms=None, library="none: no single PyTorch call",
+            **ssd_bound(bsz, s, h, p, n, chunk, nbytes)))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -658,6 +1129,37 @@ def main() -> int:
     emit(dict(phase="times", card=card, runs=times,
               conflict_runs=conflict_times))
 
+    # ---- 10-13. the LLM path: zamba2-1.2b at its published widths
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as llm
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    model = llm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve_row, ssd_serve = llm_serve(
+        cfg, model, dev, dict(card=card, init_s=init_s, params=sum(
+            p.numel() for p in model.parameters())))
+    long_row, fa_long, ssd_long = llm_forward_long(cfg, model, dev,
+                                                   dict(card=card))
+    captured = {"flash_long": fa_long, "ssd_long": ssd_long,
+                "ssd_serve": ssd_serve}
+    del model
+    llm_vs = llm_kernels_vs_plain(dev, captured)
+    emit(dict(phase="llm-kernels-vs-plain",
+              tolerances=dict(flash_attention=FA_TOL,
+                              ssd=dict(atol=SSD_ATOL, rtol=SSD_RTOL)),
+              **llm_vs))
+    llm_rows = llm_times(captured)
+    emit(dict(phase="llm-times", card=card, runs=llm_rows))
+    fa_row = llm_rows[0]
+    ssd_row = next(r for r in llm_rows if r.get("label") == "ssd_long")
+    ssd_err = max(max(c["max_abs_err_y"] for c in llm_vs["ssd"]),
+                  max(llm_vs["path"][k]["max_abs_err_y"]
+                      for k in ("ssd_long", "ssd_serve")))
+    fa_err = max(max(c["max_abs_err"] for c in llm_vs["flash_attention"]),
+                 llm_vs["path"]["flash_attention"]["max_abs_err"])
+
     # ---- the kernel table: the full-width shape of the main path
     row = next(t for t in times
                if t["graph"] == "C4K8@16x16:bandmap" and t["k"] == 1024)
@@ -684,7 +1186,27 @@ def main() -> int:
             ("conflict_matrix_packed",
              "src/repro/kernels/conflict_matrix/kernel.py:116"))
         for t in conflict_times
-        if t["kernel"] == kernel and t["graph"] == "reduce32@16x16"],
+        if t["kernel"] == kernel and t["graph"] == "reduce32@16x16"] + [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:89",
+             launches=long_row["launches"]["flash_attention"],
+             max_abs_err=fa_err, ms=fa_row["ms"],
+             plain_ms=fa_row["plain_ms"], bound_ms=fa_row["bound_ms"],
+             bound_by=fa_row["bound_by"], library_ms=fa_row["library_ms"],
+             shape=f"{tuple(fa_row['shape'])} bf16 causal "
+                   f"(llm-forward-long)"),
+        dict(name="ssd", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd/kernel.py:80",
+             launches=long_row["launches"]["ssd"],
+             launches_serving=serve_row["launches"]["ssd"],
+             max_abs_err=ssd_err, ms=ssd_row["ms"],
+             plain_ms=ssd_row["plain_ms"], bound_ms=ssd_row["bound_ms"],
+             bound_by=ssd_row["bound_by"], library_ms=None,
+             shape=f"{tuple(ssd_row['shape'])} N={ssd_row['n']} "
+                   f"chunk={ssd_row['chunk']} bf16 (llm-forward-long)")],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

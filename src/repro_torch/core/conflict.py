@@ -249,7 +249,8 @@ def _build_conflict_graph(sched: ScheduledDFG, cgra: CGRAConfig,
             vertices, use_cuda=use_kernel == "packed-cuda", device=device)
     elif use_kernel:
         from repro_torch.kernels.conflict_matrix.ops import conflict_matrix
-        bits = BitsetGraph.from_dense(np.asarray(conflict_matrix(vertices)))
+        bits = BitsetGraph.from_dense(
+            np.asarray(conflict_matrix(vertices, use_cuda=False)))
     else:
         bits = bitset_group_conflicts(vertices, op_vertices, ii)
 

@@ -14,6 +14,14 @@ and ``ops.py`` (the checked wrapper):
                     (replace ``conflict_matrix_pallas`` and
                     ``conflict_matrix_packed_pallas`` of
                     ``repro/kernels/conflict_matrix/kernel.py``)
+- flash_attention/  ``flash_attention``: forward GQA attention, causal
+                    from ``q_offset``, optional sliding window — the
+                    no-cache forward's shared-attention block on long
+                    prompts (replaces
+                    ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``)
+- ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
+                    layer's prefill (replaces
+                    ``repro/kernels/ssd/kernel.py::ssd_pallas``)
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
@@ -23,7 +31,8 @@ its path went through.
 
 #: kernel name -> launches since the last `reset_launches`.
 LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
-                             "conflict_matrix_packed": 0}
+                             "conflict_matrix_packed": 0,
+                             "flash_attention": 0, "ssd": 0}
 
 
 def reset_launches() -> None:

@@ -27,6 +27,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "sbts_step": ("sbts_step/csrc/selection_counts.cu",),
     "conflict_matrix": ("conflict_matrix/csrc/conflict_matrix.cu",),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
+    "ssd": ("ssd/csrc/ssd.cu",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,9 +13,10 @@ use, or the call raises.
 Vertex-level entry points, over `core.conflict.Vertex` lists:
 `conflict_matrix` (bool ``[n, n]``) and `conflict_matrix_packed`
 (uint64 ``[n, n_words(n)]``, the rows `BitsetGraph` holds).
-``use_cuda=False`` is the numpy oracle, as the reference's
-``use_pallas=False``; ``use_cuda=True`` runs the kernel on ``device``
-(None means ``cuda``) and raises where there is no GPU.
+By default (``use_cuda=True``) they run the kernel on ``device`` (None
+means ``cuda``) and raise where there is no GPU; ``use_cuda=False`` is
+the caller's explicit request for the host's numpy oracle (the
+reference's ``use_pallas=False``).
 """
 
 from __future__ import annotations
@@ -106,15 +107,17 @@ def conflict_matrix_words(feat: torch.Tensor) -> torch.Tensor:
 def _cuda_features(vertices, device) -> torch.Tensor:
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
-        raise ValueError(f"use_cuda=True runs on a CUDA device, not {dev}; "
-                         f"use_cuda=False is the host's numpy oracle")
+        raise ValueError(f"use_cuda=True (the default) runs on a CUDA "
+                         f"device, not {dev}; use_cuda=False is the "
+                         f"host's numpy oracle")
     if not torch.cuda.is_available():
-        raise RuntimeError("use_cuda=True needs a CUDA GPU, and none is "
-                           "available")
+        raise RuntimeError("use_cuda=True (the default) needs a CUDA GPU, "
+                           "and none is available; use_cuda=False is the "
+                           "host's numpy oracle")
     return torch.from_numpy(ref.encode(vertices)).to(dev)
 
 
-def conflict_matrix(vertices, *, use_cuda: bool = False,
+def conflict_matrix(vertices, *, use_cuda: bool = True,
                     device=None) -> np.ndarray:
     """core.conflict.Vertex list -> (n, n) bool adjacency of the
     occupancy/clique rules (dense part; dependency edges added by the
@@ -125,7 +128,7 @@ def conflict_matrix(vertices, *, use_cuda: bool = False,
     return adj.cpu().numpy().astype(bool)
 
 
-def conflict_matrix_packed(vertices, *, use_cuda: bool = False,
+def conflict_matrix_packed(vertices, *, use_cuda: bool = True,
                            device=None) -> np.ndarray:
     """core.conflict.Vertex list -> packed ``uint64 [n, n_words(n)]``
     adjacency rows, the layout `core.bitset.BitsetGraph` holds.

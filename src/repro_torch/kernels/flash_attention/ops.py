@@ -1,0 +1,90 @@
+"""The checked wrapper for the flash-attention kernel.
+
+`flash_attention(q, k, v, q_offset=, window=)` takes q (B, Sq, Hq, D)
+and k, v (B, Sk, Hkv, D), float32 or bfloat16, and returns
+(B, Sq, Hq, D) in q's type.  Tensors on the CPU go to the plain version
+(`ref.flash_attention_ref`); CUDA tensors go to the kernel
+(``csrc/flash_attention.cu``), built at first use, or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import LAUNCHES
+from .._build import load
+from .ref import flash_attention_ref
+
+_NAME = "flash_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, S, H, D), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"q, k and v must share a dtype: {name} is "
+                            f"{t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"differ")
+    b, _, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"disagree on batch or head dim")
+    if k.shape[2] == 0 or hq % k.shape[2]:
+        raise ValueError(f"{hq} query heads are not a multiple of "
+                         f"{k.shape[2]} key heads")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_NAME} runs on cpu or cuda, not {q.device}")
+
+
+def _launcher():
+    fn = load(_NAME).flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, q_offset: int = 0,
+                    window: int | None = None, block_k: int = 512):
+    """Causal GQA attention (see the module docstring); ``block_k`` is
+    the plain version's key block and does not change the result."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, q_offset=q_offset,
+                                   window=window, block_k=block_k)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{_NAME} takes float32 or bfloat16, not {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d > 128:
+        raise ValueError(f"{_NAME} takes head dims up to 128, not {d}")
+    if max(b, sq, sk, hq) >= 2**31 or abs(q_offset) >= 2**30:
+        raise ValueError(f"{_NAME}: a size or q_offset is out of range")
+    win = 0 if window is None or window <= 0 else int(window)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    launch = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), _DTYPES[q.dtype], b, sq, sk, hq, hkv,
+                     d, int(q_offset), win, d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"{_NAME} launch failed: CUDA error {err}")
+    LAUNCHES[_NAME] += 1
+    return out

@@ -1,0 +1,147 @@
+"""Batched serving driver: wave-scheduled batching — a wave of requests is
+admitted together, prefilled in one call, then decoded in lockstep; the
+next wave starts when the wave completes.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --requests 8 --gen 32
+
+The prefill of a wave fills the decode cache (the Mamba2 layers' SSD scan
+runs as the CUDA kernel on the card) and each decode tick is one
+`model.serve_step`.  PyTorch runs eagerly: there is no compiled step, and
+the cache is updated in place with the reference's ``pos`` semantics.
+
+Before serving, the driver prints the plan's **bandwidth rounds**
+(`planner.schedule_transfer_rounds`): which per-step collectives can
+overlap and which contend for the same mesh axis.
+
+``--map-trace N`` (kernel-mapping requests through a mapping service)
+is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import model as M
+
+_MAP_TRACE_TODO = ("--map-trace needs the mapping service, which is not "
+                   "ported yet (ROADMAP Queue 1, item 7: serve/)")
+
+
+class WaveServer:
+    """Admit `slots` requests at a time; one prefill + N decode ticks, on
+    the device the model lives on."""
+
+    def __init__(self, cfg, model, *, slots: int = 4, s_max: int = 512):
+        self.cfg = cfg
+        self.model = model
+        self.slots = slots
+        self.s_max = s_max
+        self.device = model.embed.table.device
+
+    def run_wave(self, prompts: np.ndarray, max_new: int,
+                 extra_inputs: dict | None = None) -> np.ndarray:
+        """prompts: (B<=slots, S) int32 (padded to equal length).
+        Returns generated tokens (B, max_new)."""
+        if extra_inputs:
+            raise NotImplementedError("vision and audio inputs are not "
+                                      "ported yet (ROADMAP Queue 1, "
+                                      "item 11)")
+        b, s = prompts.shape
+        if b > self.slots or s + max_new > self.s_max:
+            raise ValueError(f"a wave of {b} prompts of {s} tokens and "
+                             f"{max_new} new ones does not fit {self.slots}"
+                             f" slots of {self.s_max} positions")
+        toks = np.pad(prompts, ((0, self.slots - b), (0, 0)))
+        cache = M.init_cache(self.cfg, self.slots, self.s_max,
+                             device=self.device)
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32,
+                                           device=self.device)}
+        logits, cache = M.prefill_step(self.cfg, self.model, batch, cache)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        out = [nxt]
+        for _ in range(max_new - 1):
+            nxt2, _, cache = M.serve_step(self.cfg, self.model,
+                                          {"tokens": nxt[:, None]}, cache)
+            nxt = nxt2[:, 0]
+            out.append(nxt)
+        return torch.stack(out, dim=1)[:b].cpu().numpy()
+
+
+def serving_transfer_rounds(cfg, *, batch: int, seq: int,
+                            tp: int = 16) -> tuple[list[list[str]], str]:
+    """Bandwidth rounds of the decode step's transfer plan.
+
+    Builds the planner's transfer DFG for a TP-sharded decode step and
+    peels it into contention-free rounds with
+    `planner.schedule_transfer_rounds`.  Returns (rounds, printable
+    summary)."""
+    from repro_torch.core import planner
+
+    plan = planner.plan(cfg, "decode", seq, batch,
+                        planner.mesh_stub({"data": 1, "model": tp}),
+                        arch=cfg.name, shape="serve")
+    rounds = planner.schedule_transfer_rounds(plan)
+    moving = [t for t in plan.transfers if t.bytes_per_step > 0]
+    text = (f"transfer plan: {len(plan.transfers)} classes, "
+            f"{len(moving)} moving bytes -> {len(rounds)} bandwidth "
+            f"round(s) {rounds}")
+    return rounds, text
+
+
+def run_map_trace(*args, **kwargs):
+    raise NotImplementedError(_MAP_TRACE_TODO)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-1.2b")
+    # As in the reference, --smoke is on and cannot be turned off.
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--map-trace", type=int, default=0, metavar="N",
+                    help="serve N kernel-mapping requests (not ported)")
+    ap.add_argument("--trace-scale", default="8x8",
+                    choices=["4x4", "8x8", "16x16"])
+    args = ap.parse_args(argv)
+
+    if args.map_trace:
+        raise NotImplementedError(_MAP_TRACE_TODO)
+
+    cfg = get_smoke_config(args.arch) if args.smoke \
+        else get_config(args.arch)
+    _, rounds_text = serving_transfer_rounds(
+        cfg, batch=args.slots, seq=args.prompt_len + args.gen)
+    print(rounds_text)
+    model = M.init_params(cfg, 0, device=args.device)
+    server = WaveServer(cfg, model, slots=args.slots,
+                        s_max=args.prompt_len + args.gen + 8)
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab,
+                           size=(args.requests, args.prompt_len),
+                           dtype=np.int32)
+    t0 = time.time()
+    outs = []
+    for lo in range(0, args.requests, args.slots):
+        outs.append(server.run_wave(prompts[lo:lo + args.slots], args.gen))
+    dt = time.time() - t0
+    total = args.requests * args.gen
+    print(f"served {args.requests} requests × {args.gen} tokens in "
+          f"{dt:.1f}s ({total / dt:.1f} tok/s); "
+          f"sample: {outs[0][0][:8].tolist()}")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

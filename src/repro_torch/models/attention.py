@@ -1,0 +1,144 @@
+"""Attention for the architecture pool: GQA (grouped-query) with
+optional QKV bias, RoPE / M-RoPE, causal and sliding-window masks —
+zamba2's shared attention block and the dense families' layers.
+
+Long sequences go to the flash-attention kernel
+(`repro_torch.kernels.flash_attention`: the CUDA kernel for tensors on
+the card, its plain torch version on the CPU), at the reference's
+thresholds; short ones and every cached step take the plain masked
+product `sdpa`, as the reference does.  MLA and cross-attention are not
+ported (they raise).
+
+Shapes follow (B, S, H, D); KV caches are (B, S_max, H_kv, D).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+from .layers import Dense, apply_rope
+
+_MLA_TODO = ("MLA attention is not ported yet: it comes with the "
+             "moe family (ROADMAP Queue 1, item 11)")
+_CROSS_TODO = ("cross-attention is not ported yet: it comes with the "
+               "encdec family (ROADMAP Queue 1, item 11)")
+
+
+# ------------------------------------------------------------------ masking
+def causal_window_mask(q_pos, k_pos, window):
+    """(..., S_q, S_k) bool mask.  window: None or an int; values <= 0
+    mean plain causal."""
+    m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window is not None and window > 0:
+        m &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
+    return m
+
+
+def sdpa(q, k, v, mask, *, scale=None, logit_cap: float | None = None):
+    """Masked softmax(QK^T)V with GQA head broadcasting.
+
+    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); mask: (B or 1, 1, Sq, Sk).
+    Logits and softmax in fp32; the weights take v's type for the
+    product with v, as in the reference.  Memory O(Sq*Sk).
+    """
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qh = q.reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) \
+        * scale
+    if logit_cap is not None:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
+    if mask.dim() != 4 or mask.shape[1] != 1:
+        raise ValueError(f"mask must be (B, 1, Sq, Sk), got "
+                         f"{tuple(mask.shape)}")
+    logits = torch.where(mask[:, :, None, :, :], logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(b, sq, hq, v.shape[-1])
+
+
+def _flash_or_sdpa(q, k, v, *, q_offset: int, window, flash_block: int):
+    """Dispatch: flash attention for long sequences, plain SDPA for short
+    ones (and for decode where Sq is tiny)."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq * sk > 4096 * 4096 or (sq == 1 and sk > 8192):
+        return fa_ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            q_offset=q_offset, window=window, block_k=flash_block)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    mask = causal_window_mask(q_pos, k_pos, window)[None, None]
+    return sdpa(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------- GQA
+class GQA(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 *, qkv_bias: bool = False, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.q = Dense(d_model, (n_heads, head_dim), bias=qkv_bias, **kw)
+        self.k = Dense(d_model, (n_kv, head_dim), bias=qkv_bias, **kw)
+        self.v = Dense(d_model, (n_kv, head_dim), bias=qkv_bias, **kw)
+        self.o = Dense(n_heads * head_dim, d_model, **kw)
+
+    def forward(self, x, positions, *, n_heads: int, n_kv: int,
+                head_dim: int, rope_theta: float = 10000.0,
+                window: int | None = None,
+                mrope_sections: tuple[int, ...] | None = None,
+                cache: dict | None = None, flash_block: int = 512):
+        """Returns (out, new_cache).  cache = {"k", "v": (B, S_max, Hkv,
+        D), "pos": int} for decode and cached prefill, updated in place
+        (the returned cache holds the same tensors and the new ``pos``);
+        None for the no-cache forward (full causal self-attention)."""
+        q = self.q(x)                              # (B,S,H,D)
+        k = self.k(x)
+        v = self.v(x)
+        q = apply_rope(q, positions, theta=rope_theta,
+                       mrope_sections=mrope_sections)
+        k = apply_rope(k, positions, theta=rope_theta,
+                       mrope_sections=mrope_sections)
+
+        if cache is None:
+            out = _flash_or_sdpa(q, k, v, q_offset=0, window=window,
+                                 flash_block=flash_block)
+            new_cache = None
+        else:
+            pos, s = int(cache["pos"]), q.shape[1]
+            k_all, v_all = cache["k"], cache["v"]
+            s_max = k_all.shape[1]
+            if pos + s > s_max:
+                raise ValueError(f"the KV cache holds {s_max} positions; "
+                                 f"{pos} + {s} do not fit")
+            k_all[:, pos:pos + s] = k.to(k_all.dtype)
+            v_all[:, pos:pos + s] = v.to(v_all.dtype)
+            q_pos = pos + torch.arange(s, device=q.device)
+            k_pos = torch.arange(s_max, device=q.device)
+            mask = causal_window_mask(q_pos, k_pos, window)[None, None]
+            out = sdpa(q, k_all, v_all, mask)
+            new_cache = {"k": k_all, "v": v_all, "pos": pos + s}
+
+        b, s = x.shape[:2]
+        out = out.reshape(b, s, n_heads * head_dim)
+        return self.o(out), new_cache
+
+
+def mla_init(*args, **kwargs):
+    raise NotImplementedError(_MLA_TODO)
+
+
+def mla_attention(*args, **kwargs):
+    raise NotImplementedError(_MLA_TODO)
+
+
+def cross_attention_init(*args, **kwargs):
+    raise NotImplementedError(_CROSS_TODO)
+
+
+def cross_attention(*args, **kwargs):
+    raise NotImplementedError(_CROSS_TODO)

@@ -1,0 +1,91 @@
+"""Model entry points: parameter init, parameter count, the decode cache,
+`prefill_step` and `serve_step` — the functions `launch.serve` drives.
+
+Everything takes an explicit ``device`` (None means ``cuda``; with no
+GPU that raises).  The model is inference-only in this slice: its
+parameters do not require gradients, and `loss_fn` and
+`make_train_step` wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import transformer as T
+from .layers import resolve_device
+from .ssm import mamba2_cache_shapes
+from .transformer import ModelConfig
+
+_TRAIN_TODO = ("training is not ported yet (ROADMAP Queue 1, item 11: "
+               "training with backward kernels)")
+
+
+# ------------------------------------------------------------------ params
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device=None) -> nn.Module:
+    """The port's seeded init of ``cfg``'s model, on ``device``.  It draws
+    from the reference's distributions with a `torch.Generator` seeded by
+    ``seed``; the numbers differ from the reference's
+    (`convert.from_reference` carries those over)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return T.build_model(cfg, device=dev, generator=gen)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    model = T.build_model(cfg, device=torch.device("meta"))
+    return int(sum(p.numel() for p in model.parameters()))
+
+
+# ------------------------------------------------------------------- cache
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, *, device=None) -> dict:
+    """The zeroed decode cache of ``batch`` sequences with capacity
+    ``s_max``, as the reference's pytree: {"layers": {"mamba": {"conv":
+    (L, B, W-1, conv_dim), "ssm": (L, B, H, P, N) float32}, "attn":
+    {"k", "v": (n_inv, B, s_max, Hkv, D), "pos": [int] * n_inv}},
+    "pos": int}.  Positions are Python ints (the loop is eager)."""
+    T.require_ported(cfg)
+    dev = resolve_device(device)
+    one = mamba2_cache_shapes(batch, d_model=cfg.d_model,
+                              d_state=cfg.d_state, expand=cfg.ssm_expand,
+                              n_groups=cfg.ssm_groups,
+                              head_dim=cfg.ssm_head_dim, dtype=dtype)
+    n_inv = T.n_hybrid_attn_invocations(cfg)
+    kv = (n_inv, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"layers": {
+        "mamba": {name: torch.zeros((cfg.n_layers, *shape), dtype=dt,
+                                    device=dev)
+                  for name, (shape, dt) in one.items()},
+        "attn": {"k": torch.zeros(kv, dtype=dtype, device=dev),
+                 "v": torch.zeros(kv, dtype=dtype, device=dev),
+                 "pos": [0] * n_inv}},
+        "pos": 0}
+
+
+# -------------------------------------------------------------------- loss
+def loss_fn(*args, **kwargs):
+    raise NotImplementedError(_TRAIN_TODO)
+
+
+def make_train_step(*args, **kwargs):
+    raise NotImplementedError(_TRAIN_TODO)
+
+
+# ------------------------------------------------------------- serve step
+@torch.inference_mode()
+def prefill_step(cfg: ModelConfig, model, batch, cache):
+    """Run the prompt through the model, filling the cache; returns
+    (last-token logits, cache)."""
+    logits, _, cache = T.forward(cfg, model, batch, caches=cache)
+    return logits[:, -1:], cache
+
+
+@torch.inference_mode()
+def serve_step(cfg: ModelConfig, model, batch, cache):
+    """One decode step: batch["tokens"]: (B, 1).  Greedy next token.
+    Returns (next_tokens (B, 1) int32, logits, cache)."""
+    logits, _, cache = T.forward(cfg, model, batch, caches=cache)
+    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    return nxt[:, None], logits, cache

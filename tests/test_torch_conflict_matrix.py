@@ -125,11 +125,11 @@ def test_every_pair_of_one_op_conflicts():
 def test_host_entry_points_match_reference(n, m, mode):
     ref_cg, cg = _graphs(n, m, mode)
     want = ref_ops.conflict_matrix(ref_cg.vertices)
-    got = ops.conflict_matrix(cg.vertices)
+    got = ops.conflict_matrix(cg.vertices, use_cuda=False)
     assert got.dtype == bool
     np.testing.assert_array_equal(got, want)
     want_rows = ref_ops.conflict_matrix_packed(ref_cg.vertices)
-    got_rows = ops.conflict_matrix_packed(cg.vertices)
+    got_rows = ops.conflict_matrix_packed(cg.vertices, use_cuda=False)
     assert got_rows.dtype == np.uint64
     assert got_rows.tobytes() == want_rows.tobytes()
     # The tensor wrappers on CPU tensors run the plain versions.
@@ -149,6 +149,19 @@ def test_use_cuda_without_a_gpu_raises():
             fn(cg.vertices, use_cuda=True)
         with pytest.raises(ValueError, match="CUDA device"):
             fn(cg.vertices, use_cuda=True, device="cpu")
+
+
+def test_vertex_entry_points_default_to_the_card():
+    """With no flag the vertex-level entry points take the card: without
+    a GPU they raise, never fall back to the host's oracle."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the host without one")
+    _, cg = _graphs(2, 4)
+    for fn in (ops.conflict_matrix, ops.conflict_matrix_packed):
+        with pytest.raises(RuntimeError, match="use_cuda=False"):
+            fn(cg.vertices)
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(cg.vertices, device="cpu")
 
 
 @pytest.mark.parametrize("wrapper", [ops.conflict_matrix_dense,

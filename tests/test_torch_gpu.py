@@ -1,13 +1,17 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels
 against their plain torch versions, the engine on the card against the
-engine on the CPU, and the conflict build's CUDA route against the host
-build.  They skip without a GPU; on the card they run with
+engine on the CPU, the conflict build's CUDA route against the host
+build, and the zamba2 smoke model on the card against the CPU.  They
+skip without a GPU; on the card they run with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports only torch and the port (no JAX), so that it runs
-where JAX is not installed.  Every comparison is exact: the counts, the
-adjacency bits and the engine state are integers and bools.
+where JAX is not installed.  The counts, the adjacency bits and the
+engine state are integers and bools, compared exactly.  Flash attention
+is held to the reference's kernel tolerances (2e-6 fp32, 2e-2 bf16);
+the SSD scan to the reference's 1e-4 in fp32 and, in bf16, to one bf16
+ulp of y (both sides compute in fp32 and round y once).
 """
 
 from __future__ import annotations
@@ -116,6 +120,24 @@ def test_conflict_kernels_equal_plain_versions(cuda, n):
     assert torch.equal(words, conflict_matrix_packed_plain(feat))
 
 
+def test_vertex_entry_points_default_to_the_card(cuda):
+    from repro_torch.kernels.conflict_matrix import (conflict_matrix,
+                                                     conflict_matrix_packed)
+    dfg, cgra = make_cnkm(2, 6), CGRAConfig()
+    sched = schedule_dfg(dfg, cgra, mode="bandmap")
+    cg = build_conflict_graph(sched, cgra)
+    before = (LAUNCHES["conflict_matrix"],
+              LAUNCHES["conflict_matrix_packed"])
+    dense = conflict_matrix(cg.vertices)
+    rows = conflict_matrix_packed(cg.vertices)
+    assert (LAUNCHES["conflict_matrix"],
+            LAUNCHES["conflict_matrix_packed"]) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert (dense == conflict_matrix(cg.vertices, use_cuda=False)).all()
+    assert rows.tobytes() == conflict_matrix_packed(
+        cg.vertices, use_cuda=False).tobytes()
+
+
 def test_packed_cuda_route_equals_host_build(cuda):
     dfg, cgra = make_cnkm(4, 8), CGRAConfig(rows=8, cols=8)
     ii = mii(dfg, cgra)
@@ -126,3 +148,107 @@ def test_packed_cuda_route_equals_host_build(cuda):
         got = build_conflict_graph(sched, cgra, bus_pressure=bus_pressure,
                                    use_kernel="packed-cuda", device=cuda)
         assert got.bits.rows.tobytes() == host.bits.rows.tobytes()
+
+
+def _flash_case(b, sq, sk, hq, hkv, d, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device)
+            for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    (2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
+    (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
+    (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511),
+    (1, 100, 70, 2, 1, 48, 0, 3), (1, 4, 8, 2, 1, 16, 5, 100)], ids=str)
+def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    b, sq, sk, hq, hkv, d, window, q_offset = case
+    q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, sum(case[:6]))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, q_offset=q_offset, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _ssd_case(b, s, h, p, n, dtype, device, seed, g=1):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen))
+    a_log = torch.randn((h,), generator=gen) * 0.3
+    bb = torch.randn((b, s, g, n), generator=gen)
+    cc = torch.randn((b, s, g, n), generator=gen)
+    return [x.to(dtype).to(device), dt.to(dtype).to(device),
+            a_log.to(device), bb.to(dtype).to(device),
+            cc.to(dtype).to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
+    (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256),
+    (1, 5, 4, 16, 16, 8), (1, 12, 2, 96, 16, 64)], ids=str)
+def test_ssd_equals_plain_version(cuda, case, dtype):
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    b, s, h, p, n, chunk = case
+    args = _ssd_case(b, s, h, p, n, dtype, cuda, sum(case))
+    before = LAUNCHES["ssd"]
+    y, fin = ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd"] == before + 1
+    wy, wf = ssd_chunked(*args, chunk=chunk)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert ((y.float() - wy.float()).abs()
+            <= 1e-4 + rtol * wy.float().abs()).all()
+    torch.testing.assert_close(fin, wf, atol=1e-4, rtol=1e-5)
+
+
+def test_ssd_kernel_takes_one_group(cuda):
+    from repro_torch.kernels.ssd import ssd
+    with pytest.raises(ValueError, match="one group"):
+        ssd(*_ssd_case(1, 16, 4, 8, 16, torch.float32, cuda, 0, g=2))
+
+
+def test_zamba2_smoke_model_on_the_card_equals_the_cpu(cuda):
+    """The smoke model's no-cache forward (both kernels: S = 4160 takes
+    the flash path) and a served wave on the card, against the same
+    weights on the CPU.  bf16 rounds apart over 4160 positions, so the
+    argmax must agree wherever the CPU's top-2 margin exceeds twice the
+    reference's 0.15; at S = 32 the logits agree within 0.15."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import WaveServer
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("zamba2-1.2b")
+    on_card = M.init_params(cfg, 0, device=cuda)
+    on_cpu = M.init_params(cfg, 0, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 4160),
+                         generator=torch.Generator().manual_seed(0))
+    before = dict(LAUNCHES)
+    got, _, _ = T.forward(cfg, on_card, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] - before["flash_attention"] == \
+        T.n_hybrid_attn_invocations(cfg)
+    assert LAUNCHES["ssd"] - before["ssd"] == cfg.n_layers
+    want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks})
+    assert torch.isfinite(got).all()
+    top2 = want[0].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 0.3
+    assert (got[0].cpu().argmax(-1) == want[0].argmax(-1))[sure].all()
+    short, _, _ = T.forward(cfg, on_card, {"tokens": toks[:, :32]})
+    want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks[:, :32]})
+    assert (short.cpu() - want).abs().max() <= 0.15
+    prompts = toks[0, :64].reshape(4, 16).numpy()
+    out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
+    assert out.shape == (4, 8)

@@ -1,0 +1,162 @@
+"""The port's SSD scan against the JAX package: its plain torch version
+(`repro_torch.kernels.ssd.ref`: `ssd_chunked`, `ssd_step`, `segsum`)
+against the reference's on the reference's own cases, a ragged sequence
+and two groups, and against the Pallas kernel in interpret mode; the
+wrapper's dispatch and checks.  Inputs are made with numpy from a seed
+and handed to both.
+
+Tolerance: 2e-4 absolute plus 1e-5 relative, where the reference's own
+kernel test uses 1e-4 (tests/test_kernels.py:96).  The two packages
+sum in different orders, and at these inputs |y| reaches ~190, where
+one fp32 ulp is 1.5e-5: on the third case each package's fp32 scan is
+up to 1.8e-4 (JAX) and 1.2e-4 (port) from a float64 recurrence, and
+the two differ by up to 1.5e-4 at |y| ~ 3.  So 1e-4 is below the
+algorithm's own fp32 error there; it held in the reference's test
+because both of its sides run XLA's arithmetic.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd.kernel import ssd_pallas  # noqa: E402
+from repro.kernels.ssd.ref import segsum as jax_segsum  # noqa: E402
+from repro.kernels.ssd.ref import ssd_chunked as jax_ssd  # noqa: E402
+from repro.kernels.ssd.ref import ssd_step as jax_step  # noqa: E402
+from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels.ssd import ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import (segsum, ssd_chunked,  # noqa: E402
+                                         ssd_step)
+
+ATOL, RTOL = 2e-4, 1e-5
+
+# The reference's SSD_CASES (tests/test_kernels.py:70-75):
+# B, S, H, P, N, chunk, head_block
+SSD_CASES = [
+    (2, 64, 4, 16, 32, 16, 2),
+    (1, 128, 8, 32, 64, 32, 4),
+    (2, 128, 4, 64, 128, 64, 4),
+]
+
+
+def _inputs(b, s, h, p, n, g=1, seed=7):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a_log = (rng.standard_normal(h) * 0.3).astype(np.float32)
+    bb = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cc = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    return x, dt, a_log, bb, cc
+
+
+def _both(arrays, chunk):
+    want_y, want_f = jax_ssd(*(jnp.asarray(a) for a in arrays), chunk=chunk)
+    got_y, got_f = ssd_chunked(*(torch.from_numpy(a) for a in arrays),
+                               chunk=chunk)
+    return (np.asarray(want_y), np.asarray(want_f), got_y.numpy(),
+            got_f.numpy())
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [
+    # ragged: 200 = 3 * 64 + 8, padded with dt = 0 steps
+    (2, 200, 4, 16, 32, 64, 0),
+    # chunk above S (the no-cache forward's chunk on a short prompt)
+    (1, 12, 4, 16, 16, 64, 0)], ids=str)
+def test_ssd_chunked_matches_reference(case):
+    b, s, h, p, n, chunk, _ = case
+    wy, wf, gy, gf = _both(_inputs(b, s, h, p, n), chunk)
+    assert gy.shape == (b, s, h, p) and gf.shape == (b, h, p, n)
+    np.testing.assert_allclose(gy, wy, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(gf, wf, atol=ATOL, rtol=RTOL)
+
+
+def test_ssd_chunked_with_two_groups():
+    wy, wf, gy, gf = _both(_inputs(2, 64, 4, 16, 32, g=2), 16)
+    np.testing.assert_allclose(gy, wy, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(gf, wf, atol=ATOL, rtol=RTOL)
+
+
+def test_ssd_chunked_in_bf16_keeps_the_dtype():
+    arrays = _inputs(1, 64, 4, 16, 32)
+    want_y, want_f = jax_ssd(*(jnp.asarray(a, jnp.bfloat16)
+                               if i != 2 else jnp.asarray(a)
+                               for i, a in enumerate(arrays)), chunk=16)
+    got_y, got_f = ssd_chunked(*(torch.from_numpy(a).bfloat16()
+                                 if i != 2 else torch.from_numpy(a)
+                                 for i, a in enumerate(arrays)), chunk=16)
+    assert got_y.dtype == torch.bfloat16 and got_f.dtype == torch.float32
+    # The inputs are bf16 but the scan is fp32 on both sides; y is
+    # rounded once to bf16, so the sides differ by at most one bf16 ulp
+    # (2^-7 relative) where their fp32 values straddle a rounding edge.
+    np.testing.assert_allclose(got_y.float().numpy(),
+                               np.asarray(want_y.astype(jnp.float32)),
+                               atol=ATOL, rtol=2.0 ** -7)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_ssd_step_matches_reference():
+    rng = np.random.default_rng(5)
+    b, h, p, n, g = 2, 4, 8, 16, 2
+    state = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    x = rng.standard_normal((b, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, h)))).astype(np.float32)
+    a_log = (rng.standard_normal(h) * 0.3).astype(np.float32)
+    bt = rng.standard_normal((b, g, n)).astype(np.float32)
+    ct = rng.standard_normal((b, g, n)).astype(np.float32)
+    args = (state, x, dt, a_log, bt, ct)
+    wy, ws = jax_step(*(jnp.asarray(a) for a in args))
+    gy, gs = ssd_step(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), atol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), atol=1e-5)
+
+
+def test_segsum_matches_reference():
+    la = np.random.default_rng(2).standard_normal((3, 8)).astype(np.float32)
+    want = np.asarray(jax_segsum(jnp.asarray(la)))
+    got = segsum(torch.from_numpy(la)).numpy()
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], atol=1e-6)
+    ss = segsum(torch.tensor([0.1, 0.2, 0.3, 0.4]))
+    assert float(ss[2, 0]) == pytest.approx(0.5, abs=1e-6)
+
+
+def test_plain_version_matches_pallas_interpret():
+    b, s, h, p, n, chunk, hb = SSD_CASES[0]
+    arrays = _inputs(b, s, h, p, n)
+    wy, wf = ssd_pallas(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                        head_block=hb, interpret=True)
+    gy, gf = ssd_chunked(*(torch.from_numpy(a) for a in arrays),
+                         chunk=chunk)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(gf.numpy(), np.asarray(wf), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version():
+    arrays = [torch.from_numpy(a) for a in _inputs(1, 40, 4, 16, 32, g=2)]
+    before = LAUNCHES["ssd"]
+    y, f = ops.ssd(*arrays, chunk=16)
+    assert LAUNCHES["ssd"] == before
+    wy, wf = ssd_chunked(*arrays, chunk=16)
+    assert torch.equal(y, wy) and torch.equal(f, wf)
+
+
+def test_wrapper_checks_its_input():
+    x, dt, a_log, b, c = (torch.from_numpy(a)
+                          for a in _inputs(1, 16, 4, 8, 16))
+    with pytest.raises(ValueError):
+        ops.ssd(x, dt[:, :8], a_log, b, c)
+    with pytest.raises(ValueError):
+        ops.ssd(x, dt, a_log, b[:, :, :, :8], c)
+    with pytest.raises(ValueError):
+        ops.ssd(x, dt, a_log, b, c, chunk=0)
+    with pytest.raises(ValueError, match="meta"):
+        ops.ssd(*(t.to("meta") for t in (x, dt, a_log, b, c)))
