@@ -55,8 +55,9 @@ each printed as one JSON line:
    init, seed 0) served by `WaveServer` with 4 slots: 8 requests of
    1000 prompt tokens, 32 new tokens each.  The launch counts are reset
    just before the two waves and read just after: `ssd` 76 times (38
-   Mamba2 layers per prefill), `flash_attention` never (the cached
-   prefill takes the plain masked product, as the reference's does).
+   Mamba2 layers per prefill), all on its bf16 tensor-core route
+   (`ssd_tc`), `flash_attention` never (the cached prefill takes the
+   plain masked product, as the reference's does).
    Teacher-forced prefill and decode logits against the no-cache
    forward's: in fp32 compute with an fp32 cache within the reference's
    hybrid tolerance (atol = rtol = 0.15, tests/test_models.py:100-106);
@@ -67,18 +68,29 @@ each printed as one JSON line:
    tokens/s and peak device memory.
 11. llm-forward-long: the no-cache forward at (1, 8192), which takes
    flash attention (8192^2 > 4096^2): `flash_attention` 6 times (the
-   shared block's invocations), `ssd` 38 times, every logit finite.
+   shared block's invocations), `ssd` 38 times, each on its bf16
+   tensor-core route (`flash_attention_tc`, `ssd_tc`), every logit
+   finite.
    Wall and peak device memory.
 12. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
    their plain versions on the card: the reference's kernel cases
-   (tests/test_kernels.py) in fp32 and bf16, a ragged SSD (S = 1000,
-   chunk 256), and the inputs one layer really got on the path
-   (captured during phases 10 and 11).  Tolerances: flash 2e-6 (fp32)
-   and 2e-2 (bf16), the reference's; SSD 1e-4 in fp32, the reference's,
-   and in bf16 one bf16 ulp of y (1e-4 + 2^-7 |y|: both sides compute
-   in fp32 and round y once) with the fp32 state at 1e-4.
+   (tests/test_kernels.py) in fp32 and bf16, cases across the
+   tensor-core kernels' tile edges and their plain loads (`FA_CASES`,
+   `SSD_CASES`; one bf16 case each with its first input at an offset of
+   2 elements), and the inputs one layer really got on the path (captured during phases 10
+   and 11); each case records the route it took (bf16: tensor-core,
+   fp32: the fp32 kernel) and fails on the other.  Tolerances: flash
+   2e-6 (fp32) and 2e-2 (bf16), the reference's; SSD 1e-4 in fp32, the
+   reference's, and in bf16 one bf16 ulp of y (1e-4 + 2^-7 |y|: both
+   sides compute in fp32 and round y once) with the fp32 state at
+   1e-4 + 1e-5 |state|.
 13. llm-times: both kernels at their path shapes (CUDA events, after
-   warm-up), their plain versions, their bounds, and for flash
+   warm-up), their times before the tensor-core redesign (`earlier_ms`,
+   the fp32 CUDA-core kernels' times, quoted from PERF.md and not
+   measured, so the kernels line leaves them out), their plain
+   versions, their bounds (the SSD scan's products counted at the bf16
+   rate times the fewest bf16 passes that meet its tolerances,
+   `SSD_PASSES`), and for flash
    `F.scaled_dot_product_attention(is_causal=True)` on the same bf16
    tensors as the library yardstick (off the path; the SSD scan has no
    single PyTorch call), with its error against the plain version:
@@ -147,12 +159,40 @@ LOGIT_TOL = 0.15        # the reference's hybrid tolerance (test_models.py)
 FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SSD_ATOL = 1e-4
 SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-# The reference's kernel cases (tests/test_kernels.py:17-25, :70-75).
+# The reference's kernel cases (tests/test_kernels.py:17-25, :70-75),
+# then cases across the tensor-core kernels' tile edges: flash's Sq and Sk
+# off its 128-row query and 64-key tiles, D 48 and 128, a window,
+# q_offset > 0, GQA 4:1; SSD's single chunk, S < chunk, P = 96 (a ragged
+# second column tile), N off 64 and a ragged last chunk.  D = 5 and 44,
+# P = 20 and N = 12 are not multiples of 8, so their bf16 calls take the
+# kernels' plain loads instead of cp.async, as does a bf16 input at an
+# offset of 2 elements (4 bytes off 16-byte alignment, `_at_offset`).
 FA_CASES = [(2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
             (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
-            (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511)]
+            (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511),
+            (2, 300, 333, 8, 2, 128, None, 0), (1, 200, 260, 8, 2, 48, 70, 60),
+            (1, 129, 65, 4, 1, 128, None, 0),
+            (1, 777, 900, 4, 1, 64, 300, 123), (1, 150, 170, 4, 2, 5, None, 0),
+            (1, 200, 260, 8, 2, 44, 70, 60)]
 SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
-             (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256)]
+             (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256),
+             (1, 256, 4, 64, 64, 256), (2, 100, 4, 64, 64, 256),
+             (1, 1000, 3, 96, 64, 256), (2, 700, 3, 40, 24, 128),
+             (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128)]
+# Each kernel's time before the tensor-core redesign, when bf16 took the
+# fp32 CUDA-core kernels, ms: quoted in llm-times' rows, never measured
+# here, so the kernels line leaves it out.
+EARLIER_MS = {"flash_attention": 12.57, "ssd_long": 4.574,
+              "ssd_serve": 0.787}
+EARLIER_FROM = ("quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, "
+                "700 W), not measured in this run")
+# The fewest bf16 passes of each SSD product that meet the bf16
+# tolerances: the scores 1 (bf16 operands), and 2 for each product with
+# an fp32 operand (the gate, the chunk states, the inter-chunk term), as
+# bf16 terms.  tests/test_torch_ssd.py shows two terms each meet them
+# and one term of any of the three misses them.  csrc/ssd_tc.cu takes
+# three terms for the states and the inter-chunk term.
+SSD_PASSES = {"scores": 1, "gate": 2, "state": 2, "inter": 2}
 
 
 def emit(obj: dict) -> None:
@@ -579,7 +619,8 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
         outs = [server.run_wave(prompts[lo:lo + SERVE_SLOTS], SERVE_NEW)
                 for lo in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
         wall = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in ("ssd", "flash_attention")}
+        launches = {k: LAUNCHES[k] for k in (
+            "ssd", "ssd_tc", "flash_attention", "flash_attention_tc")}
     peak = torch.cuda.max_memory_allocated()
     tokens = np.concatenate(outs)
     check(tokens.shape == (SERVE_REQUESTS, SERVE_NEW),
@@ -630,9 +671,10 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
                sample=tokens[0, :8].tolist())
     emit(dict(phase="llm-serve", **extra, **row))
     check(((tokens >= 0) & (tokens < cfg.vocab)).all(), "token out of range")
-    check(launches["ssd"] == 2 * cfg.n_layers,
-          f"ssd launched {launches['ssd']} times, expected "
-          f"{2 * cfg.n_layers} (38 per prefill wave)")
+    for name in ("ssd", "ssd_tc"):
+        check(launches[name] == 2 * cfg.n_layers,
+              f"{name} launched {launches[name]} times, expected "
+              f"{2 * cfg.n_layers} (38 per prefill wave, bf16)")
     check(launches["flash_attention"] == 0,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in serving; the cached prefill takes sdpa")
@@ -675,7 +717,8 @@ def llm_forward_long(cfg, model, dev, extra: dict):
         logits, _, _ = T.forward(cfg, model, {"tokens": toks})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in ("ssd", "flash_attention")}
+        launches = {k: LAUNCHES[k] for k in (
+            "ssd", "ssd_tc", "flash_attention", "flash_attention_tc")}
     finite = bool(torch.isfinite(logits).all())
     row = dict(arch=cfg.name, seq=LONG_SEQ, launches=launches, wall_s=wall,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -683,41 +726,69 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     del logits
     emit(dict(phase="llm-forward-long", **extra, **row))
     n_inv = T.n_hybrid_attn_invocations(cfg)
-    check(launches["flash_attention"] == n_inv,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"expected {n_inv}")
-    check(launches["ssd"] == cfg.n_layers,
-          f"ssd launched {launches['ssd']} times, expected {cfg.n_layers}")
+    for name in ("flash_attention", "flash_attention_tc"):
+        check(launches[name] == n_inv,
+              f"{name} launched {launches[name]} times, expected {n_inv}")
+    for name in ("ssd", "ssd_tc"):
+        check(launches[name] == cfg.n_layers,
+              f"{name} launched {launches[name]} times, expected "
+              f"{cfg.n_layers}")
     check(finite, "the long forward gave a non-finite logit")
     return row, fa_cap, ssd_cap
 
 
-def _flash_err(q, k, v, q_offset, window) -> float:
+def _route(name: str, before: dict) -> str:
+    """The kernel a call of `name`'s wrapper took: its tensor-core route
+    (bf16) or its fp32 route, by which launch counts moved."""
+    from repro_torch.kernels import LAUNCHES
+    moved = {k: LAUNCHES[k] - before[k] for k in (name, f"{name}_tc")}
+    check(moved[name] == 1, f"{name} launched {moved[name]} times")
+    return "tensor-core" if moved[f"{name}_tc"] == 1 else "fp32"
+
+
+def _flash_err(q, k, v, q_offset, window) -> tuple[float, str]:
+    """(max |d out|, route) of the kernel against the plain version."""
     import torch
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    before = dict(LAUNCHES)
     got = flash_attention(q, k, v, q_offset=q_offset, window=window)
     torch.cuda.synchronize()
+    route = _route("flash_attention", before)
     want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
     check(bool(torch.isfinite(got).all()), "flash_attention gave a NaN")
-    return float((got.float() - want.float()).abs().max())
+    return float((got.float() - want.float()).abs().max()), route
 
 
-def _ssd_err(args, chunk: int) -> tuple[float, float, bool]:
-    """(max |dy|, max |d state|, within tolerance) of the kernel against
-    the plain version."""
+def _ssd_err(args, chunk: int) -> tuple[float, float, bool, str]:
+    """(max |dy|, max |d state|, within tolerance, route) of the kernel
+    against the plain version."""
     import torch
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
+    before = dict(LAUNCHES)
     y, fin = ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
+    route = _route("ssd", before)
     wy, wf = ssd_chunked(*args, chunk=chunk)
     dy = (y.float() - wy.float()).abs()
     df = (fin - wf).abs()
     rtol = SSD_RTOL[str(y.dtype).split(".")[1]]
     ok = bool((dy <= SSD_ATOL + rtol * wy.float().abs()).all()) and \
         bool((df <= SSD_ATOL + SSD_RTOL["float32"] * wf.abs()).all())
-    return float(dy.max()), float(df.max()), ok
+    return float(dy.max()), float(df.max()), ok, route
+
+
+def _at_offset(t):
+    """A contiguous copy of ``t`` that starts 2 elements into its
+    storage, so its address is off 16-byte alignment."""
+    import torch
+    out = torch.empty(t.numel() + 2, dtype=t.dtype,
+                      device=t.device)[2:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def llm_kernels_vs_plain(dev, captured: dict) -> dict:
@@ -725,50 +796,67 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
     fa_cases, ssd_cases = [], []
-    for case in FA_CASES:
+    bf16 = torch.bfloat16
+    # Every case in fp32 and bf16, then the first in bf16 with its first
+    # input (q, x) at an offset of 2 elements.
+    runs = [(c, t, False) for c in FA_CASES for t in (torch.float32, bf16)]
+    for case, dtype, offset in runs + [(FA_CASES[0], bf16, True)]:
         b, sq, sk, hq, hkv, d, window, q_offset = case
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                       for shape in ((b, sq, hq, d), (b, sk, hkv, d),
-                                     (b, sk, hkv, d)))
-            name = str(dtype).split(".")[1]
-            err = _flash_err(q, k, v, q_offset, window)
-            fa_cases.append(dict(case=list(case), dtype=name, max_abs_err=err,
-                                 tolerance=FA_TOL[name]))
-            check(err <= FA_TOL[name], f"flash_attention {case} {name}: "
-                                       f"{err} > {FA_TOL[name]}")
-    for case in SSD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d)))
+        if offset:
+            q = _at_offset(q)
+        name = str(dtype).split(".")[1]
+        err, route = _flash_err(q, k, v, q_offset, window)
+        fa_cases.append(dict(case=list(case), dtype=name, route=route,
+                             first_input_at_offset_2=offset,
+                             max_abs_err=err, tolerance=FA_TOL[name]))
+        check(route == ("tensor-core" if name == "bfloat16" else "fp32"),
+              f"flash_attention {case} {name} took the {route} route")
+        check(err <= FA_TOL[name], f"flash_attention {case} {name} "
+                                   f"(offset {offset}): {err} > "
+                                   f"{FA_TOL[name]}")
+    runs = [(c, t, False) for c in SSD_CASES for t in (torch.float32, bf16)]
+    for case, dtype, offset in runs + [(SSD_CASES[0], bf16, True)]:
         b, s, h, p, n, chunk = case
-        for dtype in (torch.float32, torch.bfloat16):
-            args = [torch.randn((b, s, h, p), generator=gen, device=dev),
-                    torch.nn.functional.softplus(torch.randn(
-                        (b, s, h), generator=gen, device=dev)),
-                    torch.randn((h,), generator=gen, device=dev) * 0.3,
-                    torch.randn((b, s, 1, n), generator=gen, device=dev),
-                    torch.randn((b, s, 1, n), generator=gen, device=dev)]
-            args = [a if i == 2 else a.to(dtype) for i, a in enumerate(args)]
-            dy, df, ok = _ssd_err(args, chunk)
-            name = str(dtype).split(".")[1]
-            ssd_cases.append(dict(case=list(case), dtype=name,
-                                  max_abs_err_y=dy, max_abs_err_state=df))
-            check(ok, f"ssd {case} {name}: |dy| {dy}, |dstate| {df}")
+        args = [torch.randn((b, s, h, p), generator=gen, device=dev),
+                torch.nn.functional.softplus(torch.randn(
+                    (b, s, h), generator=gen, device=dev)),
+                torch.randn((h,), generator=gen, device=dev) * 0.3,
+                torch.randn((b, s, 1, n), generator=gen, device=dev),
+                torch.randn((b, s, 1, n), generator=gen, device=dev)]
+        args = [a if i == 2 else a.to(dtype) for i, a in enumerate(args)]
+        if offset:
+            args[0] = _at_offset(args[0])
+        dy, df, ok, route = _ssd_err(args, chunk)
+        name = str(dtype).split(".")[1]
+        ssd_cases.append(dict(case=list(case), dtype=name, route=route,
+                              first_input_at_offset_2=offset,
+                              max_abs_err_y=dy, max_abs_err_state=df))
+        check(ok, f"ssd {case} {name} (offset {offset}): |dy| {dy}, "
+                  f"|dstate| {df}")
+        check(route == ("tensor-core" if name == "bfloat16" else "fp32"),
+              f"ssd {case} {name} took the {route} route")
     path = {}
     q, k, v = captured["flash_long"].args
     kw = captured["flash_long"].kwargs
-    path["flash_attention"] = dict(
-        shape=list(q.shape), dtype="bfloat16",
-        max_abs_err=_flash_err(q, k, v, kw.get("q_offset", 0),
-                               kw.get("window")))
-    check(path["flash_attention"]["max_abs_err"] <= FA_TOL["bfloat16"],
+    err, route = _flash_err(q, k, v, kw.get("q_offset", 0), kw.get("window"))
+    path["flash_attention"] = dict(shape=list(q.shape), dtype=str(q.dtype),
+                                   route=route, max_abs_err=err)
+    check(err <= FA_TOL["bfloat16"],
           "flash_attention at the path's inputs exceeds 2e-2")
+    check(route == "tensor-core", "the path's flash input took the fp32 route")
     for label in ("ssd_long", "ssd_serve"):
         cap = captured[label]
-        dy, df, ok = _ssd_err(cap.args, cap.kwargs["chunk"])
+        dy, df, ok, route = _ssd_err(cap.args, cap.kwargs["chunk"])
         path[label] = dict(shape=list(cap.args[0].shape),
-                           chunk=cap.kwargs["chunk"], max_abs_err_y=dy,
-                           max_abs_err_state=df)
+                           chunk=cap.kwargs["chunk"], route=route,
+                           max_abs_err_y=dy, max_abs_err_state=df)
         check(ok, f"ssd at the path's inputs ({label}): |dy| {dy}, "
                   f"|dstate| {df}")
+        check(route == "tensor-core",
+              f"the path's ssd input ({label}) took the fp32 route")
     return dict(flash_attention=fa_cases, ssd=ssd_cases, path=path)
 
 
@@ -787,26 +875,27 @@ def flash_bound(b, sq, sk, hq, d, nbytes) -> dict:
 
 
 def ssd_bound(b, s, h, p, n, chunk, nbytes) -> dict:
-    """The least time of the scan.  Per chunk of l real steps and head:
-    the causal half of the gate product with x (l (l + 1) P), the
-    inter-chunk term and the state update (2 l P N each), at the fp32
-    rate, since one operand of each is an fp32 value the scan computes
-    (the gate, the decays, the carried state); per chunk, the scores
-    C B^T shared by the heads of the one group (l (l + 1) N), at the
-    bf16 tensor-core rate, since both operands are bf16 inputs.  The
-    two units can run at once, so the larger time binds."""
-    flop_fp32 = flop_bf16 = 0
+    """The least time of the scan on bf16 inputs.  Per chunk of l real
+    steps: the scores C B^T shared by the heads of the one group
+    (l (l + 1) N), and per head the causal half of the gate product with
+    x (l (l + 1) P), the inter-chunk term and the chunk state (2 l P N
+    each).  All run on the bf16 tensor cores, each product as many times
+    as the fewest bf16 terms of its fp32 operand that meet the bf16
+    tolerances (`SSD_PASSES`, shown by the CPU tests).  The larger of
+    that time and the bytes' binds."""
+    flop = {name: 0 for name in SSD_PASSES}
     for t0 in range(0, s, chunk):
         ln = min(chunk, s - t0)
-        flop_fp32 += h * (ln * (ln + 1) * p + 4 * ln * p * n)
-        flop_bf16 += ln * (ln + 1) * n
-    flop_fp32, flop_bf16 = b * flop_fp32, b * flop_bf16
-    t_ops = max(flop_fp32 / PEAK_OPS_S, flop_bf16 / PEAK_BF16_S)
-    t_bytes = nbytes / PEAK_BYTES_S
+        flop["scores"] += b * ln * (ln + 1) * n
+        flop["gate"] += b * h * ln * (ln + 1) * p
+        flop["state"] += b * h * 2 * ln * p * n
+        flop["inter"] += b * h * 2 * ln * p * n
+    passes = sum(SSD_PASSES[k] * f for k, f in flop.items())
+    t_ops, t_bytes = passes / PEAK_BF16_S, nbytes / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flop=flop_fp32 + flop_bf16, flop_fp32=flop_fp32,
-                flop_bf16=flop_bf16, bytes=nbytes)
+                flop=sum(flop.values()), flop_bf16_passes=passes,
+                bytes=nbytes)
 
 
 def llm_times(captured: dict) -> list:
@@ -832,6 +921,8 @@ def llm_times(captured: dict) -> list:
     rows.append(dict(
         kernel="flash_attention", shape=list(q.shape), dtype="bfloat16",
         ms=cuda_ms(lambda: flash_attention(q, k, v), 10),
+        earlier_ms=EARLIER_MS["flash_attention"],
+        earlier_ms_from=EARLIER_FROM,
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 2),
         library_ms=cuda_ms(library, 20),
         library="torch.nn.functional.scaled_dot_product_attention",
@@ -852,6 +943,7 @@ def llm_times(captured: dict) -> list:
             kernel="ssd", label=label, shape=list(args[0].shape),
             chunk=chunk, n=n, dtype="bfloat16",
             ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10),
+            earlier_ms=EARLIER_MS[label], earlier_ms_from=EARLIER_FROM,
             plain_ms=cuda_ms(lambda: ssd_chunked(*args, chunk=chunk), 3),
             library_ms=None, library="none: no single PyTorch call",
             **ssd_bound(bsz, s, h, p, n, chunk, nbytes)))
@@ -1189,19 +1281,22 @@ def main() -> int:
         if t["kernel"] == kernel and t["graph"] == "reduce32@16x16"] + [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
+                    "flash_attention_tc.cu",
+             source_fp32="src/repro_torch/kernels/flash_attention/csrc/"
+                         "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:89",
-             launches=long_row["launches"]["flash_attention"],
+             launches=long_row["launches"]["flash_attention_tc"],
              max_abs_err=fa_err, ms=fa_row["ms"],
              plain_ms=fa_row["plain_ms"], bound_ms=fa_row["bound_ms"],
              bound_by=fa_row["bound_by"], library_ms=fa_row["library_ms"],
              shape=f"{tuple(fa_row['shape'])} bf16 causal "
                    f"(llm-forward-long)"),
         dict(name="ssd", route="cuda",
-             source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
+             source_fp32="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:80",
-             launches=long_row["launches"]["ssd"],
-             launches_serving=serve_row["launches"]["ssd"],
+             launches=long_row["launches"]["ssd_tc"],
+             launches_serving=serve_row["launches"]["ssd_tc"],
              max_abs_err=ssd_err, ms=ssd_row["ms"],
              plain_ms=ssd_row["plain_ms"], bound_ms=ssd_row["bound_ms"],
              bound_by=ssd_row["bound_by"], library_ms=None,

@@ -18,21 +18,29 @@ and ``ops.py`` (the checked wrapper):
                     from ``q_offset``, optional sliding window — the
                     no-cache forward's shared-attention block on long
                     prompts (replaces
-                    ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``)
+                    ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``).
+                    Two routes by dtype: bf16 to ``flash_attention_tc.cu``
+                    (wgmma on the bf16 tensor cores), fp32 to
+                    ``flash_attention.cu`` (fp32 CUDA cores)
 - ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
                     layer's prefill (replaces
-                    ``repro/kernels/ssd/kernel.py::ssd_pallas``)
+                    ``repro/kernels/ssd/kernel.py::ssd_pallas``).  Two
+                    routes by dtype: bf16 to ``ssd_tc.cu`` (three
+                    chunk-parallel stages, mma.sync with split-bf16
+                    operands), fp32 to ``ssd.cu`` (fp32 CUDA cores)
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
-launch adds one to ``LAUNCHES[name]``, so a run can show which kernels
-its path went through.
+wrapper call that launches adds one to ``LAUNCHES[name]``, so a run can
+show which kernels its path went through; a call that took a
+tensor-core route adds one to ``LAUNCHES[name + "_tc"]`` too.
 """
 
 #: kernel name -> launches since the last `reset_launches`.
 LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "conflict_matrix_packed": 0,
-                             "flash_attention": 0, "ssd": 0}
+                             "flash_attention": 0, "flash_attention_tc": 0,
+                             "ssd": 0, "ssd_tc": 0}
 
 
 def reset_launches() -> None:

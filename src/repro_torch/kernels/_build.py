@@ -28,7 +28,9 @@ SOURCES = {
     "sbts_step": ("sbts_step/csrc/selection_counts.cu",),
     "conflict_matrix": ("conflict_matrix/csrc/conflict_matrix.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
+    "flash_attention_tc": ("flash_attention/csrc/flash_attention_tc.cu",),
     "ssd": ("ssd/csrc/ssd.cu",),
+    "ssd_tc": ("ssd/csrc/ssd_tc.cu",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
-// Forward flash attention: GQA, causal from q_offset, optional sliding
-// window, fp32 online softmax.
+// Forward flash attention on fp32 inputs: GQA, causal from q_offset,
+// optional sliding window, fp32 online softmax.
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention_pallas
-// (body _fa_kernel).  It computes what _fa_kernel and the plain version
-// (ref.py::flash_attention_ref) compute:
+// (body _fa_kernel) for fp32 inputs; bf16 inputs take the tensor-core
+// kernel, flash_attention_tc.cu.  It computes what _fa_kernel and the
+// plain version (ref.py::flash_attention_ref) compute:
 //
 //   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / g])
 //                  * v[b, j, h / g]
@@ -13,17 +14,12 @@
 // qp - j < window; g = Hq / Hkv and scale = D^-0.5.  A row with no
 // visible key gives 0, as the plain version's guards give.
 //
-// Bound.  At the path's shape (1, 8192, 32, 64), causal, the products
-// are 2 * S^2 * D * H = 2.75e11 FLOP (half of S^2 pairs, two products of
-// 2 D each).  The function needs no more than the bf16 tensor cores:
-// Q K^T takes bf16 operands, whose products are exact in fp32, and P V
-// meets the bf16 tolerance with P rounded to bf16.  So it is bound by
-// operations at 0.28 ms (989e12 bf16 FLOP/s); its bytes (q, k, v in,
-// out written) are 134 MB, 0.04 ms.  This kernel does the products in
-// fp32 on the CUDA cores (67e12 FLOP/s, 4.1 ms for the same work), so
-// it cannot come near that bound; the tensor cores are a later redesign.
+// Bound.  fp32 attention lies on no path of the port (the no-cache
+// forward runs in bf16).  Its 2e-6 tolerance rules out bf16 and TF32
+// products, so it is bound by the fp32 rate: at (1, 8192, 32, 64),
+// causal, 2.75e11 FLOP take 4.1 ms at 67e12 FLOP/s.
 //
-// Design (simple and right first; no tensor cores, no TMA yet):
+// Design (simple and right; no tensor cores):
 // - One block of 256 threads per (query tile of 64 rows, query head,
 //   batch).  It loops over key tiles of 64 only from the window's edge
 //   to the causal edge of its last row (the TPU kernel's `visible`
@@ -42,7 +38,6 @@
 // The launcher is a plain C function (no PyTorch headers) that returns
 // cudaGetLastError, so a refused launch is reported.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,15 +48,6 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kLdT = kBK + 4;  // pitch of the k^T and P tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // acc[r][c] += sum_k A[(4 ty + r) * lda + k] * B[k * ldb + 4 tx + c].
 __device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* A,
@@ -84,10 +70,10 @@ __device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* A,
 }
 
 // CG: column groups of 64 in D (1 for D <= 64, 2 for D <= 128).
-template <typename T, int CG>
+template <int CG>
 __global__ void __launch_bounds__(kThreads)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
           int hq, int hkv, int d, int q_offset, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -103,19 +89,19 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (hq / hkv);
   const int64_t q_row = static_cast<int64_t>(hq) * d;    // q/o row stride
   const int64_t k_row = static_cast<int64_t>(hkv) * d;   // k/v row stride
-  const T* qb = q + static_cast<int64_t>(b) * sq * q_row +
+  const float* qb = q + static_cast<int64_t>(b) * sq * q_row +
                 static_cast<int64_t>(h) * d;
-  const T* kb = k + static_cast<int64_t>(b) * sk * k_row +
+  const float* kb = k + static_cast<int64_t>(b) * sk * k_row +
                 static_cast<int64_t>(hk) * d;
-  const T* vb = v + static_cast<int64_t>(b) * sk * k_row +
+  const float* vb = v + static_cast<int64_t>(b) * sk * k_row +
                 static_cast<int64_t>(hk) * d;
-  T* ob = o + static_cast<int64_t>(b) * sq * q_row +
+  float* ob = o + static_cast<int64_t>(b) * sq * q_row +
           static_cast<int64_t>(h) * d;
 
   for (int idx = tid; idx < kBQ * d; idx += kThreads) {
     const int i = idx / d, dd = idx - i * d;
     const int qi = q0 + i;
-    sQ[i * ldq + dd] = qi < sq ? to_f(qb[qi * q_row + dd]) * scale : 0.f;
+    sQ[i * ldq + dd] = qi < sq ? qb[qi * q_row + dd] * scale : 0.f;
   }
 
   float m[4], l[4], acc[CG][4][4];
@@ -140,13 +126,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * d; idx += kThreads) {
       const int j = idx / d, dd = idx - j * d;
       const int kj = j0 + j;
-      sK[dd * kLdT + j] = kj < sk ? to_f(kb[kj * k_row + dd]) : 0.f;
+      sK[dd * kLdT + j] = kj < sk ? kb[kj * k_row + dd] : 0.f;
     }
     for (int idx = tid; idx < kBK * CG * 64; idx += kThreads) {
       const int j = idx / (CG * 64), dd = idx - j * (CG * 64);
       const int kj = j0 + j;
       sV[j * ldv + dd] =
-          (kj < sk && dd < d) ? to_f(vb[kj * k_row + dd]) : 0.f;
+          (kj < sk && dd < d) ? vb[kj * k_row + dd] : 0.f;
     }
     __syncthreads();
 
@@ -205,12 +191,12 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int dd = g * 64 + 4 * tx + c;
-        if (dd < d) store(ob + qi * q_row + dd, acc[g][r][c] / den);
+        if (dd < d) ob[qi * q_row + dd] = acc[g][r][c] / den;
       }
   }
 }
 
-template <typename T, int CG>
+template <int CG>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int hq, int hkv, int d, int q_offset, int window,
            float scale, cudaStream_t stream) {
@@ -220,12 +206,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
                         static_cast<size_t>(kBQ) * kLdT;
   const int bytes = static_cast<int>(floats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, CG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fa_kernel<CG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  fa_kernel<T, CG><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hq, hkv, d,
+  fa_kernel<CG><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq, hkv, d,
       q_offset, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -233,26 +219,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); o: (B, Sq, Hq, D), all
-// contiguous and of one type (dtype 0: float32, 1: bfloat16);
-// 1 <= D <= 128, Hq % Hkv == 0, window <= 0 means none.
+// contiguous float32; 1 <= D <= 128, Hq % Hkv == 0, window <= 0 means
+// none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o,
                                       int b, int sq, int sk, int hq,
                                       int hkv, int d, int q_offset,
                                       int window, float scale,
                                       void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0 || dtype < 0 ||
-      dtype > 1)
+  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return d <= 64 ? launch<float, 1>(q, k, v, o, b, sq, sk, hq, hkv, d,
-                                      q_offset, window, scale, s)
-                   : launch<float, 2>(q, k, v, o, b, sq, sk, hq, hkv, d,
-                                      q_offset, window, scale, s);
-  return d <= 64 ? launch<__nv_bfloat16, 1>(q, k, v, o, b, sq, sk, hq, hkv,
-                                            d, q_offset, window, scale, s)
-                 : launch<__nv_bfloat16, 2>(q, k, v, o, b, sq, sk, hq, hkv,
-                                            d, q_offset, window, scale, s);
+  return d <= 64 ? launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
+                             window, scale, s)
+                 : launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
+                             window, scale, s);
 }

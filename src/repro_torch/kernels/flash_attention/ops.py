@@ -3,13 +3,19 @@
 `flash_attention(q, k, v, q_offset=, window=)` takes q (B, Sq, Hq, D)
 and k, v (B, Sk, Hkv, D), float32 or bfloat16, and returns
 (B, Sq, Hq, D) in q's type.  Tensors on the CPU go to the plain version
-(`ref.flash_attention_ref`); CUDA tensors go to the kernel
-(``csrc/flash_attention.cu``), built at first use, or the call raises.
+(`ref.flash_attention_ref`).  CUDA tensors go to a kernel chosen by
+dtype, built at first use, or the call raises: bfloat16 to the
+tensor-core kernel (``csrc/flash_attention_tc.cu``, wgmma), float32 to
+the fp32 kernel (``csrc/flash_attention.cu``), whose 2e-6 tolerance no
+bf16 or TF32 product meets.  Every launch adds one to
+``LAUNCHES["flash_attention"]``; a bfloat16 launch adds one to
+``LAUNCHES["flash_attention_tc"]`` too.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -18,7 +24,8 @@ from .._build import load
 from .ref import flash_attention_ref
 
 _NAME = "flash_attention"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TC = "flash_attention_tc"
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(q, k, v) -> None:
@@ -47,10 +54,15 @@ def _check(q, k, v) -> None:
         raise ValueError(f"{_NAME} runs on cpu or cuda, not {q.device}")
 
 
-def _launcher():
-    fn = load(_NAME).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
+def _launcher(tc: bool):
+    if tc:
+        fn = load(_TC).flash_attention_tc_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = load(_NAME).flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -72,19 +84,29 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     sk, hkv = k.shape[1], k.shape[2]
     if d > 128:
         raise ValueError(f"{_NAME} takes head dims up to 128, not {d}")
-    if max(b, sq, sk, hq) >= 2**31 or abs(q_offset) >= 2**30:
+    if max(b, sq, sk, hq, 64 * hkv * d) >= 2**31 or abs(q_offset) >= 2**30:
         raise ValueError(f"{_NAME}: a size or q_offset is out of range")
     win = 0 if window is None or window <= 0 else int(window)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    launch = _launcher()
+    tc = q.dtype == torch.bfloat16
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), _DTYPES[q.dtype], b, sq, sk, hq, hkv,
-                     d, int(q_offset), win, d ** -0.5, stream)
+        if tc:
+            # cp.async moves 16 bytes: rows of D % 8 == 0 bf16 values
+            # from 16-byte aligned bases; otherwise plain loads.
+            vec = int(d % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+            err = _launcher(True)(*ptrs, b, sq, sk, hq, hkv, d,
+                                  int(q_offset), win,
+                                  d ** -0.5 * math.log2(math.e), vec, stream)
+        else:
+            err = _launcher(False)(*ptrs, b, sq, sk, hq, hkv, d,
+                                   int(q_offset), win, d ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"{_NAME} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
+                           f"CUDA error {err}")
     LAUNCHES[_NAME] += 1
+    LAUNCHES[_TC] += tc
     return out

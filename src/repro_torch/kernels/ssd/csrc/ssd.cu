@@ -1,7 +1,8 @@
-// The Mamba2 SSD chunked scan (one group), with the fp32 state carried
-// across chunks; returns y and the final state.
+// The Mamba2 SSD chunked scan (one group) on fp32 inputs, with the fp32
+// state carried across chunks; returns y and the final state.
 //
-// Replaces repro/kernels/ssd/kernel.py::ssd_pallas (body _ssd_kernel).
+// Replaces repro/kernels/ssd/kernel.py::ssd_pallas (body _ssd_kernel) for
+// fp32 inputs; bf16 inputs take the tensor-core stages, ssd_tc.cu.
 // It computes what the plain version (ref.py::ssd_chunked) computes, per
 // batch b and head h with A = -exp(a_log[h]), over chunks of L steps:
 //
@@ -11,23 +12,20 @@
 //   state   = state exp(cum_{L-1})
 //           + sum_j x_j (B_j dt_j exp(cum_{L-1} - cum_j))
 //
-// x (B, S, H, P), dt (B, S, H), b and c (B, S, 1, N) in one type, a_log
-// (H,) float32 -> y (B, S, H, P) in x's type, state (B, H, P, N)
-// float32.  S need not be a multiple of L: the steps past S act as the
-// plain version's padding (dt = 0, x = B = C = 0), which leaves y and
-// the state unchanged.
+// x (B, S, H, P), dt (B, S, H), b and c (B, S, 1, N) and a_log (H,)
+// float32 -> y (B, S, H, P), state (B, H, P, N) float32.  S need not
+// be a multiple of L: the steps past S act as the plain version's
+// padding (dt = 0, x = B = C = 0), which leaves y and the state
+// unchanged.
 //
-// Bound.  Per chunk the products are the scores C_i . B_j of the one
-// group (L (L + 1) N with the causal half), and per head the gate's
-// product with x (L (L + 1) P), the inter-chunk term and the state
-// update (2 L P N each).  The scores take bf16 operands (the bf16
-// tensor-core rate); the rest take an fp32 operand the scan computes
-// (the gate, the decays, the carried state) at the fp32 rate.  At the
-// path's shape (1, 8192, 64, 64), N = 64, L = 256 that is 1.7e10 FLOP,
-// 0.26 ms at the card's 67e12 fp32 FLOP/s; its ~138 MB of bf16 in and
-// out take 0.04 ms, so operations bind it.
+// Bound.  fp32 SSD lies on no timed path of the port.  Per chunk the
+// products are the scores C_i . B_j of the one group (L (L + 1) N with
+// the causal half), and per head the gate's product with x
+// (L (L + 1) P), the inter-chunk term and the state update (2 L P N
+// each); at fp32 inputs held to 1e-5 relative they run at the fp32
+// rate, 0.26 ms at (1, 8192, 64, 64), N = 64, L = 256.
 //
-// Design (simple and right first; no tensor cores yet):
+// Design (simple and right; no tensor cores):
 // - One block of 256 threads per (64 columns of P, head, batch); it
 //   walks the chunks in order, with its (N, 64) slice of the state in
 //   shared memory (16 KB at N = 64).  The scores C_i . B_j are
@@ -51,7 +49,6 @@
 // The launcher is a plain C function (no PyTorch headers) that returns
 // cudaGetLastError, so a refused launch is reported.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -61,15 +58,6 @@ namespace {
 constexpr int kT = 64;         // tile edge: rows, columns of P, steps
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kLd = kT + 4;    // pitch of the B^T, x, gate and state tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // acc[r][c] += sum_k A[(4 ty + r) * lda + k] * B[k * ldb + 4 tx + c].
 __device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* A,
@@ -92,11 +80,11 @@ __device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* A,
 }
 
 // NG: groups of 64 rows of the state's N axis (1 for N <= 64, 2 <= 128).
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-           const float* __restrict__ a_log, const T* __restrict__ bm,
-           const T* __restrict__ cm, T* __restrict__ y,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ a_log, const float* __restrict__ bm,
+           const float* __restrict__ cm, float* __restrict__ y,
            float* __restrict__ fin, int s, int h, int p, int n, int chunk) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -114,13 +102,13 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int p0 = blockIdx.x * kT, hh = blockIdx.y, bb = blockIdx.z;
   const float a = -expf(a_log[hh]);
   const int64_t x_row = static_cast<int64_t>(h) * p;   // x/y step stride
-  const T* xb = x + static_cast<int64_t>(bb) * s * x_row +
+  const float* xb = x + static_cast<int64_t>(bb) * s * x_row +
                 static_cast<int64_t>(hh) * p + p0;
-  T* yb = y + static_cast<int64_t>(bb) * s * x_row +
+  float* yb = y + static_cast<int64_t>(bb) * s * x_row +
           static_cast<int64_t>(hh) * p + p0;
-  const T* dtb = dt + static_cast<int64_t>(bb) * s * h + hh;
-  const T* bbm = bm + static_cast<int64_t>(bb) * s * n;
-  const T* cbm = cm + static_cast<int64_t>(bb) * s * n;
+  const float* dtb = dt + static_cast<int64_t>(bb) * s * h + hh;
+  const float* bbm = bm + static_cast<int64_t>(bb) * s * n;
+  const float* cbm = cm + static_cast<int64_t>(bb) * s * n;
 
   for (int idx = tid; idx < n * kLd; idx += kThreads) sS[idx] = 0.f;
 
@@ -128,7 +116,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   for (int t0 = 0; t0 < s; t0 += chunk) {
     __syncthreads();   // the previous chunk's readers are done
     for (int l = tid; l < chunk; l += kThreads)
-      sDt[l] = t0 + l < s ? to_f(dtb[static_cast<int64_t>(t0 + l) * h])
+      sDt[l] = t0 + l < s ? dtb[static_cast<int64_t>(t0 + l) * h]
                           : 0.f;
     __syncthreads();
     if (tid == 0) {
@@ -151,7 +139,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         const int i = idx / n, nn = idx - i * n;
         const int l = i0 + i;
         sC[i * ldc + nn] = (l < chunk && t0 + l < s)
-            ? to_f(cbm[static_cast<int64_t>(t0 + l) * n + nn]) : 0.f;
+            ? cbm[static_cast<int64_t>(t0 + l) * n + nn] : 0.f;
       }
       __syncthreads();
 
@@ -173,13 +161,13 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
           const int j = idx / n, nn = idx - j * n;
           const int l = j0 + j;
           sBT[nn * kLd + j] = (l < chunk && t0 + l < s)
-              ? to_f(bbm[static_cast<int64_t>(t0 + l) * n + nn]) : 0.f;
+              ? bbm[static_cast<int64_t>(t0 + l) * n + nn] : 0.f;
         }
         for (int idx = tid; idx < kT * kT; idx += kThreads) {
           const int j = idx / kT, pp = idx - j * kT;
           const int l = j0 + j;
           sX[j * kLd + pp] = (l < chunk && t0 + l < s && p0 + pp < p)
-              ? to_f(xb[static_cast<int64_t>(t0 + l) * x_row + pp]) : 0.f;
+              ? xb[static_cast<int64_t>(t0 + l) * x_row + pp] : 0.f;
         }
         __syncthreads();
 
@@ -233,7 +221,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         for (int c = 0; c < 4; ++c) {
           const int pp = 4 * tx + c;
           if (p0 + pp < p)
-            store(yb + static_cast<int64_t>(t0 + l) * x_row + pp, acc[r][c]);
+            yb[static_cast<int64_t>(t0 + l) * x_row + pp] = acc[r][c];
         }
       }
     }
@@ -263,7 +251,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch(const void* x, const void* dt, const void* a_log, const void* b,
            const void* c, void* y, void* fin, int bsz, int s, int h, int p,
            int n, int chunk, cudaStream_t stream) {
@@ -273,39 +261,33 @@ int launch(const void* x, const void* dt, const void* a_log, const void* b,
                         3 * static_cast<size_t>(chunk);
   const int bytes = static_cast<int>(floats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ssd_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p + kT - 1) / kT, h, bsz);
-  ssd_kernel<T, NG><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const float*>(a_log), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), static_cast<float*>(fin),
+  ssd_kernel<NG><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a_log), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<float*>(y),
+      static_cast<float*>(fin),
       s, h, p, n, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: (B, S, H, P); dt: (B, S, H); a_log: (H,) float32; b, c: (B, S, 1,
-// N); y: (B, S, H, P); fin: (B, H, P, N) float32.  All contiguous; x,
-// dt, b, c and y of one type (dtype 0: float32, 1: bfloat16);
+// x: (B, S, H, P); dt: (B, S, H); a_log: (H,); b, c: (B, S, 1, N);
+// y: (B, S, H, P); fin: (B, H, P, N), all float32 and contiguous;
 // 1 <= N <= 128, 1 <= chunk <= 1024.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* a_log,
                           const void* b, const void* c, void* y, void* fin,
-                          int dtype, int bsz, int s, int h, int p, int n,
-                          int chunk, void* stream) {
+                          int bsz, int s, int h, int p, int n, int chunk,
+                          void* stream) {
   if (bsz <= 0 || h <= 0 || p <= 0) return 0;
-  if (n <= 0 || n > 128 || chunk <= 0 || chunk > 1024 || s < 0 ||
-      dtype < 0 || dtype > 1)
+  if (n <= 0 || n > 128 || chunk <= 0 || chunk > 1024 || s < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return n <= 64 ? launch<float, 1>(x, dt, a_log, b, c, y, fin, bsz, s, h,
-                                      p, n, chunk, st)
-                   : launch<float, 2>(x, dt, a_log, b, c, y, fin, bsz, s, h,
-                                      p, n, chunk, st);
-  return n <= 64 ? launch<__nv_bfloat16, 1>(x, dt, a_log, b, c, y, fin, bsz,
-                                            s, h, p, n, chunk, st)
-                 : launch<__nv_bfloat16, 2>(x, dt, a_log, b, c, y, fin, bsz,
-                                            s, h, p, n, chunk, st);
+  return n <= 64 ? launch<1>(x, dt, a_log, b, c, y, fin, bsz, s, h, p, n,
+                             chunk, st)
+                 : launch<2>(x, dt, a_log, b, c, y, fin, bsz, s, h, p, n,
+                             chunk, st);
 }

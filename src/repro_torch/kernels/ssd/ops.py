@@ -3,10 +3,15 @@
 `ssd(x, dt, a_log, b, c, chunk=)` takes x (B, S, H, P), dt (B, S, H),
 a_log (H,) float32 and b, c (B, S, G, N) and returns (y (B, S, H, P) in
 x's type, final state (B, H, P, N) float32), as `ref.ssd_chunked`.
-Tensors on the CPU go to that plain version; CUDA tensors go to the
-kernel (``csrc/ssd.cu``), built at first use, or the call raises.  The
-kernel takes one group (G = 1), as the TPU kernel does, N <= 128 and
-chunks of up to 1024 steps; S need not be a multiple of the chunk.
+Tensors on the CPU go to that plain version.  CUDA tensors go to a
+kernel chosen by dtype, built at first use, or the call raises: bfloat16
+to the chunk-parallel tensor-core kernels (``csrc/ssd_tc.cu``: three
+CUDA kernels a call, on scratch this wrapper allocates), float32 to the
+fp32 kernel (``csrc/ssd.cu``), whose 1e-5 relative tolerance on fp32 x
+no bf16 split of two terms meets.  Both take one group (G = 1), as the
+TPU kernel does, N <= 128 and chunks of up to 1024 steps; S need not be
+a multiple of the chunk.  Every call adds one to ``LAUNCHES["ssd"]``; a
+bfloat16 call adds one to ``LAUNCHES["ssd_tc"]`` too.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from .._build import load
 from .ref import ssd_chunked
 
 _NAME = "ssd"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TC = "ssd_tc"
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x, dt, a_log, b, c) -> None:
@@ -47,10 +53,15 @@ def _check(x, dt, a_log, b, c) -> None:
         raise ValueError(f"{_NAME} runs on cpu or cuda, not {x.device}")
 
 
-def _launcher():
-    fn = load(_NAME).ssd_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+def _launcher(tc: bool):
+    if tc:
+        fn = load(_TC).ssd_tc_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+    else:
+        fn = load(_NAME).ssd_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,14 +98,30 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 and fin.numel() == 0:
         return y, fin
-    launch = _launcher()
+    tc = x.dtype == torch.bfloat16
+    ptrs = [t.data_ptr() for t in (x, dt, a_log, b, c, y, fin)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                     b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                     fin.data_ptr(), _DTYPES[x.dtype], bsz, s, h, p, n,
-                     chunk, stream)
+        if tc:
+            # Scratch of the stages: cum per chunk and head, the chunk
+            # states, and the state before each chunk as three bf16 terms.
+            nc = -(-s // chunk)
+            cum = torch.empty((bsz, nc, h, chunk), dtype=torch.float32,
+                              device=x.device)
+            st = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
+                             device=x.device)
+            prev = torch.empty((3, bsz, nc, h, p, n), dtype=torch.bfloat16,
+                               device=x.device)
+            ptrs += [cum.data_ptr(), st.data_ptr(), prev.data_ptr()]
+            vec = int(p % 8 == 0 and n % 8 == 0 and
+                      all(q % 16 == 0 for q in ptrs))
+            err = _launcher(True)(*ptrs, bsz, s, h, p, n, chunk, vec,
+                                  stream)
+        else:
+            err = _launcher(False)(*ptrs, bsz, s, h, p, n, chunk, stream)
     if err != 0:
-        raise RuntimeError(f"{_NAME} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
+                           f"CUDA error {err}")
     LAUNCHES[_NAME] += 1
+    LAUNCHES[_TC] += tc
     return y, fin

@@ -12,6 +12,8 @@ tolerance (tests/test_kernels.py:50)."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 
@@ -116,3 +118,65 @@ def test_wrapper_checks_its_input():
         ops.flash_attention(q[0], k, k)
     with pytest.raises(ValueError, match="meta"):
         ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+def _tc_emulation(q, k, v, *, q_offset=0, window=None):
+    """The bf16 tensor-core kernel's arithmetic (csrc/flash_attention_tc.cu)
+    in plain torch: query tiles of 128 rows, each walking key tiles of 64
+    from its first visible key; fp32 scores of the bf16 operands scaled
+    by D^-0.5 log2(e); an fp32 online softmax in exp2; row sums of the
+    fp32 P; P rounded to bf16 before P V, accumulated in fp32."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 * math.log2(math.e)
+    win = window if window is not None and window > 0 else 0
+    qf = q.float()
+    kf = k.float().repeat_interleave(hq // hkv, dim=2)
+    vf = v.float().repeat_interleave(hq // hkv, dim=2)
+    out = torch.zeros((b, sq, hq, d))
+    for q0 in range(0, sq, 128):
+        q1 = min(q0 + 128, sq)
+        qp = q_offset + torch.arange(q0, q1)
+        k_end = min(sk, q_offset + q1)
+        k_begin = max(0, q_offset + q0 - win + 1) if win else 0
+        m = torch.full((b, q1 - q0, hq), -torch.inf)
+        l = torch.zeros((b, q1 - q0, hq))
+        acc = torch.zeros((b, q1 - q0, hq, d))
+        for j0 in range(k_begin, k_end, 64):
+            keys = torch.arange(j0, min(j0 + 64, sk))
+            s = torch.einsum("bqhd,bkhd->bqhk", qf[:, q0:q1],
+                             kf[:, keys]) * scale
+            ok = keys[None, :] <= qp[:, None]
+            if win:
+                ok &= (qp[:, None] - keys[None, :]) < win
+            s = torch.where(ok[None, :, None, :], s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(m_new == -torch.inf, 0.0, m_new)
+            corr = torch.exp2(m - m_safe)
+            p = torch.exp2(s - m_safe[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqhk,bkhd->bqhd", p.bfloat16().float(), vf[:, keys])
+            m = m_new
+        out[:, q0:q1] = acc / l.clamp(min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", FA_CASES + [
+    (1, 200, 150, 4, 1, 48, 64, 20),        # ragged tiles, GQA 4:1, D 48
+    (1, 300, 333, 2, 2, 128, None, 0)],     # Sq > 2 query tiles, D 128
+    ids=str)
+def test_tensor_core_design_meets_the_bf16_tolerance(case):
+    """The tensor-core design (P rounded to bf16 per key tile of 64)
+    against the JAX package's reference on bf16 inputs, at the kernel's
+    bf16 tolerance."""
+    _, _, _, _, _, _, win, off = case
+    q, k, v = _inputs(case)
+    want = jax_flash_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                         q_offset=off, window=win)
+    got = _tc_emulation(*(torch.from_numpy(a).bfloat16()
+                          for a in (q, k, v)), q_offset=off, window=win)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])

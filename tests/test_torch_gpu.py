@@ -11,7 +11,9 @@ where JAX is not installed.  The counts, the adjacency bits and the
 engine state are integers and bools, compared exactly.  Flash attention
 is held to the reference's kernel tolerances (2e-6 fp32, 2e-2 bf16);
 the SSD scan to the reference's 1e-4 in fp32 and, in bf16, to one bf16
-ulp of y (both sides compute in fp32 and round y once).
+ulp of y (both sides compute in fp32 and round y once).  bf16 calls of
+both must take the tensor-core kernels (``LAUNCHES["flash_attention_tc"]``,
+``LAUNCHES["ssd_tc"]``), fp32 calls the fp32 kernels.
 """
 
 from __future__ import annotations
@@ -162,16 +164,25 @@ def _flash_case(b, sq, sk, hq, hkv, d, dtype, device, seed):
     (2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
     (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
     (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511),
-    (1, 100, 70, 2, 1, 48, 0, 3), (1, 4, 8, 2, 1, 16, 5, 100)], ids=str)
+    (1, 100, 70, 2, 1, 48, 0, 3), (1, 4, 8, 2, 1, 16, 5, 100),
+    # the tensor-core kernel's edges: Sq and Sk off its 128-row query and
+    # 64-key tiles, D 48 and 128, a window, q_offset > 0, GQA 4:1
+    (2, 300, 333, 8, 2, 128, None, 0), (1, 200, 260, 8, 2, 48, 70, 60),
+    (1, 129, 65, 4, 1, 128, None, 0), (1, 777, 900, 4, 1, 64, 300, 123),
+    # D off a multiple of 8: the bf16 kernel's plain loads
+    (1, 150, 170, 4, 2, 5, None, 0), (1, 200, 260, 8, 2, 44, 70, 60)],
+    ids=str)
 def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     b, sq, sk, hq, hkv, d, window, q_offset = case
     q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, sum(case[:6]))
-    before = LAUNCHES["flash_attention"]
+    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
     got = flash_attention(q, k, v, q_offset=q_offset, window=window)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention"] == before + 1
+    tc = int(dtype == torch.bfloat16)   # bf16 takes the tensor-core kernel
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"]) == \
+        (before[0] + 1, before[1] + tc)
     want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
@@ -194,21 +205,75 @@ def _ssd_case(b, s, h, p, n, dtype, device, seed, g=1):
 @pytest.mark.parametrize("case", [
     (2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
     (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256),
-    (1, 5, 4, 16, 16, 8), (1, 12, 2, 96, 16, 64)], ids=str)
+    (1, 5, 4, 16, 16, 8), (1, 12, 2, 96, 16, 64),
+    # the tensor-core stages' edges: one chunk, S < chunk, P = 96 (two
+    # column tiles, the second ragged), N off 64, a ragged last chunk
+    (1, 256, 4, 64, 64, 256), (2, 100, 4, 64, 64, 256),
+    (1, 1000, 3, 96, 64, 256), (2, 700, 3, 40, 24, 128),
+    # P or N off a multiple of 8: the bf16 stages' plain loads
+    (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128)], ids=str)
 def test_ssd_equals_plain_version(cuda, case, dtype):
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
     b, s, h, p, n, chunk = case
     args = _ssd_case(b, s, h, p, n, dtype, cuda, sum(case))
-    before = LAUNCHES["ssd"]
+    before = (LAUNCHES["ssd"], LAUNCHES["ssd_tc"])
     y, fin = ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert LAUNCHES["ssd"] == before + 1
+    tc = int(dtype == torch.bfloat16)   # bf16 takes the tensor-core stages
+    assert (LAUNCHES["ssd"], LAUNCHES["ssd_tc"]) == (before[0] + 1,
+                                                     before[1] + tc)
     wy, wf = ssd_chunked(*args, chunk=chunk)
     assert y.dtype == dtype and fin.dtype == torch.float32
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert ((y.float() - wy.float()).abs()
             <= 1e-4 + rtol * wy.float().abs()).all()
+    torch.testing.assert_close(fin, wf, atol=1e-4, rtol=1e-5)
+
+
+def _at_offset(t):
+    """A contiguous copy of ``t`` that starts 2 elements into its
+    storage, so its address is off 16-byte alignment."""
+    out = torch.empty(t.numel() + 2, dtype=t.dtype,
+                      device=t.device)[2:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_attention_at_an_unaligned_address(cuda, which):
+    """A bf16 input 4 bytes off 16-byte alignment takes the tensor-core
+    kernel's plain loads and still meets the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    qkv = _flash_case(2, 200, 260, 4, 2, 64, torch.bfloat16, cuda, 11)
+    qkv[which] = _at_offset(qkv[which])
+    assert qkv[which].data_ptr() % 16 != 0
+    before = LAUNCHES["flash_attention_tc"]
+    got = flash_attention(*qkv, q_offset=60)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_tc"] == before + 1
+    want = flash_attention_ref(*qkv, q_offset=60)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("which", [0, 1, 3, 4])
+def test_ssd_at_an_unaligned_address(cuda, which):
+    """A bf16 input (x, dt, B or C) 4 bytes off 16-byte alignment takes
+    the tensor-core stages' plain loads and still meets the bf16
+    tolerances."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    args = _ssd_case(2, 300, 3, 64, 64, torch.bfloat16, cuda, 5)
+    args[which] = _at_offset(args[which])
+    before = LAUNCHES["ssd_tc"]
+    y, fin = ssd(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_tc"] == before + 1
+    wy, wf = ssd_chunked(*args, chunk=128)
+    assert ((y.float() - wy.float()).abs()
+            <= 1e-4 + 2.0 ** -7 * wy.float().abs()).all()
     torch.testing.assert_close(fin, wf, atol=1e-4, rtol=1e-5)
 
 
@@ -238,9 +303,12 @@ def test_zamba2_smoke_model_on_the_card_equals_the_cpu(cuda):
     before = dict(LAUNCHES)
     got, _, _ = T.forward(cfg, on_card, {"tokens": toks})
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention"] - before["flash_attention"] == \
-        T.n_hybrid_attn_invocations(cfg)
-    assert LAUNCHES["ssd"] - before["ssd"] == cfg.n_layers
+    # bf16 compute: every launch takes the tensor-core kernels
+    for name in ("flash_attention", "flash_attention_tc"):
+        assert LAUNCHES[name] - before[name] == \
+            T.n_hybrid_attn_invocations(cfg)
+    for name in ("ssd", "ssd_tc"):
+        assert LAUNCHES[name] - before[name] == cfg.n_layers
     want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks})
     assert torch.isfinite(got).all()
     top2 = want[0].topk(2, dim=-1).values

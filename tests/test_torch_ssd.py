@@ -160,3 +160,106 @@ def test_wrapper_checks_its_input():
         ops.ssd(x, dt, a_log, b, c, chunk=0)
     with pytest.raises(ValueError, match="meta"):
         ops.ssd(*(t.to("meta") for t in (x, dt, a_log, b, c)))
+
+
+def _split(v, terms):
+    """v (fp32) as ``terms`` bf16 values (each held in fp32) whose sum
+    approximates it: hi = bf16(v), then the bf16 of each remainder."""
+    out = []
+    for _ in range(terms):
+        t = v.bfloat16().float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _tc_emulation(x, dt, a_log, b, c, chunk, gate_terms=2, state_terms=3,
+                  inter_terms=3):
+    """The bf16 tensor-core stages' arithmetic (csrc/ssd_tc.cu) in plain
+    torch: per chunk, cum in order with dt A rounded first; the chunk
+    state x^T (B dt exp(total - cum)) with the weighted B split into
+    ``state_terms`` bf16 terms; the scan over chunks; y = exp(cum_i)
+    (C_i . state_prev), the state split into ``inter_terms`` terms, plus
+    the gate (C_i . B_j) exp(cum_i - cum_j) dt_j split into
+    ``gate_terms`` terms times x.  The defaults are the kernel's."""
+    bsz, s, h, p = x.shape
+    a = -torch.exp(a_log.float())
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b[:, :, 0].float(), c[:, :, 0].float()
+    y = torch.zeros((bsz, s, h, p))
+    carry = torch.zeros((bsz, h, p, bf.shape[-1]))
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, min(t0 + chunk, s))
+        cum = torch.cumsum(dtf[:, sl] * a, dim=1)             # (B, l, H)
+        w = dtf[:, sl] * torch.exp(cum[:, -1:] - cum)
+        wb = bf[:, sl, None, :] * w[..., None]                # (B, l, H, N)
+        state = sum(torch.einsum("bjhp,bjhn->bhpn", xf[:, sl], t)
+                    for t in _split(wb, state_terms))
+        inter = sum(torch.einsum("bin,bhpn->bihp", cf[:, sl], t)
+                    for t in _split(carry, inter_terms)) * torch.exp(cum)[..., None]
+        scores = torch.einsum("bin,bjn->bij", cf[:, sl], bf[:, sl])
+        ln = cum.shape[1]
+        tril = torch.tril(torch.ones((ln, ln), dtype=torch.bool))
+        gate = scores[..., None] * torch.exp(
+            cum[:, :, None, :] - cum[:, None, :, :]) * dtf[:, sl][:, None]
+        gate = torch.where(tril[None, :, :, None], gate, 0.0)  # (B,i,j,H)
+        intra = sum(torch.einsum("bijh,bjhp->bihp", t, xf[:, sl])
+                    for t in _split(gate, gate_terms))
+        y[:, sl] = intra + inter
+        carry = carry * torch.exp(cum[:, -1])[..., None, None] + state
+    return y.bfloat16(), carry
+
+
+TC_CASES = SSD_CASES + [
+    (2, 1000, 4, 64, 64, 256, 0),     # the serve prefill's ragged chunks
+    (2, 200, 4, 16, 32, 64, 0)]
+
+
+def _tc_errors(case, **terms):
+    """The largest ratio of |error| to the kernel's bf16 tolerance, for
+    y and for the final state, of the emulation with ``terms`` against
+    the JAX package's reference on bf16 inputs (<= 1 where it holds)."""
+    b, s, h, p, n, chunk, _ = case
+    arrays = _inputs(b, s, h, p, n)
+    want_y, want_f = jax_ssd(*(jnp.asarray(a, jnp.bfloat16)
+                               if i != 2 else jnp.asarray(a)
+                               for i, a in enumerate(arrays)), chunk=chunk)
+    got_y, got_f = _tc_emulation(*(torch.from_numpy(a).bfloat16()
+                                   if i != 2 else torch.from_numpy(a)
+                                   for i, a in enumerate(arrays)), chunk,
+                                 **terms)
+    want_y = np.asarray(want_y.astype(jnp.float32))
+    want_f = np.asarray(want_f)
+    err_y = np.abs(got_y.float().numpy() - want_y) / \
+        (1e-4 + 2.0 ** -7 * np.abs(want_y))
+    err_f = np.abs(got_f.numpy() - want_f) / (1e-4 + 1e-5 * np.abs(want_f))
+    return float(err_y.max()), float(err_f.max())
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tensor_core_design_meets_the_bf16_tolerances(case):
+    """The tensor-core design (gate in two bf16 terms, the chunk states
+    and the carried state in three) against the JAX package's reference
+    on bf16 inputs: y within one bf16 ulp (1e-4 + 2^-7 |y|), the fp32
+    state within 1e-4 + 1e-5 |state|, the kernel's tolerances."""
+    err_y, err_f = _tc_errors(case)
+    assert err_y <= 1.0 and err_f <= 1.0, (err_y, err_f)
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_two_bf16_terms_per_product_meet_the_bf16_tolerances(case):
+    """Two bf16 terms for every fp32 operand (the gate, the chunk states,
+    the carried state) still meet the kernel's bf16 tolerances: the
+    least passes that chip_smoke.py's `ssd_bound` counts."""
+    err_y, err_f = _tc_errors(case, gate_terms=2, state_terms=2,
+                              inter_terms=2)
+    assert err_y <= 1.0 and err_f <= 1.0, (err_y, err_f)
+
+
+@pytest.mark.parametrize("product", ["gate", "state", "inter"])
+def test_one_bf16_term_misses_the_bf16_tolerances(product):
+    """One bf16 term for any fp32 operand misses the bf16 tolerances at
+    the serve prefill's shape, so no product of the bound takes fewer
+    than two passes (the scores, of bf16 operands, take one)."""
+    err_y, err_f = _tc_errors(TC_CASES[3], **{f"{product}_terms": 1})
+    assert max(err_y, err_f) > 1.0, (err_y, err_f)
