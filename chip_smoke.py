@@ -13,27 +13,34 @@ each printed as one JSON line:
 1. card: the GPU's name and power limit, torch and CUDA versions; then
    the port's kernels are built from ``src/repro_torch/kernels`` (one
    ``nvcc`` per source, all started together).
-2. kernel vs plain version: `selection_counts` on the card against its
-   plain torch version, at the shapes the main path gives it, with
-   random words, real engine selections, ragged K and all-ones words.
+2. kernel vs plain version: `selection_counts` (the .b1 tensor-core
+   kernel) on the card against its plain torch version, at the shapes
+   the main path gives it, with random words, real engine selections,
+   ragged K (1, 37, 1000) and all-ones words; then across its tiles'
+   edges (W = 4, n_pad off its 256-vertex tile and odd) and through its
+   plain loads (W = 5; an operand one word off 16-byte alignment).
    Counts are integers: the tolerance is zero.
 3. main path: `map_dfg` at the port's defaults (``engine="device"``,
    1024 trajectories, 20000 iterations, on the GPU) on the 14 golden
    (II, routing-PE) cases of the paper's kernels, and on C4K8 at the
    8x8 and 16x16 fabric sizes.  The kernel's launch count is reset
-   just before and read just after; it must have launched.
+   just before and read just after; it must be `MAIN_PATH_LAUNCHES`.
 4. the engine on the card vs on the CPU: 64 iterations of 64
    trajectories from the same inits must end in bit-identical state.
 5. full width: 1024 trajectories for 48 iterations on the C4K8@8x8 and
    C4K8@16x16 conflict graphs; every best must be an independent set.
-   Iterations/s and peak device memory, then 16 iterations under
-   `torch.profiler` for the card's busy share of a lock-step.
+   Iterations/s and peak device memory (at 16x16 beside the 5.2 ms an
+   iteration before the tensor-core `selection_counts`, quoted), then 16 iterations under `torch.profiler` for
+   the card's busy share of a lock-step.
 6. conflict kernels vs plain versions: `conflict_matrix` (dense int8)
    and `conflict_matrix_packed` (packed words) on the card against
    their plain torch versions on the card, with tolerance zero, on the
    features of the graphs above and of the five 16x16 workload graphs
    (|V_C| up to 16656), on ragged random features, and with every
-   vertex in one op; the packed kernel, unpacked, must equal the dense.
+   vertex in one op, and with op ids and slots across the int32 range
+   (the packed wrapper then sorts its group ids); the packed kernel must
+   also equal its own plain version (the group-mask formulation) and,
+   unpacked, the dense kernel: two independent formulations.
 7. conflict route: `build_conflict_graph(use_kernel="packed-cuda")`
    must give rows byte-equal to the host build (``use_kernel=False``)
    on C4K8@16x16 and the five 16x16 workload graphs, with
@@ -47,10 +54,15 @@ each printed as one JSON line:
 8. 16x16 workloads: `map_dfg` at the port's defaults on four workload
    graphs of the generator (`core.workloads`) on a 16x16 fabric; each
    (II, routing PEs) must equal the pinned `GOLDEN_16X16`.
-9. times: `selection_counts` per call (CUDA events, after warm-up), its
-   bound, its plain version and the ``torch._int_mm`` yardstick; both
-   conflict kernels at each 16x16 workload shape, with their bounds,
-   plain versions and the two host (numpy) formulations.
+9. times: the rates of the four tensor-core instructions that could
+   carry `selection_counts` (``csrc/mma_probe.cu``: mma.sync and wgmma,
+   .b1 and .s8), which chose the .b1 wgmma; `selection_counts` per call
+   (CUDA events, after warm-up), its bound (bytes, or the 0/1 product at
+   the int8 rate, or at the measured .b1 rate where the kernel beats
+   the int8 one), the CUDA cores' POPC floor, its plain version and the
+   ``torch._int_mm`` yardstick; both conflict kernels at each 16x16
+   workload shape, with their bounds, plain versions (the packed one's
+   device time by kernel too) and the two host (numpy) formulations.
 10. llm-serve: zamba2-1.2b at its published widths (the port's seeded
    init, seed 0) served by `WaveServer` with 4 slots: 8 requests of
    1000 prompt tokens, 32 new tokens each.  The launch counts are reset
@@ -144,12 +156,30 @@ WORKLOADS_16X16 = ("scale_16x16_loop", "loop40", "stencil16t3",
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_BF16_S = 989e12      # bf16 tensor cores, dense
-OPS_PER_WORD = 3          # AND + POPC + ADD per (k, v, word)
-# The least work of the conflict predicate: it is the union of three
-# equivalence relations (same op; same kind, slot and port; QUAD with
-# the same slot and PE), so each 32-bit output word is the OR of at most
-# three group masks with the diagonal cleared (csrc/conflict_matrix.cu).
-OPS_PER_OUT_WORD = 3
+PEAK_INT8_S = 1979e12     # int8 tensor cores, dense
+# The CUDA cores' popcount pipe: 16 POPC a clock an SM (the CUDA
+# programming guide's throughput table, compute capability 9.0), over
+# 132 SMs at 1.98 GHz: the floor of any CUDA-core `selection_counts`,
+# which needs one POPC per (trajectory, vertex, word).
+POPC_S = 16 * 132 * 1.98e9
+# The least work of the conflict predicate: it is the union of two
+# equivalence relations (same op; same place: the same kind, slot and
+# port for TIN/TOUT, the same slot and PE for QUAD), so each 32-bit
+# output word is the OR of at most two group masks with the diagonal
+# cleared (csrc/conflict_matrix.cu): an OR and a mask.
+OPS_PER_OUT_WORD = 2
+# Launches of `selection_counts` in the main-path phase: all of them
+# C5K5:bandmap's portfolio, the only golden case the host does not
+# settle (every earlier chip run read the same count).
+MAIN_PATH_LAUNCHES = 192
+# A C4K8@16x16 lock-step iteration at K = 1024 before this kernel's
+# tensor-core redesign, ms: quoted from PERF.md section 5, never
+# measured here.
+EARLIER_ITER_MS_16X16 = 5.2
+# The CUDA-core selection_counts' ms at the 16x16 shape and the
+# pair-predicate packed kernel's at n = 16656, quoted from PERF.md.
+EARLIER_SELECTION_COUNTS_MS = 0.646
+EARLIER_PACKED_MS = 0.287
 # The LLM path: zamba2-1.2b served (4 slots, 8 requests of 1000 prompt
 # tokens, 32 new ones) and its no-cache forward at 8192 tokens.
 LLM_ARCH = "zamba2-1.2b"
@@ -167,13 +197,18 @@ SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # P = 20 and N = 12 are not multiples of 8, so their bf16 calls take the
 # kernels' plain loads instead of cp.async, as does a bf16 input at an
 # offset of 2 elements (4 bytes off 16-byte alignment, `_at_offset`).
+# D = 192 and 256 (three and four 64-column panels; bf16 takes the
+# two-stage K/V ring there) are the widest heads of the repository's
+# configs; D = 250 takes the bf16 plain loads at four panels.
 FA_CASES = [(2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
             (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
             (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511),
             (2, 300, 333, 8, 2, 128, None, 0), (1, 200, 260, 8, 2, 48, 70, 60),
             (1, 129, 65, 4, 1, 128, None, 0),
             (1, 777, 900, 4, 1, 64, 300, 123), (1, 150, 170, 4, 2, 5, None, 0),
-            (1, 200, 260, 8, 2, 44, 70, 60)]
+            (1, 200, 260, 8, 2, 44, 70, 60),
+            (2, 300, 333, 8, 2, 192, None, 0), (1, 200, 260, 4, 1, 256, 70, 60),
+            (1, 150, 170, 2, 1, 250, None, 0)]
 SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
              (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256),
              (1, 256, 4, 64, 64, 256), (2, 100, 4, 64, 64, 256),
@@ -264,10 +299,14 @@ def workload_dfgs() -> dict:
             else specs[name].build() for name in WORKLOADS_16X16}
 
 
-def random_features(n: int, seed: int, one_op: bool = False):
+def random_features(n: int, seed: int, one_op: bool = False,
+                    wide: bool = False):
     """``int32 [n, 8]`` features with every field in a small range, so
-    that many pairs share a kind, op, slot, port or PE; ``one_op`` puts
-    every vertex in op 5, where every off-diagonal pair conflicts."""
+    that many pairs share a kind, op, slot, port or PE (kinds -1 and 3
+    lie outside TIN/TOUT/QUAD); ``one_op`` puts every vertex in op 5,
+    where every off-diagonal pair conflicts; ``wide`` spreads the op ids
+    and slots over the int32 range, so the packed wrapper sorts its group
+    ids instead of taking the mixed-radix ones."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -278,6 +317,10 @@ def random_features(n: int, seed: int, one_op: bool = False):
                     axis=1).astype(np.int32).reshape(n, 8)
     if one_op:
         feat[:, 1] = 5
+    if wide:
+        pick = np.array([-2**31, -7, 0, 2**31 - 1], dtype=np.int32)
+        feat[:, 1] = pick[rng.integers(0, 4, n)]
+        feat[:, 2] = pick[rng.integers(0, 4, n)]
     return torch.from_numpy(feat)
 
 
@@ -290,7 +333,8 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
     from repro_torch.kernels.conflict_matrix import (conflict_matrix_dense,
                                                      conflict_matrix_words)
     from repro_torch.kernels.conflict_matrix.ref import (
-        conflict_matrix_packed_plain, conflict_matrix_plain)
+        conflict_matrix_packed_groups, conflict_matrix_packed_plain,
+        conflict_matrix_plain, radix_plan)
     max_err = {"conflict_matrix": 0, "conflict_matrix_packed": 0}
     cases = []
     for label, feat in feats.items():
@@ -300,6 +344,7 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
         torch.cuda.synchronize()
         dense_plain = conflict_matrix_plain(f)
         words_plain = conflict_matrix_packed_plain(f)
+        words_groups = conflict_matrix_packed_groups(f)
         torch.cuda.synchronize()
         bits, bits_plain = unpack_words(words), unpack_words(words_plain)
         err_d = int((dense.int() - dense_plain.int()).abs().max()) \
@@ -311,13 +356,19 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
             max_err["conflict_matrix_packed"], err_p)
         cases.append(dict(case=label, n=n, words=words.shape[1],
                           edges=int(dense.sum()), max_abs_err_dense=err_d,
-                          max_abs_err_packed=err_p))
+                          max_abs_err_packed=err_p,
+                          group_ids="radix" if n and radix_plan(f)
+                          else "sorted"))
         check(dense.shape == (n, n) and dense.dtype == torch.int8,
               f"{label}: dense output {tuple(dense.shape)} {dense.dtype}")
         check(torch.equal(dense, dense_plain),
               f"conflict_matrix != plain version: {label}")
         check(torch.equal(words, words_plain),
-              f"conflict_matrix_packed != plain version: {label}")
+              f"conflict_matrix_packed != pair-predicate plain version: "
+              f"{label}")
+        check(torch.equal(words, words_groups),
+              f"conflict_matrix_packed != group-mask plain version: "
+              f"{label}")
         check(torch.equal(bits[:, :n], dense.bool()) and
               not bits[:, n:].any(),
               f"packed kernel, unpacked, != dense kernel: {label}")
@@ -444,8 +495,8 @@ def time_conflict_kernels(workloads: dict, dev) -> list:
     from repro_torch.kernels.conflict_matrix import (conflict_matrix_dense,
                                                      conflict_matrix_words)
     from repro_torch.kernels.conflict_matrix.ref import (
-        conflict_matrix_packed_plain, conflict_matrix_plain,
-        conflict_matrix_ref, encode)
+        conflict_matrix_packed_groups, conflict_matrix_packed_plain,
+        conflict_matrix_plain, conflict_matrix_ref, encode)
     rows = []
     for name, (sched, cg) in workloads.items():
         feat = encode(cg.vertices)
@@ -463,17 +514,28 @@ def time_conflict_kernels(workloads: dict, dev) -> list:
                 ("conflict_matrix", conflict_matrix_dense,
                  conflict_matrix_plain, n * n, 20),
                 ("conflict_matrix_packed", conflict_matrix_words,
-                 conflict_matrix_packed_plain, 4 * n * w32, 50)):
+                 conflict_matrix_packed_groups, 4 * n * w32, 50)):
             nbytes = 4 * 8 * n + out_bytes     # features in, words out
             ops = OPS_PER_OUT_WORD * -(-out_bytes // 4)
             t_ops, t_bytes = ops / PEAK_OPS_S, nbytes / PEAK_BYTES_S
-            rows.append(dict(
+            row = dict(
                 kernel=kernel, graph=f"{name}@16x16", n=n, w32=w32,
                 ms=cuda_ms(lambda: fn(f), reps),
                 plain_ms=cuda_ms(lambda: plain(f), 2),
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, ops=ops, bytes=nbytes, host_ms=host_ms))
+                library_ms=None, ops=ops, bytes=nbytes, host_ms=host_ms)
+            if kernel == "conflict_matrix_packed":
+                # The wrapper's ms holds its aminmax read-back (a sync)
+                # and four launches; the card's own time, by kernel:
+                prof = device_profile(lambda: fn(f))
+                row.update(device_ms=prof["device_ms"],
+                           device_kernels=prof["top"],
+                           pair_plain_ms=cuda_ms(
+                               lambda: conflict_matrix_packed_plain(f), 2),
+                           earlier_ms=EARLIER_PACKED_MS
+                           if n == 16656 else None)
+            rows.append(row)
     return rows
 
 
@@ -860,6 +922,31 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
     return dict(flash_attention=fa_cases, ssd=ssd_cases, path=path)
 
 
+def counts_bound(k: int, n_pad: int, w: int, ms: float,
+                 b1_rate: float) -> dict:
+    """The least time of `selection_counts` at (K, n_pad, W): the bytes
+    (both word matrices read once, the int32 counts written once) and
+    the 2 K n_pad 32 W operations of the 0/1 product at the int8
+    tensor-core rate; where the kernel (``ms``) beats that bound, the
+    operations count at the measured .b1 wgmma rate instead.  The
+    CUDA-core POPC floor (one POPC per trajectory, vertex and word) is
+    returned beside it."""
+    ops = 2 * k * n_pad * 32 * w
+    nbytes = 4 * (n_pad * w + k * w + k * n_pad)
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops, basis = ops / PEAK_INT8_S, "int8 tensor-core rate (data sheet)"
+    if ms < 1e3 * max(t_ops, t_bytes):
+        t_ops, basis = ops / b1_rate, "measured .b1 wgmma rate"
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ops_rate=basis,
+                int8_bound_ms=1e3 * max(ops / PEAK_INT8_S, t_bytes),
+                popc_floor_ms=1e3 * k * n_pad * w / POPC_S,
+                earlier_ms=EARLIER_SELECTION_COUNTS_MS
+                if (k, n_pad, w) == (1024, 8448, 264) else None,
+                ops=ops, bytes=nbytes)
+
+
 def flash_bound(b, sq, sk, hq, d, nbytes) -> dict:
     """The least time of causal attention on bf16 inputs: 4 d FLOP for
     each visible (query, key) pair, all at the bf16 tensor-core rate.
@@ -969,6 +1056,7 @@ def main() -> int:
     from repro_torch.kernels.conflict_matrix.ref import encode
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels.sbts_step import selection_counts
+    from repro_torch.kernels.sbts_step.probe import mma_rates
     from repro_torch.kernels.sbts_step.ref import selection_counts_plain
 
     t_start = time.perf_counter()
@@ -1041,7 +1129,7 @@ def main() -> int:
             eng.run(8)
             compare(f"{name} engine K={k}", rows32,
                     pack_words(eng.state[0]))
-        for k in (1, 37):
+        for k in (1, 37, 1000):
             sel = torch.randint(-2**31, 2**31 - 1, (k, w),
                                 dtype=torch.int32, device=dev,
                                 generator=gen)
@@ -1051,6 +1139,28 @@ def main() -> int:
         compare(f"{name} all-ones", ones_rows, ones_sel)
         check(bool((selection_counts(ones_rows, ones_sel) == 32 * w).all()),
               "all-ones words must count 32 per word")
+
+    # The tensor-core kernel's edges beyond the graphs' shapes: W = 4
+    # (one panel, mostly zero), n_pad off its 256-vertex tile (odd ones
+    # store one int32 at a time), K off its 128-trajectory tile, and its
+    # plain loads (W % 4 != 0; an operand one word off 16-byte alignment).
+    def words(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def at_offset(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=dev)[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for k, w, n in ((1, 4, 200), (1000, 4, 200), (32, 68, 2177),
+                    (1000, 264, 8549), (1024, 264, 8320), (37, 5, 300)):
+        compare(f"K={k} W={w} n_pad={n}", words((n, w)), words((k, w)))
+    compare("rows one word off 16-byte alignment",
+            at_offset(words((300, 8))), words((70, 8)))
+    compare("sel one word off 16-byte alignment",
+            words((300, 8)), at_offset(words((70, 8))))
     emit(dict(phase="kernel-vs-plain", tolerance=0, max_abs_err=max_err,
               cases=checked))
 
@@ -1087,8 +1197,9 @@ def main() -> int:
         check(r.ii == r.mii, f"{label}: II {r.ii} above MII {r.mii}")
     main_launches = LAUNCHES["selection_counts"]
     emit(dict(phase="main-path", launches=main_launches, cases=cases))
-    check(main_launches > 0,
-          "the main path never launched selection_counts")
+    check(main_launches == MAIN_PATH_LAUNCHES,
+          f"the main path launched selection_counts {main_launches} "
+          f"times, not {MAIN_PATH_LAUNCHES}")
 
     # ---- 4. the engine on the card vs on the CPU
     sched, cg, cgra = graphs["C4K8@8x8:busmap"]
@@ -1143,7 +1254,13 @@ def main() -> int:
             top_kernels_per_16_iters=prof["top"],
             launches_per_iter=launches / max(1, iters),
             peak_mem_bytes=torch.cuda.max_memory_allocated(),
-            independent=independent))
+            independent=independent,
+            **(dict(earlier_wall_ms_per_iter=EARLIER_ITER_MS_16X16,
+                    earlier_iters_per_s=1e3 / EARLIER_ITER_MS_16X16,
+                    earlier_from="quoted from PERF.md section 5 (before "
+                                 "the tensor-core selection_counts), not "
+                                 "measured in this run")
+               if name == "C4K8@16x16:bandmap" else {})))
         check(independent, f"{name}: a best is not an independent set")
     emit(dict(phase="full-width", card=card, runs=widths))
 
@@ -1156,6 +1273,8 @@ def main() -> int:
         feats[f"random n={n}"] = random_features(n, seed=n)
     for n in (100, 777):
         feats[f"one-op n={n}"] = random_features(n, seed=n, one_op=True)
+    for n in (33, 777, 4097):
+        feats[f"wide n={n}"] = random_features(n, seed=n, wide=True)
     vs_plain = check_conflict_kernels(feats, dev)
     emit(dict(phase="conflict-kernels-vs-plain", tolerance=0, **vs_plain))
 
@@ -1186,6 +1305,10 @@ def main() -> int:
               cases=map_workloads(workload_dfgs(), cgra16)))
 
     # ---- 9. times
+    # The rates of the tensor-core instructions that could carry
+    # selection_counts: what chose the .b1 wgmma, and its bound's rate.
+    rates = mma_rates()
+    b1_rate = rates["wgmma m64n256k256 .b1 .and.popc"]
     times = []
     for name, (sched, cg, cgra) in graphs.items():
         eng = DeviceSBTS(cg.bits, k=1024, seed=5, device=dev)
@@ -1199,27 +1322,33 @@ def main() -> int:
             sel_bits = eng.state[0][:k].contiguous()
             sel32 = pack_words(sel_bits)
             w = rows32.shape[1]
-            ops = OPS_PER_WORD * k * n_pad * w
-            nbytes = 4 * (n_pad * w + k * w + k * n_pad)
-            t_ops, t_bytes = ops / PEAK_OPS_S, nbytes / PEAK_BYTES_S
             sel8 = sel_bits.to(torch.int8)
             lib = torch._int_mm(sel8, adj8)       # adjacency is symmetric
             check(torch.equal(lib, selection_counts(rows32, sel32)),
                   f"{name}: torch._int_mm yardstick disagrees")
-            reps = 50 if k == 1024 else 200
+            reps = 200 if k == 1024 else 500
+            ms = cuda_ms(lambda: selection_counts(rows32, sel32), reps)
+            # The card's own time a call (ms above also holds the
+            # wrapper's host time, which leads at the small shapes).
+            prof = device_profile(
+                lambda: [selection_counts(rows32, sel32) for _ in range(20)])
             times.append(dict(
-                graph=name, k=k, n_pad=n_pad, w=w,
-                ms=cuda_ms(lambda: selection_counts(rows32, sel32), reps),
+                graph=name, k=k, n_pad=n_pad, w=w, ms=ms,
+                device_ms=None if prof["device_ms"] is None
+                else prof["device_ms"] / 20,
                 plain_ms=cuda_ms(
                     lambda: selection_counts_plain(rows32, sel32), 5),
                 library_ms=cuda_ms(lambda: torch._int_mm(sel8, adj8),
                                    reps),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=ops, bytes=nbytes, launches_per_iter=3))
+                **counts_bound(k, n_pad, w, ms, b1_rate),
+                launches_per_iter=3))
     conflict_times = time_conflict_kernels(workloads, dev)
-    emit(dict(phase="times", card=card, runs=times,
-              conflict_runs=conflict_times))
+    emit(dict(phase="times", card=card, mma_ops_per_s=rates,
+              mma_probe="src/repro_torch/kernels/sbts_step/csrc/"
+                        "mma_probe.cu: 2 blocks an SM, each instruction "
+                        "on operands that stay put; 2 m n k operations "
+                        "an instruction (k in bits for .b1)",
+              runs=times, conflict_runs=conflict_times))
 
     # ---- 10-13. the LLM path: zamba2-1.2b at its published widths
     from repro_torch.configs import get_config
@@ -1263,6 +1392,7 @@ def main() -> int:
         launches=main_launches, max_abs_err=max_err, ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
+        bound_ops_rate=row["bound_ops_rate"],
         shape=f"K={row['k']} n_pad={row['n_pad']} W={row['w']}")] + [
         dict(name=kernel, route="cuda",
              source="src/repro_torch/kernels/conflict_matrix/csrc/"

@@ -4,12 +4,16 @@ and ``ops.py`` (the checked wrapper):
 
 - sbts_step/        ``selection_counts``: |N(v) ∩ S_k| by AND +
                     popcount over packed words — the device SBTS
-                    engine's conflict counts (replaces
-                    ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``)
+                    engine's conflict counts, on the tensor cores'
+                    .b1 wgmma (replaces
+                    ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``);
+                    ``probe.mma_rates`` times the four MMA instructions
+                    that could carry it (``csrc/mma_probe.cu``)
 - conflict_matrix/  ``conflict_matrix`` and ``conflict_matrix_packed``:
                     the conflict graph's occupancy/clique predicate
-                    over every vertex pair, as a dense int8 matrix and
-                    as packed bitset words — behind
+                    over every vertex pair, as a dense int8 matrix (the
+                    pair predicate) and as packed bitset words (the OR
+                    of each row's two group masks) — behind
                     ``build_conflict_graph(use_kernel="packed-cuda")``
                     (replace ``conflict_matrix_pallas`` and
                     ``conflict_matrix_packed_pallas`` of
@@ -21,7 +25,8 @@ and ``ops.py`` (the checked wrapper):
                     ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``).
                     Two routes by dtype: bf16 to ``flash_attention_tc.cu``
                     (wgmma on the bf16 tensor cores), fp32 to
-                    ``flash_attention.cu`` (fp32 CUDA cores)
+                    ``flash_attention.cu`` (fp32 CUDA cores); head dims
+                    up to 256 on both
 - ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
                     layer's prefill (replaces
                     ``repro/kernels/ssd/kernel.py::ssd_pallas``).  Two
@@ -31,10 +36,16 @@ and ``ops.py`` (the checked wrapper):
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
-wrapper call that launches adds one to ``LAUNCHES[name]``, so a run can
-show which kernels its path went through; a call that took a
-tensor-core route adds one to ``LAUNCHES[name + "_tc"]`` too.
+wrapper call that launches adds one to ``LAUNCHES[name]`` through
+`count_launch`, so a run can show which kernels its path went through;
+a call that took a tensor-core route adds one to
+``LAUNCHES[name + "_tc"]`` too.  The counts are exact when several
+threads launch: every update holds one lock.
 """
+
+import threading
+
+_COUNT_LOCK = threading.Lock()
 
 #: kernel name -> launches since the last `reset_launches`.
 LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
@@ -43,6 +54,17 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "ssd": 0, "ssd_tc": 0}
 
 
+def count_launch(name: str, tc: bool = False) -> None:
+    """Add one to ``LAUNCHES[name]`` and, for a tensor-core launch, to
+    ``LAUNCHES[name + "_tc"]``, under one lock (a ``+=`` on a dict
+    entry is a read and a write that two threads can interleave)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if tc:
+            LAUNCHES[name + "_tc"] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0

@@ -26,11 +26,19 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 #: library name -> its CUDA sources (paths relative to this package).
 SOURCES = {
     "sbts_step": ("sbts_step/csrc/selection_counts.cu",),
+    "mma_probe": ("sbts_step/csrc/mma_probe.cu",),
     "conflict_matrix": ("conflict_matrix/csrc/conflict_matrix.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "flash_attention_tc": ("flash_attention/csrc/flash_attention_tc.cu",),
     "ssd": ("ssd/csrc/ssd.cu",),
     "ssd_tc": ("ssd/csrc/ssd_tc.cu",),
+}
+
+#: library name -> headers its sources include, hashed with them so an
+#: edited header rebuilds the library.
+HEADERS = {
+    "sbts_step": ("sbts_step/csrc/wgmma_s32.cuh",),
+    "mma_probe": ("sbts_step/csrc/wgmma_s32.cuh",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[str, list[str]]:
     srcs = [os.path.join(_HERE, s) for s in SOURCES[name]]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(_HERE, s) for s in HEADERS.get(name, ())]:
         with open(s, "rb") as fh:
             h.update(fh.read())
     so = os.path.join(build_dir(), f"{name}-{h.hexdigest()[:12]}.so")

@@ -9,10 +9,9 @@
 //
 // which is ref.py::conflict_matrix_ref's "same op, or both TIN / both
 // TOUT with the same port and slot, or both QUAD with the same PE and
-// slot", regrouped so that the kind tests on i are made once per row.
-// Columns 6-7 (mode, drive) are never read.
+// slot".  Columns 6-7 (mode, drive) are never read.
 //
-// - conflict_matrix_packed_kernel replaces
+// - The packed kernels replace
 //   repro/kernels/conflict_matrix/kernel.py::conflict_matrix_packed_pallas
 //   (body _cm_packed_kernel): int32 [n, w32] words, bit j % 32 of word
 //   j / 32 is column j (little-endian), so the host views word pairs as
@@ -25,24 +24,36 @@
 // Bound.  The function's floor is its traffic: the features read once
 // (32 bytes a vertex) and the output written once, n^2 bytes dense and
 // n * 2 * ceil(n / 64) * 4 bytes packed (277 MB and 35 MB at n = 16656).
-// The predicate needs few operations: it is the union of three
-// equivalence relations (same op; same kind, slot and port for TIN and
-// TOUT; same slot and PE for QUAD), so each output word is the OR of at
-// most three group masks with the diagonal cleared, a few operations
-// per 32-bit word, and bytes bind both kernels.  These kernels evaluate
-// the pair predicate instead (about 13 operations a pair), which is
-// what keeps the packed one far above its bound.
-// Design (simple and right first; no tuning yet):
-// - packed: a block of 8 warps owns 64 rows and 32 output words (1024
-//   columns).  It stages the tile's columns' six fields in shared
-//   memory, one array per field, so lane l of a warp reads column
-//   32 w + l without bank conflicts; each warp keeps its 8 rows'
-//   fields in registers.  For word w, the warp evaluates 32 columns,
-//   one per lane, and __ballot_sync gives exactly the word; lane w
-//   keeps it, and after the 32 words every lane stores one word of
-//   each row: 128 contiguous bytes per row and warp, each word written
-//   once.
-// - dense: a block of 64 x 4 threads owns 16 rows and 1024 columns.
+// The predicate is the union of two equivalence relations: same op; and
+// same place (the same kind, slot and port for TIN and TOUT, the same
+// slot and PE for QUAD; other kinds have none).  So each output word is
+// the OR of at most two group masks with the diagonal cleared, a few
+// operations per 32-bit word, and bytes bind both kernels.
+//
+// Design of the packed kernels (the OR of group masks; no pair is
+// evaluated):
+// - the wrapper gives each vertex an op id and a place id (-1: none),
+//   rows of one mask table of (groups x w32) words that it has zeroed:
+//   either ids it sorted, or the mixed-radix plan of ref.py::radix_plan,
+//   from which conflict_groups_scatter_kernel computes them itself;
+// - conflict_groups_scatter_kernel: one thread per vertex j.  The 32
+//   lanes of a warp hold the vertices of one word; __match_any_sync
+//   finds the lanes that share a group, and one of them ORs their lane
+//   mask (their bits of that word) into the group's row: one atomicOr
+//   per group present in the word;
+// - conflict_groups_or_kernel: out[i, w] = M[op(i), w] | M[place(i), w]
+//   with bit i cleared, two 32-bit words at a time, threads along w so
+//   that loads and stores are coalesced.  The table (1-4 MB at 16x16)
+//   stays in L2.
+//   Measured (chip_smoke.py's times phase, H100 80GB HBM3 at 700 W):
+//   0.026 ms of device time at n = 16656 (the OR kernel 0.020 ms, 1.9x
+//   the bytes bound), where the pair predicate took 0.287 ms.  A
+//   wrapper call takes ~0.14 ms: the plan's aminmax is read back to
+//   size the table, and its four launches are host-bound.
+// Design of the dense kernel (simple and right first; no tuning yet): it
+// evaluates the pair predicate, a formulation independent of the
+// packed kernels', so each checks the other.
+// - a block of 64 x 4 threads owns 16 rows and 1024 columns.
 //   The output has a pitch of n rounded up to 16 bytes (the wrapper
 //   hands back the [n, n] slice), so every run of 16 columns of a row
 //   is 16-byte aligned and is stored as one uint4; columns j >= n of
@@ -97,63 +108,86 @@ __device__ __forceinline__ bool conflicts(const Row& a, int kind, int op,
 }
 
 // ------------------------------------------------------------ packed
-constexpr int kPackedWarps = 8;
-constexpr int kPackedRowsPerWarp = 8;
-constexpr int kPackedRows = kPackedWarps * kPackedRowsPerWarp;  // 64
-constexpr int kPackedWords = 32;                                // per tile
-constexpr int kPackedCols = kPackedWords * 32;                  // 1024
+// ref.py::radix_plan, in its order.
+struct Plan {
+  int lo_op, lo_m, lo_port, lo_pe_r, lo_pe_c;
+  int r_op, r_m, r_port, r_pe_r, r_pe_c;
+};
 
-__global__ void __launch_bounds__(kPackedWarps * 32)
-conflict_matrix_packed_kernel(const int32_t* __restrict__ feat,
-                              uint32_t* __restrict__ out, int n, int w32) {
-  __shared__ int32_t cols[kFields][kPackedCols];
+constexpr int kScatterThreads = 256;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int i0 = blockIdx.x * kPackedRows + warp * kPackedRowsPerWarp;
-  const int word0 = blockIdx.y * kPackedWords;
-  const int j0 = word0 * 32;
-
-  for (int t = threadIdx.x; t < kPackedCols; t += blockDim.x) {
-    const int j = j0 + t;
-    const int32_t* f = feat + static_cast<size_t>(j < n ? j : 0) * kFeatures;
-#pragma unroll
-    for (int c = 0; c < kFields; ++c) cols[c][t] = j < n ? f[c] : 0;
-  }
-  // Rows past n are evaluated (so that every lane of the warp takes
-  // part in each ballot) on row n - 1's fields, and never stored.
-  Row rows[kPackedRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kPackedRowsPerWarp; ++r)
-    rows[r] = load_row(feat, min(i0 + r, n - 1));
-  __syncthreads();
-
-  uint32_t mine[kPackedRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kPackedRowsPerWarp; ++r) mine[r] = 0u;
-
-#pragma unroll 1
-  for (int w = 0; w < kPackedWords; ++w) {
-    const int t = w * 32 + lane;
-    const int j = j0 + t;
-    const int kind = cols[0][t], op = cols[1][t], m = cols[2][t];
-    const int port = cols[3][t], pe_r = cols[4][t], pe_c = cols[5][t];
-    const bool in_range = j < n;
-#pragma unroll
-    for (int r = 0; r < kPackedRowsPerWarp; ++r) {
-      const bool bit = in_range & (i0 + r != j) &
-                       conflicts(rows[r], kind, op, m, port, pe_r, pe_c);
-      const uint32_t word = __ballot_sync(0xffffffffu, bit);
-      if (lane == w) mine[r] = word;
+// ids: int32 [2, n], op ids then place ids; computed from feat by the
+// plan (radix != 0) or read as the wrapper wrote them.
+__global__ void __launch_bounds__(kScatterThreads)
+conflict_groups_scatter_kernel(const int32_t* __restrict__ feat,
+                               int32_t* __restrict__ ids,
+                               uint32_t* __restrict__ table, int n, int w32,
+                               Plan pl, int radix) {
+  const int j = blockIdx.x * kScatterThreads + threadIdx.x;
+  int g[2] = {-1, -1};
+  if (j < n) {
+    if (radix) {
+      const int32_t* f = feat + static_cast<size_t>(j) * kFeatures;
+      const int kind = f[0];
+      const int64_t dm = static_cast<int64_t>(f[2]) - pl.lo_m;
+      g[0] = static_cast<int>(static_cast<int64_t>(f[1]) - pl.lo_op);
+      if (kind == kTin || kind == kTout)
+        g[1] = static_cast<int>(
+            pl.r_op + (kind * pl.r_m + dm) * pl.r_port +
+            (static_cast<int64_t>(f[3]) - pl.lo_port));
+      else if (kind == kQuad)
+        g[1] = static_cast<int>(
+            pl.r_op + 2ll * pl.r_m * pl.r_port +
+            (dm * pl.r_pe_r + (static_cast<int64_t>(f[4]) - pl.lo_pe_r)) *
+                pl.r_pe_c +
+            (static_cast<int64_t>(f[5]) - pl.lo_pe_c));
+      ids[j] = g[0];
+      ids[n + j] = g[1];
+    } else {
+      g[0] = ids[j];
+      g[1] = ids[n + j];
     }
   }
-
-  const int word = word0 + lane;
+  // The warp's 32 vertices are the bits of word j / 32 (a block starts
+  // at a multiple of 32); lanes past n hold -1 and set nothing.
+  const int lane = threadIdx.x & 31;
+  const int word = j >> 5;
 #pragma unroll
-  for (int r = 0; r < kPackedRowsPerWarp; ++r) {
-    const int i = i0 + r;
-    if (i < n && word < w32)
-      out[static_cast<size_t>(i) * w32 + word] = mine[r];
+  for (int r = 0; r < 2; ++r) {
+    const uint32_t peers = __match_any_sync(0xffffffffu, g[r]);
+    if (g[r] >= 0 && lane == __ffs(peers) - 1)
+      atomicOr(table + static_cast<size_t>(g[r]) * w32 + word, peers);
+  }
+}
+
+constexpr int kOrX = 64;   // threads along a row's words (pairs)
+constexpr int kOrY = 4;    // rows per block and pass
+
+// out[i, :] = table[op(i), :] | table[place(i), :] with bit i cleared,
+// as uint2 (w64 = w32 / 2 word pairs a row).
+__global__ void __launch_bounds__(kOrX * kOrY)
+conflict_groups_or_kernel(const int32_t* __restrict__ ids,
+                          const uint2* __restrict__ table,
+                          uint2* __restrict__ out, int n, int w64) {
+  const int w = blockIdx.x * kOrX + threadIdx.x;
+  if (w >= w64) return;
+  for (int i = blockIdx.y * kOrY + threadIdx.y; i < n;
+       i += gridDim.y * kOrY) {
+    const int a = ids[i], b = ids[n + i];
+    uint2 v = table[static_cast<size_t>(a) * w64 + w];
+    if (b >= 0) {
+      const uint2 t = table[static_cast<size_t>(b) * w64 + w];
+      v.x |= t.x;
+      v.y |= t.y;
+    }
+    if (w == (i >> 6)) {
+      const uint32_t clear = ~(1u << (i & 31));
+      if (i & 32)
+        v.y &= clear;
+      else
+        v.x &= clear;
+    }
+    out[static_cast<size_t>(i) * w64 + w] = v;
   }
 }
 
@@ -209,18 +243,38 @@ conflict_matrix_dense_kernel(const int32_t* __restrict__ feat,
 
 }  // namespace
 
-// feat: int32 [n, 8], out: uint32 [n, w32] (w32 >= ceil(n / 32)), both
-// contiguous on the device; stream: the caller's cudaStream_t.  Returns
-// the cudaError_t of the launch (0 on success).
-extern "C" int conflict_matrix_packed_launch(const void* feat, void* out,
-                                             int n, int w32, void* stream) {
+// feat: int32 [n, 8]; ids: int32 [2, n] (written here when radix != 0,
+// else the op and place ids, place -1 for none); table: uint32
+// [rows, w32], zeroed, with rows above every id; out: uint32 [n, w32]
+// with w32 even and w32 >= ceil(n / 32); all contiguous on the device,
+// table and out 8-byte aligned; the ten ints are ref.py::radix_plan's
+// (unread when radix == 0).  Launches the scatter, then the OR, on the
+// caller's stream.  Returns the cudaError_t of the launches.
+extern "C" int conflict_matrix_packed_launch(
+    const void* feat, void* ids, void* table, void* out, int n, int w32,
+    int radix, int lo_op, int lo_m, int lo_port, int lo_pe_r, int lo_pe_c,
+    int r_op, int r_m, int r_port, int r_pe_r, int r_pe_c, void* stream) {
   if (n <= 0 || w32 <= 0) return 0;
-  const dim3 grid((n + kPackedRows - 1) / kPackedRows,
-                  (w32 + kPackedWords - 1) / kPackedWords);
-  conflict_matrix_packed_kernel<<<grid, kPackedWarps * 32, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(feat), static_cast<uint32_t*>(out), n,
-      w32);
+  if (w32 % 2 != 0 || reinterpret_cast<uintptr_t>(table) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan pl{lo_op, lo_m, lo_port, lo_pe_r, lo_pe_c,
+                r_op, r_m, r_port, r_pe_r, r_pe_c};
+  conflict_groups_scatter_kernel<<<(n + kScatterThreads - 1) /
+                                       kScatterThreads,
+                                   kScatterThreads, 0, s>>>(
+      static_cast<const int32_t*>(feat), static_cast<int32_t*>(ids),
+      static_cast<uint32_t*>(table), n, w32, pl, radix);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int w64 = w32 / 2;
+  const int row_blocks = (n + kOrY - 1) / kOrY;
+  const dim3 grid((w64 + kOrX - 1) / kOrX,
+                  row_blocks < 65535 ? row_blocks : 65535);
+  conflict_groups_or_kernel<<<grid, dim3(kOrX, kOrY), 0, s>>>(
+      static_cast<const int32_t*>(ids), static_cast<const uint2*>(table),
+      static_cast<uint2*>(out), n, w64);
   return static_cast<int>(cudaGetLastError());
 }
 

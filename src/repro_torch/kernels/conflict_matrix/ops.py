@@ -6,9 +6,9 @@ Tensor wrappers, over ``int32 [n, 8]`` features (`ref.encode`):
 - `conflict_matrix_words(feat)` -> ``int32 [n, 2*n_words(n)]`` packed
   adjacency words (uint32 bit patterns held as int32).
 
-Tensors on the CPU go to the plain versions (`ref.*_plain`); CUDA
-tensors go to the kernels (``csrc/conflict_matrix.cu``), built at first
-use, or the call raises.
+Tensors on the CPU go to the plain versions (`ref.conflict_matrix_plain`,
+`ref.conflict_matrix_packed_groups`); CUDA tensors go to the kernels
+(``csrc/conflict_matrix.cu``), built at first use, or the call raises.
 
 Vertex-level entry points, over `core.conflict.Vertex` lists:
 `conflict_matrix` (bool ``[n, n]``) and `conflict_matrix_packed`
@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.bitset import n_words, pack_bool_rows
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import load
 from . import ref
 
@@ -50,29 +50,21 @@ def _check(feat: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {feat.device}")
 
 
-def _launcher(symbol: str, n_ints: int):
-    """The C launcher ``symbol`` with its ctypes signature declared
-    (two pointers, ``n_ints`` ints, the stream; a pointer passed as a
-    plain int would be cut to 32 bits)."""
+def _launch(name: str, symbol: str, tensors: tuple, *ints: int) -> None:
+    """Call the C launcher ``symbol`` on ``tensors``' pointers, ``ints``
+    and the current stream, with its ctypes signature declared (a
+    pointer passed as a plain int would be cut to 32 bits); count the
+    launch, or raise."""
     fn = getattr(load("conflict_matrix"), symbol)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                   *([ctypes.c_int] * n_ints), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + \
+        [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, symbol: str, feat: torch.Tensor,
-            out: torch.Tensor, *ints: int) -> torch.Tensor:
-    if feat.shape[0] == 0:
-        return out
-    launch = _launcher(symbol, len(ints))
-    with torch.cuda.device(feat.device):
+    with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(feat.data_ptr(), out.data_ptr(), *ints, stream)
+        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-    return out
+    count_launch(name)
 
 
 def conflict_matrix_dense(feat: torch.Tensor) -> torch.Tensor:
@@ -88,20 +80,38 @@ def conflict_matrix_dense(feat: torch.Tensor) -> torch.Tensor:
     # row aligned for the kernel's vector stores.
     pitch = -(-n // 16) * 16
     out = torch.empty((n, pitch), dtype=torch.int8, device=feat.device)
-    return _launch("conflict_matrix", "conflict_matrix_launch", feat, out,
-                   n, pitch)[:, :n]
+    if n:
+        _launch("conflict_matrix", "conflict_matrix_launch", (feat, out), n,
+                pitch)
+    return out[:, :n]
 
 
 def conflict_matrix_words(feat: torch.Tensor) -> torch.Tensor:
-    """``int32 [n, 8]`` -> ``int32 [n, 2*n_words(n)]`` packed words."""
+    """``int32 [n, 8]`` -> ``int32 [n, 2*n_words(n)]`` packed words, as
+    the OR of each row's op-group and place-group masks (`ref`'s module
+    docstring): one ``aminmax`` read back for the mixed-radix plan (or
+    a sort where the fields' values are too wide or scattered for it), a
+    zeroed mask table, then the kernels' scatter and OR."""
     _check(feat, "conflict_matrix_packed")
     if feat.device.type == "cpu":
-        return ref.conflict_matrix_packed_plain(feat)
+        return ref.conflict_matrix_packed_groups(feat)
     n = feat.shape[0]
     w32 = 2 * n_words(n)
     out = torch.empty((n, w32), dtype=torch.int32, device=feat.device)
-    return _launch("conflict_matrix_packed", "conflict_matrix_packed_launch",
-                   feat, out, n, w32)
+    if n == 0:
+        return out
+    plan = ref.radix_plan(feat)
+    ids = torch.empty((2, n), dtype=torch.int32, device=feat.device)
+    if plan is None:
+        ids[0], ids[1], rows = ref.sorted_ids(feat)
+        plan = (0,) * len(ref.PLAN_FIELDS)
+        radix = 0
+    else:
+        rows, radix = ref.group_rows(plan), 1
+    table = torch.zeros((rows, w32), dtype=torch.int32, device=feat.device)
+    _launch("conflict_matrix_packed", "conflict_matrix_packed_launch",
+            (feat, ids, table, out), n, w32, radix, *plan)
+    return out
 
 
 def _cuda_features(vertices, device) -> torch.Tensor:

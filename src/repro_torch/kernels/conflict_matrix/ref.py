@@ -21,9 +21,23 @@ realizability is sparse and handled host-side):
   pe:         both QUAD & pe equal   & m equal
 
 `conflict_matrix_ref` is the reference's numpy oracle.  The two
-``*_plain`` functions are the plain torch versions of the CUDA kernels
-(``csrc/conflict_matrix.cu``): the same broadcast compares, on any
-device, with the kernels' output layouts.
+``*_plain`` functions evaluate the pair predicate by broadcast compares,
+on any device, with the kernels' output layouts: `conflict_matrix_plain`
+is the dense kernel's plain version.
+
+The packed kernel computes the same words another way.  The predicate
+is the union of two equivalence relations: same op; and same place,
+i.e. the same kind, slot and port for TIN and TOUT, the same slot and
+PE for QUAD (other kinds have no place).  So, with one group id per
+vertex for each relation, row i is the OR of two group masks,
+
+  out[i, w] = M[g_op(i), w] | M[g_place(i), w]   (bit i cleared),
+
+where M[g] has bit j set for every vertex j of group g.
+`conflict_matrix_packed_groups` is that formulation in torch, the
+packed kernel's plain version; `group_ids` gives the ids, by the
+kernel's mixed-radix arithmetic where the fields' ranges are narrow
+(`radix_plan`) and by sorting otherwise.
 """
 
 from __future__ import annotations
@@ -119,3 +133,110 @@ def conflict_matrix_packed_plain(feat: torch.Tensor) -> torch.Tensor:
     if pad:
         adj = torch.cat([adj, adj.new_zeros((n, pad))], dim=1)
     return pack_words(adj)
+
+
+# ------------------------------------------------------------ groups
+#: radix_plan's fields, in the order the CUDA launcher takes them.
+PLAN_FIELDS = ("lo_op", "lo_m", "lo_port", "lo_pe_r", "lo_pe_c",
+               "r_op", "r_m", "r_port", "r_pe_r", "r_pe_c")
+
+
+def radix_plan(feat: torch.Tensor) -> tuple[int, ...] | None:
+    """The mixed-radix group ids' lows and radices (`PLAN_FIELDS`), from
+    one ``aminmax`` over the op, slot, port and PE columns, or None when
+    the ids would span more than ``max(n, 1024)`` mask rows (wide or
+    scattered values), where `sorted_ids` compacts them instead.
+
+    Op ids are ``op - lo_op`` in ``[0, r_op)``; place ids follow them:
+    TIN/TOUT ``r_op + (kind r_m + m - lo_m) r_port + port - lo_port``,
+    QUAD ``r_op + 2 r_m r_port + ((m - lo_m) r_pe_r + pe_r - lo_pe_r)
+    r_pe_c + pe_c - lo_pe_c``.  The ranges are taken over every row, so
+    the "none" values (-1) that `encode` writes are inside them."""
+    n = feat.shape[0]
+    lo, hi = torch.aminmax(feat[:, 1:6], dim=0)
+    lo, hi = lo.tolist(), hi.tolist()
+    r = [h - lo_ + 1 for lo_, h in zip(lo, hi)]
+    if group_rows((*lo, *r)) > max(n, 1024):
+        return None
+    return (*lo, *r)
+
+
+def group_rows(plan: tuple[int, ...]) -> int:
+    """Mask rows the ids of a `radix_plan` span."""
+    r_op, r_m, r_port, r_pe_r, r_pe_c = plan[5:]
+    return r_op + 2 * r_m * r_port + r_m * r_pe_r * r_pe_c
+
+
+def radix_ids(feat: torch.Tensor,
+              plan: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(op ids, place ids) as ``int32 [n]`` by `radix_plan`'s
+    arithmetic (the packed kernel's); a vertex with no place gets -1."""
+    lo_op, lo_m, lo_port, lo_pe_r, lo_pe_c, r_op, r_m, r_port, r_pe_r, \
+        r_pe_c = plan
+    f = feat.to(torch.int64)
+    kind, op, m, port, pe_r, pe_c = (f[:, c] for c in range(6))
+    dm = m - lo_m
+    tin_tout = r_op + (kind * r_m + dm) * r_port + port - lo_port
+    quad = r_op + 2 * r_m * r_port + \
+        (dm * r_pe_r + pe_r - lo_pe_r) * r_pe_c + pe_c - lo_pe_c
+    place = torch.where((kind == TIN) | (kind == TOUT), tin_tout,
+                        torch.where(kind == QUAD, quad, -1))
+    return (op - lo_op).to(torch.int32), place.to(torch.int32)
+
+
+def sorted_ids(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                            int]:
+    """(op ids, place ids, mask rows): compact ids by sorting (`unique`)
+    for any int32 values; place ids follow the op ids, -1 for none."""
+    kind, op, m = feat[:, 0], feat[:, 1], feat[:, 2]
+    ops, op_id = torch.unique(op, return_inverse=True)
+    quad = kind == QUAD
+    placed = (kind == TIN) | (kind == TOUT) | quad
+    # (kind, slot, port, 0) for TIN/TOUT, (QUAD, slot, pe_r, pe_c).
+    key = torch.stack([kind, m, torch.where(quad, feat[:, 4], feat[:, 3]),
+                       torch.where(quad, feat[:, 5], 0)], dim=1)
+    place_id = torch.full_like(op, -1)
+    places = 0
+    if bool(placed.any()):
+        uniq, inv = torch.unique(key[placed], dim=0, return_inverse=True)
+        place_id[placed] = (len(ops) + inv).to(torch.int32)
+        places = len(uniq)
+    return op_id.to(torch.int32), place_id, len(ops) + places
+
+
+def group_ids(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                           int]:
+    """(op ids, place ids, mask rows) of ``int32 [n, 8]`` features: the
+    mixed-radix ids where `radix_plan` allows them, else sorted ones."""
+    plan = radix_plan(feat) if feat.shape[0] else None
+    if plan is None:
+        return sorted_ids(feat)
+    return (*radix_ids(feat, plan), group_rows(plan))
+
+
+def conflict_matrix_packed_groups(feat: torch.Tensor) -> torch.Tensor:
+    """``int32 [n, 8]`` -> ``int32 [n, 2*n_words(n)]``: the packed
+    kernel's plain version, the OR of each row's two group masks with
+    its own bit cleared (the same words as
+    `conflict_matrix_packed_plain`)."""
+    n = feat.shape[0]
+    w32 = 2 * n_words(n)
+    if n == 0:
+        return torch.zeros((0, w32), dtype=torch.int32, device=feat.device)
+    op_id, place_id, rows = group_ids(feat)
+    j = torch.arange(n, device=feat.device)
+    word = j >> 5
+    bit = torch.bitwise_left_shift(torch.ones_like(j), j & 31)
+    none = rows                               # an all-zero mask row
+    place = torch.where(place_id >= 0, place_id.long(), none)
+    masks = torch.zeros((rows + 1, w32), dtype=torch.int64,
+                        device=feat.device)
+    # A vertex adds its own bit once to each of its two rows, so the
+    # sums are ORs of distinct bits.
+    masks.index_put_((op_id.long(), word), bit, accumulate=True)
+    masks.index_put_((place, word), bit, accumulate=True)
+    masks[none] = 0
+    out = masks[op_id.long()] | masks[place]
+    out[j, word] &= ~bit
+    # [0, 2**32) -> the int32 with the same bits.
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)

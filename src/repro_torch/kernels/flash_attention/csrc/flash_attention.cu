@@ -34,6 +34,10 @@
 //   sum over the tile are reduced across the 16 threads that share the
 //   row with xor shuffles.
 // - Offsets are 64-bit: B * S * H * D passes 2^31 at long contexts.
+// - D up to 256, the largest head dim of the repository's configs: the
+//   output's column groups of 64 are a template argument (CG = 1-4).  At
+//   D = 256 a block takes 220,160 bytes of shared memory, one block an
+//   SM.
 //
 // The launcher is a plain C function (no PyTorch headers) that returns
 // cudaGetLastError, so a refused launch is reported.
@@ -69,7 +73,7 @@ __device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* A,
   }
 }
 
-// CG: column groups of 64 in D (1 for D <= 64, 2 for D <= 128).
+// CG: column groups of 64 in D (D <= 64 CG, up to 4 for D <= 256).
 template <int CG>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -219,7 +223,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); o: (B, Sq, Hq, D), all
-// contiguous float32; 1 <= D <= 128, Hq % Hkv == 0, window <= 0 means
+// contiguous float32; 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means
 // none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
@@ -228,11 +232,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, float scale,
                                       void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0)
+  if (d <= 0 || d > 256 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d <= 64 ? launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
-                             window, scale, s)
-                 : launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
-                             window, scale, s);
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale, s);
+    case 2:
+      return launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale, s);
+    case 3:
+      return launch<3>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale, s);
+    default:
+      return launch<4>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale, s);
+  }
 }

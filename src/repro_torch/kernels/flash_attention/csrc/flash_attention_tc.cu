@@ -33,11 +33,12 @@
 // - S = Q K^T: wgmma.m64n64k16 with Q in registers (A fragments read
 //   once from shared memory, which halves the shared-memory traffic of
 //   the product) and K from shared memory (K-major, 128-byte swizzle);
-//   D is zero-padded in shared memory to 64 or 128 (one or two 64-column
-//   panels).  Q is loaded as it is (bf16, exact) and the scale, times
-//   log2(e), is applied to the fp32 scores inside exp2's argument:
-//   folding D^-0.5 into bf16 Q would round Q again for every D that is
-//   not a power of 4.
+//   D is zero-padded in shared memory to a multiple of 64 (one to four
+//   64-column panels: D up to 256, the largest head dim of the
+//   repository's configs).  Q is loaded as it is (bf16, exact) and the
+//   scale, times log2(e), is applied to the fp32 scores inside exp2's
+//   argument: folding D^-0.5 into bf16 Q would round Q again for every D
+//   that is not a power of 4.
 // - O += P V: wgmma.m64n64k16 with P, rounded to bf16, taken from the
 //   score accumulator's registers as the A operand (the accumulator's
 //   fragment is the A fragment's layout), and V from shared memory as a
@@ -50,10 +51,16 @@
 //   the softmax runs while P V is on the tensor cores (two P buffers in
 //   registers), and O is rescaled once P V is done.
 // - K and V tiles are copied with 16-byte cp.async into a ring of four
-//   stages, two tiles ahead of the one multiplied.  cp.async, not
-//   TMA: the ragged edges (any Sk, any D <= 128 padded to 64 or 128
-//   columns, rows past Sk) are zero-filled by cp.async's source size,
-//   where TMA would need a tensor map per call from the driver API.
+//   stages, two tiles ahead of the one multiplied, up to D = 128.  For
+//   D <= 256 four stages would not fit in a block's shared memory, so
+//   the ring has two (148 KB at D = 192, 198 KB at 256): step t loads
+//   K of tile t + 1 and V of tile t, and waits for all of them at step
+//   t + 1.  The O accumulator alone takes 128 registers a thread at
+//   D = 256, so ptxas spills there (84 bytes at D = 192, 272 at 256).
+//   cp.async, not TMA: the ragged edges (any Sk, any D <= 256 padded to
+//   a multiple of 64 columns, rows past Sk) are zero-filled by
+//   cp.async's source size, where TMA would need a tensor map encoded
+//   per call (cuTensorMapEncodeTiled).
 //   Where D % 8 != 0 or a pointer is not 16-byte aligned, the same ring
 //   is filled by plain loads.  After the copies land, a proxy fence
 //   makes them visible to wgmma; the next copies are issued after it,
@@ -80,9 +87,14 @@ using bf16 = __nv_bfloat16;
 constexpr int kWG = 2;         // consumer warpgroups, 64 rows each
 constexpr int kBQ = 64 * kWG;  // query rows per block
 constexpr int kBK = 64;        // keys per tile
-constexpr int kStages = 4;     // K/V ring depth (a power of 2)
-constexpr int kAhead = 2;      // tiles loading while one is multiplied
 constexpr int kThreads = 128 * kWG;
+
+// K/V ring depth (a power of 2) for NP 64-column panels of D: four
+// stages, two tiles ahead of the one multiplied, up to D = 128; two
+// stages, one tile ahead, for D <= 256, where four would take more
+// shared memory than a block may (1024 + NP (128 + 8 64) 128 bytes is
+// 246 KB at NP = 3).
+__host__ __device__ constexpr int ring_stages(int np) { return np <= 2 ? 4 : 2; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -205,7 +217,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
   }
 }
 
-// NP: 64-column panels of the padded head dim (1 for D <= 64, 2 <= 128).
+// NP: 64-column panels of the padded head dim (D <= 64 NP, up to 4).
 template <int NP>
 __global__ void __launch_bounds__(kThreads, NP == 1 && kWG == 2 ? 2 : 1)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -214,6 +226,8 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              float scale_log2, int vec) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  constexpr int kStages = ring_stages(NP);
+  constexpr int kAhead = kStages == 4 ? 2 : 1;
   constexpr int kQPanel = kBQ * 128, kKVPanel = kBK * 128;
   constexpr int kKVStage = NP * kKVPanel;
   uint8_t* sQ = smem;                         // NP panels of kBQ rows
@@ -258,7 +272,8 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     my_lim[i] = c * 8 < d ? sk - r : INT_MIN;
   }
   const uint32_t sK_u = smem_u32(sK), sV_u = smem_u32(sV);
-  auto load_kv = [&](int t) {
+  // Tile t's K (with_k) and V (with_v) into stage t of the ring.
+  auto load_kv = [&](int t, bool with_k, bool with_v) {
     const int j0 = k_begin + t * kBK;
     const uint32_t st = (t & (kStages - 1)) * kKVStage;
     if (vec) {
@@ -266,20 +281,28 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kMine; ++i) {
         const bool ok = j0 < my_lim[i];
-        cp_async16(sK_u + st + my_smem[i], ok ? kb + off + my_gmem[i] : kb, ok);
-        cp_async16(sV_u + st + my_smem[i], ok ? vb + off + my_gmem[i] : vb, ok);
+        if (with_k)
+          cp_async16(sK_u + st + my_smem[i], ok ? kb + off + my_gmem[i] : kb,
+                     ok);
+        if (with_v)
+          cp_async16(sV_u + st + my_smem[i], ok ? vb + off + my_gmem[i] : vb,
+                     ok);
       }
     } else {
-      load_tile<kBK, NP>(sK + st, kb, k_row, j0, sk, d, false, tid);
-      load_tile<kBK, NP>(sV + st, vb, k_row, j0, sk, d, false, tid);
+      if (with_k) load_tile<kBK, NP>(sK + st, kb, k_row, j0, sk, d, false, tid);
+      if (with_v) load_tile<kBK, NP>(sV + st, vb, k_row, j0, sk, d, false, tid);
     }
   };
   // Descriptors of stage 0, panel 0; a tile's add the byte offset / 16.
   const uint64_t k_desc = desc(sK_u, 16, 1024);
   const uint64_t v_desc = desc(sV_u, kKVPanel, 1024);
   load_tile<kBQ, NP>(sQ, qb, q_row, q0, sq, d, vec, tid);
+  // Four stages: tiles 0 and 1, K and V.  Two stages: K of tile 0; a
+  // tile's V then loads one step after its K (step t loads K of t + 1
+  // and V of t), since P V of tile t - 1 reads the other V stage while
+  // step t runs.
   for (int t = 0; t < kAhead; ++t) {
-    if (t < n_tiles) load_kv(t);
+    if (t < n_tiles) load_kv(t, true, kStages == 4);
     cp_async_commit();
   }
 
@@ -324,7 +347,12 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kAhead - 1>();   // tile t has landed
     fence_proxy_async();           // before the new copies: it waits for them
     __syncthreads();               // and every thread is done with step t - 1
-    if (t + kAhead < n_tiles) load_kv(t + kAhead);   // over tile t - 2
+    if (kStages == 4) {
+      if (t + kAhead < n_tiles) load_kv(t + kAhead, true, true);  // over t - 2
+    } else {
+      if (t + 1 < n_tiles) load_kv(t + 1, true, false);   // over K of t - 1
+      load_kv(t, false, true);                            // over V of t - 2
+    }
     cp_async_commit();
     const uint32_t st = (t & (kStages - 1)) * kKVStage;
     fence_regs(s);
@@ -422,6 +450,11 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // P V of the last tile.
   auto last_pv = [&](uint32_t (&p_last)[4][4]) {
+    if (kStages == 2) {   // V of the last tile was loaded in its own step
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
     const uint32_t sv = ((n_tiles - 1) & (kStages - 1)) * kKVStage;
 #pragma unroll
     for (int p = 0; p < NP; ++p) fence_regs(oacc[p]);
@@ -477,7 +510,7 @@ template <int NP>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int hq, int hkv, int d, int q_offset, int window,
            float scale_log2, int vec, cudaStream_t stream) {
-  const int bytes = 1024 + NP * (kBQ + 2 * kStages * kBK) * 128;
+  const int bytes = 1024 + NP * (kBQ + 2 * ring_stages(NP) * kBK) * 128;
   cudaError_t err = cudaFuncSetAttribute(
       fa_tc_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -492,7 +525,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); o: (B, Sq, Hq, D), all
-// contiguous bfloat16; 1 <= D <= 128, Hq % Hkv == 0, window <= 0 means
+// contiguous bfloat16; 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means
 // none; scale_log2 = D^-0.5 log2(e); vec != 0 when D % 8 == 0 and every
 // pointer is 16-byte aligned (the cp.async route).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
@@ -502,11 +535,21 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          float scale_log2, int vec,
                                          void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0)
+  if (d <= 0 || d > 256 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d <= 64 ? launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
-                             window, scale_log2, vec, s)
-                 : launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
-                             window, scale_log2, vec, s);
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale_log2, vec, s);
+    case 2:
+      return launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale_log2, vec, s);
+    case 3:
+      return launch<3>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale_log2, vec, s);
+    default:
+      return launch<4>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
+                       scale_log2, vec, s);
+  }
 }

@@ -7,7 +7,9 @@ and k, v (B, Sk, Hkv, D), float32 or bfloat16, and returns
 dtype, built at first use, or the call raises: bfloat16 to the
 tensor-core kernel (``csrc/flash_attention_tc.cu``, wgmma), float32 to
 the fp32 kernel (``csrc/flash_attention.cu``), whose 2e-6 tolerance no
-bf16 or TF32 product meets.  Every launch adds one to
+bf16 or TF32 product meets.  Both take head dims D up to 256, the
+largest of the repository's configs; a wider head raises.  Every
+launch adds one to
 ``LAUNCHES["flash_attention"]``; a bfloat16 launch adds one to
 ``LAUNCHES["flash_attention_tc"]`` too.
 """
@@ -19,7 +21,7 @@ import math
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import load
 from .ref import flash_attention_ref
 
@@ -82,8 +84,10 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
             raise ValueError(f"{name} must be contiguous")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if d > 128:
-        raise ValueError(f"{_NAME} takes head dims up to 128, not {d}")
+    if d > 256:
+        raise ValueError(f"{_NAME} takes head dims up to 256 (the largest "
+                         f"of the repository's configs), not {d}; a wider "
+                         f"head is not planned (ROADMAP.md)")
     if max(b, sq, sk, hq, 64 * hkv * d) >= 2**31 or abs(q_offset) >= 2**30:
         raise ValueError(f"{_NAME}: a size or q_offset is out of range")
     win = 0 if window is None or window <= 0 else int(window)
@@ -107,6 +111,5 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     if err != 0:
         raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
                            f"CUDA error {err}")
-    LAUNCHES[_NAME] += 1
-    LAUNCHES[_TC] += tc
+    count_launch(_NAME, tc)
     return out

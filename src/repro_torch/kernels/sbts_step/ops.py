@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import load
 from .ref import selection_counts_plain
 
@@ -73,5 +73,5 @@ def selection_counts(rows32: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"selection_counts launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES[_NAME] += 1
+    count_launch(_NAME)
     return out

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import load
 from .ref import ssd_chunked
 
@@ -122,6 +122,5 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
     if err != 0:
         raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
                            f"CUDA error {err}")
-    LAUNCHES[_NAME] += 1
-    LAUNCHES[_TC] += tc
+    count_launch(_NAME, tc)
     return y, fin

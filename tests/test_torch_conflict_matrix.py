@@ -175,3 +175,81 @@ def test_tensor_wrappers_check_their_input(wrapper):
         wrapper(torch.zeros((4, 7), dtype=torch.int32))
     with pytest.raises(ValueError):
         wrapper(torch.zeros((8, 4), dtype=torch.int32).t())
+
+
+# The packed kernel's formulation: the OR of each row's op-group and
+# place-group masks (ref.conflict_matrix_packed_groups), proven here
+# against the pair predicate and the Pallas kernel before the card runs
+# its CUDA form.
+def _wide_features(n: int, seed: int) -> np.ndarray:
+    """Op ids and slots spread over the whole int32 range, so the
+    mixed-radix ids would span too many rows and the ids are sorted."""
+    feat = _random_features(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    feat[:, 1] = rng.choice([-2**31, -7, 0, 2**31 - 1], n)
+    feat[:, 2] = rng.choice([-2**31, 1, 2**31 - 1], n)
+    return feat
+
+
+@pytest.mark.parametrize("n,m,bi,bj", [(2, 4, 32, 64), (2, 6, 64, 128),
+                                       (4, 4, 128, 256)])
+def test_packed_groups_equal_pallas_interpret(n, m, bi, bj):
+    ref_cg, _ = _graphs(n, m)
+    feat = ref_ref.encode(ref_cg.vertices)
+    nv = feat.shape[0]
+    pallas = np.ascontiguousarray(np.asarray(conflict_matrix_packed_pallas(
+        jnp.asarray(feat), block_i=bi, block_j=bj, interpret=True)))
+    t = torch.from_numpy(feat)
+    assert ref.radix_plan(t) is not None    # real graphs: the radix ids
+    got = ref.conflict_matrix_packed_groups(t)
+    assert got.dtype == torch.int32 and got.shape == (nv, 2 * n_words(nv))
+    assert got.numpy().tobytes() == \
+        np.ascontiguousarray(pallas[:, :2 * n_words(nv)]).tobytes()
+    assert got.numpy().tobytes() == \
+        ref.conflict_matrix_packed_plain(t).numpy().tobytes()
+
+
+@pytest.mark.parametrize("kind", ["random", "one-op", "wide"])
+def test_packed_groups_equal_pair_predicate_on_ragged_sizes(kind):
+    for n in range(131):
+        feat = _wide_features(n, n) if kind == "wide" \
+            else _random_features(n, seed=n)
+        if kind == "one-op":
+            feat[:, 1] = 3
+        t = torch.from_numpy(feat)
+        got = ref.conflict_matrix_packed_groups(t)
+        assert got.numpy().tobytes() == \
+            ref.conflict_matrix_packed_plain(t).numpy().tobytes(), n
+        np.testing.assert_array_equal(
+            _words_as_u64(got), pack_bool_rows(ref_ref.conflict_matrix_ref(
+                feat)))
+
+
+def test_group_ids_take_both_methods():
+    """Narrow fields give the mixed-radix ids; wide ones sorted ids; the
+    two partition the vertices alike, and kinds outside TIN/TOUT/QUAD
+    have no place."""
+    feat = torch.from_numpy(_random_features(500, seed=5))
+    plan = ref.radix_plan(feat)
+    assert plan is not None and len(plan) == len(ref.PLAN_FIELDS)
+    op_r, place_r = ref.radix_ids(feat, plan)
+    op_s, place_s, rows = ref.sorted_ids(feat)
+    assert rows <= ref.group_rows(plan)
+    for a, b in ((op_r, op_s), (place_r, place_s)):
+        same_a = a[:, None] == a[None, :]
+        same_b = b[:, None] == b[None, :]
+        assert torch.equal(same_a, same_b)
+    kind = feat[:, 0]
+    placed = (kind >= 0) & (kind <= 2)
+    assert bool((place_r[~placed] == -1).all())
+    assert bool((place_r[placed] >= plan[5]).all())   # after the op rows
+    assert ref.radix_plan(torch.from_numpy(_wide_features(500, 6))) is None
+
+
+def test_packed_wrapper_on_the_cpu_takes_the_groups():
+    """On CPU tensors the packed wrapper runs its kernel's plain version,
+    the group formulation, byte-equal to the pair predicate."""
+    for seed, make in ((1, _random_features), (2, _wide_features)):
+        t = torch.from_numpy(make(777, seed))
+        assert torch.equal(ops.conflict_matrix_words(t),
+                           ref.conflict_matrix_packed_plain(t))

@@ -13,7 +13,11 @@ is held to the reference's kernel tolerances (2e-6 fp32, 2e-2 bf16);
 the SSD scan to the reference's 1e-4 in fp32 and, in bf16, to one bf16
 ulp of y (both sides compute in fp32 and round y once).  bf16 calls of
 both must take the tensor-core kernels (``LAUNCHES["flash_attention_tc"]``,
-``LAUNCHES["ssd_tc"]``), fp32 calls the fp32 kernels.
+``LAUNCHES["ssd_tc"]``), fp32 calls the fp32 kernels; flash takes head
+dims up to 256 on both.  `selection_counts` runs on the .b1 tensor
+cores and the packed conflict kernel ORs group masks: both are held to
+plain versions bit for bit, and launch counts to exactness across
+threads.
 """
 
 from __future__ import annotations
@@ -63,6 +67,77 @@ def test_kernel_equals_plain_version(cuda, k, n, w):
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got, selection_counts_plain(rows, sel))
     assert int(got[0, 0]) == 32 * w
+
+
+# The tensor-core kernel's edges: K off its 128-trajectory tile (1, 32,
+# 1000) and on it (1024); W of 4, 68 and 264 words (one panel of 32
+# words, ragged at 68 and 264); n_pad off the 256-vertex tile, odd for
+# 8549 (the stores then go one int32 at a time).
+@pytest.mark.parametrize("k", [1, 32, 1000, 1024])
+@pytest.mark.parametrize("w,n", [(4, 200), (68, 2176), (264, 8549)])
+def test_tensor_core_counts_equal_plain_version(cuda, k, w, n):
+    rows, sel = _words((n, w), k + w, cuda), _words((k, w), n + w, cuda)
+    rows[0] = -1
+    sel[0] = -1
+    before = LAUNCHES["selection_counts"]
+    got = selection_counts(rows, sel)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selection_counts"] == before + 1
+    assert torch.equal(got, selection_counts_plain(rows, sel))
+    assert int(got[0, 0]) == 32 * w
+    ones = selection_counts(torch.full_like(rows, -1),
+                            torch.full_like(sel, -1))
+    assert bool((ones == 32 * w).all())
+
+
+@pytest.mark.parametrize("case", ["w5", "rows+1", "sel+1"])
+def test_tensor_core_counts_plain_loads(cuda, case):
+    """W % 4 != 0, or an operand off 16-byte alignment: the kernel fills
+    its ring with plain loads instead of cp.async."""
+    w = 5 if case == "w5" else 8
+    rows, sel = _words((300, w), 7, cuda), _words((70, w), 8, cuda)
+    if case != "w5":
+        which = rows if case == "rows+1" else sel
+        moved = torch.empty(which.numel() + 1, dtype=torch.int32,
+                            device=cuda)[1:].view(which.shape)
+        moved.copy_(which)
+        assert moved.data_ptr() % 16 != 0
+        rows, sel = (moved, sel) if case == "rows+1" else (rows, moved)
+    got = selection_counts(rows, sel)
+    torch.cuda.synchronize()
+    assert torch.equal(got, selection_counts_plain(rows, sel))
+
+
+def test_mma_probe_measures_four_rates(cuda):
+    """The probe behind the .b1 choice runs and gives a positive rate for
+    each of its four instructions."""
+    from repro_torch.kernels.sbts_step.probe import PROBES, mma_rates
+    rates = mma_rates(iters=50)
+    assert set(rates) == {name for name, _, _ in PROBES.values()}
+    assert all(r > 0 for r in rates.values())
+
+
+def test_launch_counts_are_exact_from_threads(cuda):
+    """Kernels launched from several threads: every launch counted."""
+    import threading
+    rows, sel = _words((512, 16), 1, cuda), _words((64, 16), 2, cuda)
+    n_threads, per = 6, 40
+    before = LAUNCHES["selection_counts"]
+    start = threading.Barrier(n_threads, timeout=60)
+
+    def work() -> None:
+        start.wait()
+        for _ in range(per):
+            selection_counts(rows, sel)
+
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selection_counts"] - before == n_threads * per
 
 
 def test_kernel_rejects_mixed_devices(cuda):
@@ -120,6 +195,35 @@ def test_conflict_kernels_equal_plain_versions(cuda, n):
     assert dense.shape == (n, n)
     assert torch.equal(dense, conflict_matrix_plain(feat))
     assert torch.equal(words, conflict_matrix_packed_plain(feat))
+
+
+@pytest.mark.parametrize("kind", ["random", "one-op", "wide"])
+@pytest.mark.parametrize("n", [1, 31, 32, 65, 777, 4097])
+def test_packed_group_kernels_equal_plain_versions(cuda, kind, n):
+    """The packed kernels (the OR of two group masks) byte-equal to the
+    pair predicate and to their own plain version: on random fields
+    (kinds -1 and 3 lie outside TIN/TOUT/QUAD), with every vertex in one
+    op, and with op ids and slots across the int32 range (sorted ids)."""
+    from repro_torch.kernels.conflict_matrix.ref import (
+        conflict_matrix_packed_groups, radix_plan)
+    feat = _features(n, n, cuda)
+    if kind == "one-op":
+        feat[:, 1] = 5
+    elif kind == "wide":
+        g = torch.Generator().manual_seed(n)
+        pick = torch.tensor([-2**31, -7, 0, 2**31 - 1], dtype=torch.int32)
+        feat[:, 1] = pick[torch.randint(0, 4, (n,), generator=g)].to(cuda)
+        feat[:, 2] = pick[torch.randint(0, 4, (n,), generator=g)].to(cuda)
+    if kind == "wide" and n > 4:
+        assert radix_plan(feat) is None
+    before = LAUNCHES["conflict_matrix_packed"]
+    words = conflict_matrix_words(feat)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conflict_matrix_packed"] == before + 1
+    assert torch.equal(words, conflict_matrix_packed_plain(feat))
+    assert torch.equal(words, conflict_matrix_packed_groups(feat))
+    if kind == "one-op":
+        assert int(conflict_matrix_dense(feat).sum()) == n * (n - 1)
 
 
 def test_vertex_entry_points_default_to_the_card(cuda):
@@ -187,6 +291,39 @@ def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    (2, 128, 128, 4, 2, 192, None, 0), (1, 300, 333, 8, 2, 256, None, 0),
+    (1, 200, 260, 4, 1, 256, 70, 60), (1, 129, 65, 4, 4, 192, None, 0),
+    (1, 150, 170, 2, 1, 250, None, 0)], ids=str)
+def test_flash_attention_head_dims_to_256(cuda, case, dtype, tol):
+    """D = 192 and 256, the repository's widest heads (and 250, off a
+    multiple of 8: the bf16 kernel's plain loads): three and four
+    64-column panels, with the two-stage K/V ring on the bf16 route."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    b, sq, sk, hq, hkv, d, window, q_offset = case
+    q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, sum(case[:6]))
+    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
+    got = flash_attention(q, k, v, q_offset=q_offset, window=window)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"]) == \
+        (before[0] + 1, before[1] + tc)
+    want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_heads_past_256(cuda, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_case(1, 8, 8, 2, 1, 257, dtype, cuda, 0)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        flash_attention(q, k, v)
 
 
 def _ssd_case(b, s, h, p, n, dtype, device, seed, g=1):

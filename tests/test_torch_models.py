@@ -291,6 +291,32 @@ def test_transfer_rounds_match_reference(ref_cfg, cfg):
         assert got.summary() == want.summary()
 
 
+@pytest.mark.parametrize("where", ["prefill", "decode"])
+def test_kv_cache_overflow_raises(ref_cfg, cfg, ref_params, model, where):
+    """A write past the cache's s_max: a second prefill of 3 tokens after
+    6, or a decode step after 8, into a cache of 8.  The port raises
+    ValueError; the reference's `dynamic_update_slice` clamps the write's
+    start and goes on silently.  The port keeps the stronger contract, a
+    deliberate difference."""
+    s_max, first = 8, 6 if where == "prefill" else 8
+    toks = _tokens(cfg, 1, s_max + 1, seed=3)
+    cache = M.init_cache(cfg, 1, s_max, device="cpu")
+    _, cache = M.prefill_step(
+        cfg, model, {"tokens": torch.from_numpy(toks[:, :first])}, cache)
+    rc = RM.init_cache(ref_cfg, 1, s_max)
+    _, rc = RM.prefill_step(ref_cfg, ref_params,
+                            {"tokens": jnp.asarray(toks[:, :first])}, rc)
+    rest = {"tokens": toks[:, first:]}
+    step = M.prefill_step if where == "prefill" else M.serve_step
+    ref_step = RM.prefill_step if where == "prefill" else RM.serve_step
+    with pytest.raises(ValueError, match="KV cache holds 8"):
+        step(cfg, model, {"tokens": torch.from_numpy(rest["tokens"])}, cache)
+    out = ref_step(ref_cfg, ref_params,
+                   {"tokens": jnp.asarray(rest["tokens"])}, rc)
+    logits = out[0] if where == "prefill" else out[1]
+    assert np.isfinite(np.asarray(logits)).all()   # the reference clamps
+
+
 def test_unported_parts_raise_not_implemented(cfg):
     dense = T.ModelConfig(name="d", family="dense", n_layers=2, d_model=32,
                           n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,

@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.sbts_step.kernel import (  # noqa: E402
     selection_counts_pallas)
 from repro.kernels.sbts_step.ref import selection_counts_ref  # noqa: E402
-from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels import LAUNCHES, count_launch  # noqa: E402
 from repro_torch.kernels.sbts_step import selection_counts  # noqa: E402
 from repro_torch.kernels.sbts_step.ref import (  # noqa: E402
     popcount32, selection_counts_plain)
@@ -117,3 +117,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         rows = torch.zeros((4, 128), dtype=torch.int32).t()
     with pytest.raises((TypeError, ValueError)):
         selection_counts(rows, sel)
+
+
+def test_launch_counts_are_exact_across_threads():
+    """Every wrapper counts through `count_launch`, which holds a lock: a
+    bare ``LAUNCHES[name] += 1`` is a read and a write that threads can
+    interleave.  Eight threads, switching as often as the interpreter
+    allows, lose no count and count the tensor-core key with it."""
+    import sys
+    import threading
+    n_threads, per = 8, 4000
+    before = dict(LAUNCHES)
+    start = threading.Barrier(n_threads, timeout=60)
+
+    def work(tc: bool) -> None:
+        start.wait()
+        for _ in range(per):
+            count_launch("ssd", tc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i % 2 == 0,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert LAUNCHES["ssd"] - before["ssd"] == n_threads * per
+    assert LAUNCHES["ssd_tc"] - before["ssd_tc"] == n_threads * per // 2
+    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES
+               if k not in ("ssd", "ssd_tc"))
