@@ -36,11 +36,17 @@ each printed as one JSON line:
    and `conflict_matrix_packed` (packed words) on the card against
    their plain torch versions on the card, with tolerance zero, on the
    features of the graphs above and of the five 16x16 workload graphs
-   (|V_C| up to 16656), on ragged random features, and with every
+   (|V_C| up to 16656), on ragged random features (n at and beside the
+   dense kernel's 32-row tiles and 512-column strips), and with every
    vertex in one op, and with op ids and slots across the int32 range
-   (the packed wrapper then sorts its group ids); the packed kernel must
-   also equal its own plain version (the group-mask formulation) and,
-   unpacked, the dense kernel: two independent formulations.
+   (the packed wrapper then sorts its group ids; the dense kernel's
+   tiles take its general loop), with slots, ports and PEs at the ends
+   of the dense kernel's fold (every tile folded), and with one vertex
+   past them (its tiles general, the others folded); the dense kernel
+   must also equal its fold's plain version (`ref.conflict_matrix_folded`),
+   and the packed kernel its own plain version (the group-mask
+   formulation) and, unpacked, the dense kernel: two independent
+   formulations.
 7. conflict route: `build_conflict_graph(use_kernel="packed-cuda")`
    must give rows byte-equal to the host build (``use_kernel=False``)
    on C4K8@16x16 and the five 16x16 workload graphs, with
@@ -61,8 +67,11 @@ each printed as one JSON line:
    the int8 rate, or at the measured .b1 rate where the kernel beats
    the int8 one), the CUDA cores' POPC floor, its plain version and the
    ``torch._int_mm`` yardstick; both conflict kernels at each 16x16
-   workload shape, with their bounds, plain versions (the packed one's
-   device time by kernel too) and the two host (numpy) formulations.
+   workload shape, with their bounds, plain versions, device time by
+   kernel (`torch.profiler`), their times before their redesigns at
+   n = 16656 (quoted) and the two host (numpy) formulations; beside the
+   dense kernel, a fill of its output buffer (`write_floor_ms`: the
+   same bytes written in order).
 10. llm-serve: zamba2-1.2b at its published widths (the port's seeded
    init, seed 0) served by `WaveServer` with 4 slots: 8 requests of
    1000 prompt tokens, 32 new tokens each.  The launch counts are reset
@@ -108,7 +117,12 @@ each printed as one JSON line:
    single PyTorch call), with its error against the plain version:
    it computes P V from bf16 P on tensor cores, and must meet the
    kernel's own bf16 tolerance, which is what lets the flash bound
-   count all its products at the bf16 tensor-core rate.
+   count all its products at the bf16 tensor-core rate.  Then the fp32
+   CUDA-core kernels (``flash_attention.cu``, ``ssd.cu``) on the same
+   inputs cast to fp32: ms, route and error (both checked, at the fp32
+   tolerances above), plain version, their bound at the fp32 rate
+   (`PEAK_OPS_S`) or by bytes, and for flash the fp32 SDPA with its
+   error.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
@@ -180,6 +194,9 @@ EARLIER_ITER_MS_16X16 = 5.2
 # pair-predicate packed kernel's at n = 16656, quoted from PERF.md.
 EARLIER_SELECTION_COUNTS_MS = 0.646
 EARLIER_PACKED_MS = 0.287
+# The dense pair predicate's ms at n = 16656 before its redesign (the
+# first design, a block of 16 rows), quoted from PERF.md.
+EARLIER_DENSE_MS = 0.398
 # The LLM path: zamba2-1.2b served (4 slots, 8 requests of 1000 prompt
 # tokens, 32 new ones) and its no-cache forward at 8192 tokens.
 LLM_ARCH = "zamba2-1.2b"
@@ -254,10 +271,14 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, calls: int | None = None) -> dict:
     """Run ``fn()`` under `torch.profiler` and return the device time it
     took (ms) with the kernels that took most of it.  Where the profiler
-    records no device activity, the device time is None (not measured)."""
+    records no device activity, the device time is None (not measured).
+    With ``calls`` (``fn`` makes that many calls of one function), the
+    device time is a call's: each kernel's mean time times its launches
+    a call, so that the event a session can drop (the first, in some
+    sessions of this script) does not count as a call's worth of nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -270,6 +291,9 @@ def device_profile(fn) -> dict:
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     total = sum(ms for _, ms, _ in kernels)
+    if calls:
+        total = sum(ms / count * max(1, round(count / calls))
+                    for _, ms, count in kernels)
     return dict(device_ms=total if kernels else None,
                 top=[dict(kernel=name[:80], ms=ms, count=count)
                      for name, ms, count in kernels[:6]])
@@ -300,15 +324,24 @@ def workload_dfgs() -> dict:
 
 
 def random_features(n: int, seed: int, one_op: bool = False,
-                    wide: bool = False):
+                    wide: bool = False, fold_edge: bool = False,
+                    mixed: bool = False):
     """``int32 [n, 8]`` features with every field in a small range, so
     that many pairs share a kind, op, slot, port or PE (kinds -1 and 3
     lie outside TIN/TOUT/QUAD); ``one_op`` puts every vertex in op 5,
     where every off-diagonal pair conflicts; ``wide`` spreads the op ids
     and slots over the int32 range, so the packed wrapper sorts its group
-    ids instead of taking the mixed-radix ones."""
+    ids instead of taking the mixed-radix ones, and every tile of the
+    dense kernel takes its general loop; ``fold_edge`` takes the slot,
+    port and PE from the ends of the dense kernel's signed widths
+    (`ref.M_BITS`, `PORT_BITS`, `PE_BITS`: every tile folded); ``mixed``
+    gives vertex n // 2 a slot past `M_BITS`, so its row tile and strip
+    take the general loop and the other tiles the folded one (as the
+    reference model `ref.fold_tiles` predicts)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.conflict_matrix.ref import (M_BITS, PE_BITS,
+                                                         PORT_BITS)
     rng = np.random.default_rng(seed)
     feat = np.stack([rng.integers(-1, 4, n), rng.integers(0, 8, n),
                      rng.integers(0, 3, n), rng.integers(-1, 3, n),
@@ -321,6 +354,15 @@ def random_features(n: int, seed: int, one_op: bool = False,
         pick = np.array([-2**31, -7, 0, 2**31 - 1], dtype=np.int32)
         feat[:, 1] = pick[rng.integers(0, 4, n)]
         feat[:, 2] = pick[rng.integers(0, 4, n)]
+    if fold_edge:
+        for col, bits in ((2, M_BITS), (3, PORT_BITS), (4, PE_BITS),
+                          (5, PE_BITS)):
+            half = 1 << (bits - 1)
+            ends = (-half, -1, 0, half - 1)
+            feat[:, col] = np.array(ends, np.int32)[
+                rng.integers(0, len(ends), n)]
+    if mixed:
+        feat[n // 2, 0], feat[n // 2, 2] = 2, 1 << (M_BITS - 1)
     return torch.from_numpy(feat)
 
 
@@ -333,8 +375,9 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
     from repro_torch.kernels.conflict_matrix import (conflict_matrix_dense,
                                                      conflict_matrix_words)
     from repro_torch.kernels.conflict_matrix.ref import (
-        conflict_matrix_packed_groups, conflict_matrix_packed_plain,
-        conflict_matrix_plain, radix_plan)
+        conflict_matrix_folded, conflict_matrix_packed_groups,
+        conflict_matrix_packed_plain, conflict_matrix_plain, fold_tiles,
+        radix_plan)
     max_err = {"conflict_matrix": 0, "conflict_matrix_packed": 0}
     cases = []
     for label, feat in feats.items():
@@ -343,6 +386,8 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
         dense, words = conflict_matrix_dense(f), conflict_matrix_words(f)
         torch.cuda.synchronize()
         dense_plain = conflict_matrix_plain(f)
+        dense_folded = conflict_matrix_folded(f)
+        tiles = fold_tiles(f)
         words_plain = conflict_matrix_packed_plain(f)
         words_groups = conflict_matrix_packed_groups(f)
         torch.cuda.synchronize()
@@ -358,11 +403,23 @@ def check_conflict_kernels(feats: dict, dev) -> dict:
                           edges=int(dense.sum()), max_abs_err_dense=err_d,
                           max_abs_err_packed=err_p,
                           group_ids="radix" if n and radix_plan(f)
-                          else "sorted"))
+                          else "sorted",
+                          tiles_folded=f"{int(tiles.sum())}/"
+                                       f"{tiles.numel()}"))
         check(dense.shape == (n, n) and dense.dtype == torch.int8,
               f"{label}: dense output {tuple(dense.shape)} {dense.dtype}")
         check(torch.equal(dense, dense_plain),
               f"conflict_matrix != plain version: {label}")
+        check(torch.equal(dense_folded, dense_plain),
+              f"the fold's plain version != plain version: {label}")
+        # Which loop each tile takes is the reference model's prediction
+        # (ref.fold_tiles): these check that the cases are built as meant.
+        if label.startswith("mixed"):
+            check(0 < int(tiles.sum()) < tiles.numel(),
+                  f"{label}: the model must send tiles to both loops")
+        if label.startswith("fold-edge"):
+            check(bool(tiles.all()),
+                  f"{label}: the model must fold every tile")
         check(torch.equal(words, words_plain),
               f"conflict_matrix_packed != pair-predicate plain version: "
               f"{label}")
@@ -525,13 +582,26 @@ def time_conflict_kernels(workloads: dict, dev) -> list:
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, ops=ops, bytes=nbytes, host_ms=host_ms)
-            if kernel == "conflict_matrix_packed":
-                # The wrapper's ms holds its aminmax read-back (a sync)
-                # and four launches; the card's own time, by kernel:
-                prof = device_profile(lambda: fn(f))
-                row.update(device_ms=prof["device_ms"],
-                           device_kernels=prof["top"],
-                           pair_plain_ms=cuda_ms(
+            # The card's own time a call, by kernel, over 10 calls (the
+            # packed wrapper's ms holds its aminmax read-back, a sync, and
+            # four launches).
+            prof = device_profile(lambda: [fn(f) for _ in range(10)],
+                                  calls=10)
+            row.update(device_ms=prof["device_ms"],
+                       device_kernels=prof["top"], device_calls=10)
+            if kernel == "conflict_matrix":
+                # The card's rate for writing the output's bytes in order
+                # (one fill of the kernel's [n, pitch] buffer): the floor
+                # that the stores' own pattern is held to.
+                buf = torch.empty((n, -(-n // 16) * 16), dtype=torch.int8,
+                                  device=dev)
+                row.update(write_floor_ms=cuda_ms(lambda: buf.fill_(1),
+                                                  reps),
+                           earlier_ms=EARLIER_DENSE_MS
+                           if n == 16656 else None)
+                del buf
+            else:
+                row.update(pair_plain_ms=cuda_ms(
                                lambda: conflict_matrix_packed_plain(f), 2),
                            earlier_ms=EARLIER_PACKED_MS
                            if n == 16656 else None)
@@ -947,28 +1017,31 @@ def counts_bound(k: int, n_pad: int, w: int, ms: float,
                 ops=ops, bytes=nbytes)
 
 
-def flash_bound(b, sq, sk, hq, d, nbytes) -> dict:
-    """The least time of causal attention on bf16 inputs: 4 d FLOP for
-    each visible (query, key) pair, all at the bf16 tensor-core rate.
-    Q K^T takes bf16 operands whose products are exact in fp32; P V may
-    take P rounded to bf16, since the library call that does so meets
-    the kernel's own bf16 tolerance in this run (`llm_times` checks)."""
+def flash_bound(b, sq, sk, hq, d, nbytes, rate=PEAK_BF16_S) -> dict:
+    """The least time of causal attention: 4 d FLOP for each visible
+    (query, key) pair at ``rate``.  On bf16 inputs that is the bf16
+    tensor-core rate: Q K^T takes bf16 operands whose products are exact
+    in fp32; P V may take P rounded to bf16, since the library call that
+    does so meets the kernel's own bf16 tolerance in this run
+    (`llm_times` checks).  On fp32 inputs it is the fp32 rate
+    (`PEAK_OPS_S`)."""
     pairs = sum(min(i + 1 + (sk - sq), sk) for i in range(sq))
     flop = 4 * d * pairs * hq * b
-    t_ops, t_bytes = flop / PEAK_BF16_S, nbytes / PEAK_BYTES_S
+    t_ops, t_bytes = flop / rate, nbytes / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flop=flop, bytes=nbytes)
 
 
-def ssd_bound(b, s, h, p, n, chunk, nbytes) -> dict:
-    """The least time of the scan on bf16 inputs.  Per chunk of l real
-    steps: the scores C B^T shared by the heads of the one group
-    (l (l + 1) N), and per head the causal half of the gate product with
-    x (l (l + 1) P), the inter-chunk term and the chunk state (2 l P N
-    each).  All run on the bf16 tensor cores, each product as many times
+def ssd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
+    """The least time of the scan.  Per chunk of l real steps: the
+    scores C B^T shared by the heads of the one group (l (l + 1) N), and
+    per head the causal half of the gate product with x (l (l + 1) P),
+    the inter-chunk term and the chunk state (2 l P N each).  On bf16
+    inputs all run on the bf16 tensor cores, each product as many times
     as the fewest bf16 terms of its fp32 operand that meet the bf16
-    tolerances (`SSD_PASSES`, shown by the CPU tests).  The larger of
+    tolerances (`SSD_PASSES`, shown by the CPU tests); on fp32 inputs
+    (``fp32``) each once at the fp32 rate (`PEAK_OPS_S`).  The larger of
     that time and the bytes' binds."""
     flop = {name: 0 for name in SSD_PASSES}
     for t0 in range(0, s, chunk):
@@ -977,16 +1050,27 @@ def ssd_bound(b, s, h, p, n, chunk, nbytes) -> dict:
         flop["gate"] += b * h * ln * (ln + 1) * p
         flop["state"] += b * h * 2 * ln * p * n
         flop["inter"] += b * h * 2 * ln * p * n
-    passes = sum(SSD_PASSES[k] * f for k, f in flop.items())
-    t_ops, t_bytes = passes / PEAK_BF16_S, nbytes / PEAK_BYTES_S
+    passes = {} if fp32 else dict(flop_bf16_passes=sum(
+        SSD_PASSES[k] * f for k, f in flop.items()))
+    t_ops = sum(flop.values()) / PEAK_OPS_S if fp32 \
+        else passes["flop_bf16_passes"] / PEAK_BF16_S
+    t_bytes = nbytes / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flop=sum(flop.values()), flop_bf16_passes=passes,
-                bytes=nbytes)
+                flop=sum(flop.values()), **passes, bytes=nbytes)
 
 
 def llm_times(captured: dict) -> list:
-    """Phase 13: both kernels at their path shapes."""
+    """Phase 13: both kernels at their path shapes, on the captured
+    inputs as they are (bf16: the tensor-core kernels) and cast to fp32
+    (the CUDA-core kernels ``flash_attention.cu``, ``ssd.cu``).  Each
+    row: ms (CUDA events, after warm-up), the route taken and the error
+    against the plain version, both checked, the plain version's ms and
+    the bound at the dtype's rate; for flash also
+    `F.scaled_dot_product_attention(is_causal=True)` on the same tensors
+    as the library yardstick, with its error.  The bf16 rows carry the
+    fp32 kernels' times before the tensor-core redesign as quoted
+    `earlier_ms`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -994,46 +1078,71 @@ def llm_times(captured: dict) -> list:
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
     rows = []
-    q, k, v = captured["flash_long"].args
-    b, sq, hq, d = q.shape
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        route_want = "tensor-core" if bf16 else "fp32"
+        reps = dict(kernel=10 if bf16 else 5, library=20 if bf16 else 10)
+        q, k, v = (t.to(dtype) for t in captured["flash_long"].args)
+        b, sq, hq, d = q.shape
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
 
-    def library():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True).transpose(1, 2)
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True).transpose(1, 2)
 
-    lib_err = float((library().float() -
-                     flash_attention_ref(q, k, v).float()).abs().max())
-    rows.append(dict(
-        kernel="flash_attention", shape=list(q.shape), dtype="bfloat16",
-        ms=cuda_ms(lambda: flash_attention(q, k, v), 10),
-        earlier_ms=EARLIER_MS["flash_attention"],
-        earlier_ms_from=EARLIER_FROM,
-        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 2),
-        library_ms=cuda_ms(library, 20),
-        library="torch.nn.functional.scaled_dot_product_attention",
-        library_max_abs_err=lib_err,
-        **flash_bound(b, sq, k.shape[1], hq, d, nbytes)))
-    check(lib_err <= FA_TOL["bfloat16"],
-          f"scaled_dot_product_attention differs from the plain version by "
-          f"{lib_err} > {FA_TOL['bfloat16']}: the flash bound's bf16 rate "
-          f"for P V does not hold")
-    for label in ("ssd_long", "ssd_serve"):
-        args = captured[label].args
-        chunk = captured[label].kwargs["chunk"]
-        bsz, s, h, p = args[0].shape
-        n = args[3].shape[-1]
-        nbytes = sum(t.numel() * t.element_size() for t in args) + \
-            args[0].numel() * args[0].element_size() + 4 * bsz * h * p * n
+        err, route = _flash_err(q, k, v, 0, None)
+        check(route == route_want,
+              f"{name} flash_attention took the {route} route")
+        check(err <= FA_TOL[name], f"{name} flash_attention at "
+                                   f"{tuple(q.shape)}: {err} > "
+                                   f"{FA_TOL[name]}")
+        lib_err = float((library().float() -
+                         flash_attention_ref(q, k, v).float()).abs().max())
+        if bf16:
+            check(lib_err <= FA_TOL["bfloat16"],
+                  f"scaled_dot_product_attention differs from the plain "
+                  f"version by {lib_err} > {FA_TOL['bfloat16']}: the flash "
+                  f"bound's bf16 rate for P V does not hold")
+        earlier = dict(earlier_ms=EARLIER_MS["flash_attention"],
+                       earlier_ms_from=EARLIER_FROM) if bf16 else {}
         rows.append(dict(
-            kernel="ssd", label=label, shape=list(args[0].shape),
-            chunk=chunk, n=n, dtype="bfloat16",
-            ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10),
-            earlier_ms=EARLIER_MS[label], earlier_ms_from=EARLIER_FROM,
-            plain_ms=cuda_ms(lambda: ssd_chunked(*args, chunk=chunk), 3),
-            library_ms=None, library="none: no single PyTorch call",
-            **ssd_bound(bsz, s, h, p, n, chunk, nbytes)))
+            kernel="flash_attention", shape=list(q.shape), dtype=name,
+            route=route, ms=cuda_ms(lambda: flash_attention(q, k, v),
+                                    reps["kernel"]),
+            **earlier, max_abs_err=err, tolerance=FA_TOL[name],
+            plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 2),
+            library_ms=cuda_ms(library, reps["library"]),
+            library="torch.nn.functional.scaled_dot_product_attention",
+            library_max_abs_err=lib_err,
+            **flash_bound(b, sq, k.shape[1], hq, d, nbytes,
+                          PEAK_BF16_S if bf16 else PEAK_OPS_S)))
+        del q, k, v
+        for label in ("ssd_long", "ssd_serve"):
+            args = list(captured[label].args) if bf16 else \
+                [t.float() for t in captured[label].args]
+            chunk = captured[label].kwargs["chunk"]
+            bsz, s, h, p = args[0].shape
+            n = args[3].shape[-1]
+            nbytes = sum(t.numel() * t.element_size() for t in args) + \
+                args[0].numel() * args[0].element_size() + \
+                4 * bsz * h * p * n
+            dy, df, ok, route = _ssd_err(args, chunk)
+            check(route == route_want,
+                  f"{name} ssd ({label}) took the {route} route")
+            check(ok, f"{name} ssd at {tuple(args[0].shape)} ({label}): "
+                      f"|dy| {dy}, |dstate| {df}")
+            earlier = dict(earlier_ms=EARLIER_MS[label],
+                           earlier_ms_from=EARLIER_FROM) if bf16 else {}
+            rows.append(dict(
+                kernel="ssd", label=label, shape=list(args[0].shape),
+                chunk=chunk, n=n, dtype=name, route=route,
+                ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10), **earlier,
+                max_abs_err_y=dy, max_abs_err_state=df,
+                plain_ms=cuda_ms(lambda: ssd_chunked(*args, chunk=chunk), 3),
+                library_ms=None, library="none: no single PyTorch call",
+                **ssd_bound(bsz, s, h, p, n, chunk, nbytes, fp32=not bf16)))
     return rows
 
 
@@ -1269,12 +1378,22 @@ def main() -> int:
              for name, (_, cg, _) in graphs.items()}
     feats.update({f"{name}@16x16": torch.from_numpy(encode(cg.vertices))
                   for name, (_, cg) in workloads.items()})
-    for n in (0, 1, 31, 32, 33, 63, 64, 65, 100, 1000, 4097):
+    # One below, at and one above one and two of the dense kernel's
+    # row tiles and column strips.
+    from repro_torch.kernels.conflict_matrix.ref import STRIP, TILE_ROWS
+    edges = [e + d for e in (TILE_ROWS, 2 * TILE_ROWS, STRIP, 2 * STRIP)
+             for d in (-1, 0, 1)]
+    for n in sorted({0, 1, 100, 1000, 8 * STRIP + 1, *edges}):
         feats[f"random n={n}"] = random_features(n, seed=n)
-    for n in (100, 777):
+    for n in (100, 777, 1025):
         feats[f"one-op n={n}"] = random_features(n, seed=n, one_op=True)
     for n in (33, 777, 4097):
         feats[f"wide n={n}"] = random_features(n, seed=n, wide=True)
+    for n in (65, 2049):
+        feats[f"fold-edge n={n}"] = random_features(n, seed=n,
+                                                    fold_edge=True)
+    for n in (1100, 3000):
+        feats[f"mixed n={n}"] = random_features(n, seed=n, mixed=True)
     vs_plain = check_conflict_kernels(feats, dev)
     emit(dict(phase="conflict-kernels-vs-plain", tolerance=0, **vs_plain))
 
@@ -1331,11 +1450,11 @@ def main() -> int:
             # The card's own time a call (ms above also holds the
             # wrapper's host time, which leads at the small shapes).
             prof = device_profile(
-                lambda: [selection_counts(rows32, sel32) for _ in range(20)])
+                lambda: [selection_counts(rows32, sel32) for _ in range(20)],
+                calls=20)
             times.append(dict(
                 graph=name, k=k, n_pad=n_pad, w=w, ms=ms,
-                device_ms=None if prof["device_ms"] is None
-                else prof["device_ms"] / 20,
+                device_ms=prof["device_ms"],
                 plain_ms=cuda_ms(
                     lambda: selection_counts_plain(rows32, sel32), 5),
                 library_ms=cuda_ms(lambda: torch._int_mm(sel8, adj8),
@@ -1373,8 +1492,12 @@ def main() -> int:
               **llm_vs))
     llm_rows = llm_times(captured)
     emit(dict(phase="llm-times", card=card, runs=llm_rows))
-    fa_row = llm_rows[0]
-    ssd_row = next(r for r in llm_rows if r.get("label") == "ssd_long")
+    fa_row, fa32_row = (next(
+        r for r in llm_rows if r["kernel"] == "flash_attention"
+        and r["dtype"] == dtype) for dtype in ("bfloat16", "float32"))
+    ssd_row, ssd32_row = (next(
+        r for r in llm_rows if r.get("label") == "ssd_long"
+        and r["dtype"] == dtype) for dtype in ("bfloat16", "float32"))
     ssd_err = max(max(c["max_abs_err_y"] for c in llm_vs["ssd"]),
                   max(llm_vs["path"][k]["max_abs_err_y"]
                       for k in ("ssd_long", "ssd_serve")))
@@ -1401,7 +1524,7 @@ def main() -> int:
              max_abs_err=vs_plain["max_abs_err"][kernel], ms=t["ms"],
              plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
              bound_by=t["bound_by"], library_ms=None,
-             shape=f"n={t['n']} ({t['graph']})")
+             device_ms=t["device_ms"], shape=f"n={t['n']} ({t['graph']})")
         for kernel, replaces in (
             ("conflict_matrix",
              "src/repro/kernels/conflict_matrix/kernel.py:148"),
@@ -1420,7 +1543,10 @@ def main() -> int:
              plain_ms=fa_row["plain_ms"], bound_ms=fa_row["bound_ms"],
              bound_by=fa_row["bound_by"], library_ms=fa_row["library_ms"],
              shape=f"{tuple(fa_row['shape'])} bf16 causal "
-                   f"(llm-forward-long)"),
+                   f"(llm-forward-long)",
+             fp32={key: fa32_row[key] for key in (
+                 "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
              source_fp32="src/repro_torch/kernels/ssd/csrc/ssd.cu",
@@ -1431,7 +1557,10 @@ def main() -> int:
              plain_ms=ssd_row["plain_ms"], bound_ms=ssd_row["bound_ms"],
              bound_by=ssd_row["bound_by"], library_ms=None,
              shape=f"{tuple(ssd_row['shape'])} N={ssd_row['n']} "
-                   f"chunk={ssd_row['chunk']} bf16 (llm-forward-long)")],
+                   f"chunk={ssd_row['chunk']} bf16 (llm-forward-long)",
+             fp32={key: ssd32_row[key] for key in (
+                 "ms", "max_abs_err_y", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")})],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -76,6 +76,9 @@ def conflict_matrix_dense(feat: torch.Tensor) -> torch.Tensor:
     if feat.device.type == "cpu":
         return ref.conflict_matrix_plain(feat)
     n = feat.shape[0]
+    # The kernel loads the 32-byte rows as 16-byte halves.
+    if feat.data_ptr() % 16:
+        feat = feat.clone()
     # A pitch of n rounded up to 16 bytes keeps every 16-byte run of a
     # row aligned for the kernel's vector stores.
     pitch = -(-n // 16) * 16
@@ -135,7 +138,8 @@ def conflict_matrix(vertices, *, use_cuda: bool = True,
     if not use_cuda:
         return ref.conflict_matrix_ref(ref.encode(vertices))
     adj = conflict_matrix_dense(_cuda_features(vertices, device))
-    return adj.cpu().numpy().astype(bool)
+    # The kernel writes 0 and 1 only: a bool view needs one copy back.
+    return adj.view(torch.bool).cpu().numpy()
 
 
 def conflict_matrix_packed(vertices, *, use_cuda: bool = True,

@@ -25,6 +25,14 @@ realizability is sparse and handled host-side):
 on any device, with the kernels' output layouts: `conflict_matrix_plain`
 is the dense kernel's plain version.
 
+The dense kernel evaluates the same predicate on folded words: each
+vertex's op, and a place word (`fold_keys`) that two vertices share iff
+they have the same place, exact while the fields fit its bit widths.  A
+tile of `TILE_ROWS` rows by `STRIP` columns whose fields all fit
+compares the two words; any other compares the fields themselves
+(`fold_tiles` says which).  `conflict_matrix_folded` is that arithmetic
+in torch, so that the CPU tests hold the fold to the reference.
+
 The packed kernel computes the same words another way.  The predicate
 is the union of two equivalence relations: same op; and same place,
 i.e. the same kind, slot and port for TIN and TOUT, the same slot and
@@ -119,6 +127,85 @@ def conflict_matrix_plain(feat: torch.Tensor) -> torch.Tensor:
     """``int32 [n, 8]`` -> ``int8 [n, n]`` adjacency (1 = conflict):
     the plain version of the dense kernel."""
     return _adjacency(feat).to(torch.int8)
+
+
+# ------------------------------------------------------------- fold
+#: The dense kernel's tile: rows a tile, columns a strip
+#: (``kTileRows``, ``kStrip`` in ``csrc/conflict_matrix.cu``).
+TILE_ROWS, STRIP = 32, 512
+#: Signed bit widths of the slot, the TIN/TOUT port and each PE
+#: coordinate in the place word (``kMBits``, ``kPortBits``, ``kPeBits``).
+#: A CPU test holds these five equal to the kernel source's.
+M_BITS, PORT_BITS, PE_BITS = 14, 16, 8
+
+
+def _fits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    return (x >= -(1 << (bits - 1))) & (x < (1 << (bits - 1)))
+
+
+def fold_keys(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """``int32 [n, 8]`` -> (op, place, fits), the dense kernel's folded
+    words as int64 ``[n]`` and whether each vertex's fields fit them:
+
+    - TIN/TOUT: ``kind << 30 | (m & 0x3fff) << 16 | (port & 0xffff)``;
+    - QUAD: ``2 << 30 | (m & 0x3fff) << 16 | (pe_r & 0xff) << 8 |
+      (pe_c & 0xff)``;
+    - no place (other kinds): ``3 << 30 | j``, the vertex's own index.
+
+    Where two vertices fit, their place words are equal iff both have
+    the same place (the low bits of a field that fits its signed width
+    determine it), so the predicate is ``op_i == op_j or place_i ==
+    place_j`` off the diagonal."""
+    f = feat.to(torch.int64)
+    kind, op, m, port, pe_r, pe_c = (f[:, c] for c in range(6))
+    j = torch.arange(f.shape[0], device=feat.device)
+    port_kind = (kind == TIN) | (kind == TOUT)
+    quad = kind == QUAD
+    slot = kind << 30 | (m & ((1 << M_BITS) - 1)) << 16
+    pe_mask = (1 << PE_BITS) - 1
+    place = torch.where(
+        port_kind, slot | (port & ((1 << PORT_BITS) - 1)),
+        torch.where(quad, slot | (pe_r & pe_mask) << PE_BITS |
+                    (pe_c & pe_mask), 3 << 30 | j))
+    fits = torch.where(
+        port_kind, _fits(m, M_BITS) & _fits(port, PORT_BITS),
+        torch.where(quad, _fits(m, M_BITS) & _fits(pe_r, PE_BITS) &
+                    _fits(pe_c, PE_BITS), j < 2**30))
+    return op, place, fits
+
+
+def _all_per(fits: torch.Tensor, size: int) -> torch.Tensor:
+    """Per run of ``size`` entries: do all fit (past the end counts as
+    fitting, as the kernel's zero-filled padding does)?"""
+    pad = -fits.shape[0] % size
+    return torch.cat([fits, fits.new_ones(pad)]).view(-1, size).all(1)
+
+
+def fold_tiles(feat: torch.Tensor) -> torch.Tensor:
+    """bool ``[row tiles, strips]``: the dense kernel's tiles that take
+    the folded loop (every row and column fits), the rest the general
+    loop."""
+    fits = fold_keys(feat)[2]
+    return _all_per(fits, TILE_ROWS)[:, None] & \
+        _all_per(fits, STRIP)[None, :]
+
+
+def conflict_matrix_folded(feat: torch.Tensor) -> torch.Tensor:
+    """``int32 [n, 8]`` -> ``int8 [n, n]``: the dense kernel's
+    arithmetic, the folded words' compares on tiles that fit and the
+    fields' compares on the rest (the same matrix as
+    `conflict_matrix_plain`)."""
+    n = feat.shape[0]
+    op, place, _ = fold_keys(feat)
+    folded = (op[:, None] == op[None, :]) | \
+        (place[:, None] == place[None, :])
+    tiles = fold_tiles(feat)
+    fast = tiles.repeat_interleave(TILE_ROWS, 0)[:n] \
+        .repeat_interleave(STRIP, 1)[:, :n]
+    adj = torch.where(fast, folded, _adjacency(feat))
+    adj.fill_diagonal_(False)
+    return adj.to(torch.int8)
 
 
 def conflict_matrix_packed_plain(feat: torch.Tensor) -> torch.Tensor:

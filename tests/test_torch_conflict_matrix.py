@@ -253,3 +253,115 @@ def test_packed_wrapper_on_the_cpu_takes_the_groups():
         t = torch.from_numpy(make(777, seed))
         assert torch.equal(ops.conflict_matrix_words(t),
                            ref.conflict_matrix_packed_plain(t))
+
+
+# The dense CUDA kernel's arithmetic: folded op and place words on tiles
+# whose fields fit them, the fields themselves on the rest
+# (ref.conflict_matrix_folded), held here to the Pallas kernel and the
+# numpy oracle before the card runs it.
+def _fold_features(n: int, seed: int, kind: str) -> np.ndarray:
+    """``random`` and ``wide`` as above; ``one-op``: every vertex in op
+    3; ``fold-edge``: slots, ports and PEs at both ends of the fold's
+    signed widths (every tile folds); ``past-edge``: one past them, or
+    aliasing an in-range value modulo the width (no tile folds);
+    ``mixed``: one vertex with a slot past 14 bits, whose row tile and
+    strip take the general loop while the other tiles fold."""
+    if kind == "wide":
+        return _wide_features(n, seed)
+    feat = _random_features(n, seed)
+    rng = np.random.default_rng(seed + 2)
+    if kind == "one-op":
+        feat[:, 1] = 3
+    elif kind in ("fold-edge", "past-edge"):
+        past = kind == "past-edge"
+        for col, bits in ((2, ref.M_BITS), (3, ref.PORT_BITS),
+                          (4, ref.PE_BITS), (5, ref.PE_BITS)):
+            lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+            ends = [lo - 1, hi + 1, hi + (1 << bits)] if past \
+                else [lo, -1, 0, hi]
+            feat[:, col] = rng.choice(ends, n)
+        if past:
+            feat[:, 0] = rng.integers(0, 3, n)
+    elif kind == "mixed":
+        feat[n // 2, 0], feat[n // 2, 2] = 2, 1 << (ref.M_BITS - 1)
+    return feat
+
+
+@pytest.mark.parametrize("kind", ["random", "one-op", "wide", "fold-edge",
+                                  "past-edge", "mixed"])
+@pytest.mark.parametrize("n", [1, 63, 65, 1025, 1100])
+def test_folded_equals_pallas_interpret_and_ref(kind, n):
+    feat = _fold_features(n, n, kind)
+    pallas = np.asarray(conflict_matrix_pallas(jnp.asarray(feat),
+                                               interpret=True))
+    got = ref.conflict_matrix_folded(torch.from_numpy(feat))
+    assert got.dtype == torch.int8 and got.shape == (n, n)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy().astype(bool),
+                                  ref_ref.conflict_matrix_ref(feat))
+    tiles = ref.fold_tiles(torch.from_numpy(feat))
+    assert tiles.shape == (-(-n // ref.TILE_ROWS), -(-n // ref.STRIP))
+    if kind == "fold-edge":
+        assert bool(tiles.all())
+    if kind == "past-edge":
+        assert not bool(tiles.any())
+    if kind == "mixed" and n > ref.STRIP:
+        assert 0 < int(tiles.sum()) < tiles.numel()
+
+
+def test_fold_constants_match_the_kernel_source():
+    """`ref`'s tile and fold widths, which `fold_tiles` and
+    `conflict_matrix_folded` model the dense kernel with, are the CUDA
+    source's ``constexpr`` values."""
+    import pathlib
+    import re
+    src = (pathlib.Path(ref.__file__).parent / "csrc" /
+           "conflict_matrix.cu").read_text()
+    consts: dict[str, int] = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", src):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    assert (consts["kTileRows"], consts["kStrip"]) == (ref.TILE_ROWS,
+                                                       ref.STRIP)
+    assert (consts["kMBits"], consts["kPortBits"], consts["kPeBits"]) == \
+        (ref.M_BITS, ref.PORT_BITS, ref.PE_BITS)
+    assert (consts["kTin"], consts["kTout"], consts["kQuad"]) == \
+        (ref.TIN, ref.TOUT, ref.QUAD)
+
+
+def test_folded_words_are_exact_where_the_fields_fit():
+    """Off the diagonal, fitting vertices share a place word iff they
+    share a place; out-of-range fields that alias an in-range value
+    modulo the width do not fit (the general loop compares them)."""
+    feat = torch.from_numpy(np.concatenate([
+        _fold_features(400, 7, "fold-edge"),
+        _fold_features(400, 8, "past-edge")]))
+    op, place, fits = ref.fold_keys(feat)
+    assert bool(fits[:400].all()) and not bool(fits[400:].any())
+    kind, m = feat[:, 0], feat[:, 2]
+    port, pe_r, pe_c = feat[:, 3], feat[:, 4], feat[:, 5]
+    same_kind = kind[:, None] == kind[None, :]
+    port_kind = (kind == ref.TIN) | (kind == ref.TOUT)
+    same_place = same_kind & (m[:, None] == m[None, :]) & (
+        (port_kind[:, None] & (port[:, None] == port[None, :])) |
+        ((kind == ref.QUAD)[:, None] & (pe_r[:, None] == pe_r[None, :]) &
+         (pe_c[:, None] == pe_c[None, :])))
+    same_place.fill_diagonal_(False)
+    folded = place[:, None] == place[None, :]
+    folded.fill_diagonal_(False)
+    both = fits[:, None] & fits[None, :]
+    assert torch.equal(folded[both], same_place[both])
+    assert torch.equal(op, feat[:, 1].long())
+    # Past the widths the words alias: that is why such tiles go general.
+    assert bool((folded & ~same_place)[400:, 400:].any())
+
+
+def test_conflict_matrix_views_the_card_result_as_bool(monkeypatch):
+    """The dense vertex entry point hands back the kernel's bytes as a
+    bool array: the same values, dtype and shape as the host oracle."""
+    _, cg = _graphs(2, 6)
+    monkeypatch.setattr(ops, "_cuda_features", lambda vertices, device:
+                        torch.from_numpy(ref.encode(vertices)))
+    got = ops.conflict_matrix(cg.vertices)
+    want = ops.conflict_matrix(cg.vertices, use_cuda=False)
+    assert got.dtype == np.bool_ and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

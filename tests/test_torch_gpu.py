@@ -226,6 +226,104 @@ def test_packed_group_kernels_equal_plain_versions(cuda, kind, n):
         assert int(conflict_matrix_dense(feat).sum()) == n * (n - 1)
 
 
+def _dense_features(n, kind, cuda):
+    """`_features`, or: every vertex in one op; every vertex placed
+    (kinds 0-2) with a slot across the int32 range, so every tile takes
+    the dense kernel's general loop; slots, ports and PEs at the ends of
+    its fold's signed widths, so every tile folds; one vertex with a
+    slot past them, so its row tile and strip go general and the other
+    tiles fold."""
+    from repro_torch.kernels.conflict_matrix import ref
+    feat = _features(n, n, "cpu")
+    g = torch.Generator().manual_seed(n + 1)
+
+    def pick(values):
+        values = torch.tensor(values, dtype=torch.int32)
+        return values[torch.randint(0, len(values), (n,), generator=g)]
+
+    if kind == "one-op":
+        feat[:, 1] = 5
+    elif kind == "wide":
+        feat[:, 0] = pick([0, 1, 2])
+        feat[:, 2] = pick([-2**31, 2**31 - 1, 1 << 13])
+    elif kind == "fold-edge":
+        for col, bits in ((2, ref.M_BITS), (3, ref.PORT_BITS),
+                          (4, ref.PE_BITS), (5, ref.PE_BITS)):
+            feat[:, col] = pick([-(1 << (bits - 1)), -1, 0,
+                                 (1 << (bits - 1)) - 1])
+    elif kind == "mixed":
+        feat[n // 2, 0], feat[n // 2, 2] = 2, 1 << (ref.M_BITS - 1)
+    return feat.to(cuda)
+
+
+def _check_dense(feat):
+    """The dense kernel once: one launch (none for n = 0), byte-equal to
+    the plain version and the fold's plain version, zero past column n
+    up to its pitch."""
+    from repro_torch.kernels.conflict_matrix.ref import (
+        conflict_matrix_folded)
+    n = feat.shape[0]
+    before = LAUNCHES["conflict_matrix"]
+    dense = conflict_matrix_dense(feat)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conflict_matrix"] == before + (1 if n else 0)
+    assert dense.device.type == "cuda" and dense.dtype == torch.int8
+    assert dense.shape == (n, n)
+    assert torch.equal(dense, conflict_matrix_plain(feat))
+    assert torch.equal(dense, conflict_matrix_folded(feat))
+    if n:
+        pitch = dense.stride(0)
+        assert pitch == -(-n // 16) * 16
+        full = torch.as_strided(dense, (n, pitch), (pitch, 1))
+        assert not bool(full[:, n:].any())
+    return dense
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 31, 32, 33, 63, 64, 65, 511,
+                               512, 513, 1000, 1023, 1024, 1025, 4161])
+def test_dense_kernel_at_its_tile_edges(cuda, n):
+    """n = 0 and 1, n off 16 (the pitch), and one below, at and one above
+    one and two of the kernel's 32-row tiles and 512-column strips."""
+    _check_dense(_features(n, n, cuda))
+
+
+def test_dense_kernel_at_the_16x16_size(cuda):
+    _check_dense(_features(16656, 0, cuda))
+
+
+@pytest.mark.parametrize("kind", ["one-op", "wide", "fold-edge", "mixed"])
+@pytest.mark.parametrize("n", [65, 1025, 3000])
+def test_dense_kernel_on_the_fold_model_cases(cuda, kind, n):
+    """The cases that the reference model of the kernel's tiles
+    (`ref.fold_tiles`, whose tile and widths a CPU test holds to the
+    CUDA source) sends all to the general loop, all to the folded one,
+    or some to each.  Which loop a tile took is the model's prediction:
+    the kernel itself is held byte-equal on every case."""
+    from repro_torch.kernels.conflict_matrix.ref import STRIP, fold_tiles
+    feat = _dense_features(n, kind, cuda)
+    tiles = fold_tiles(feat)
+    if kind == "wide":
+        assert not bool(tiles.any())
+    elif kind == "mixed" and n > STRIP:
+        assert 0 < int(tiles.sum()) < tiles.numel()
+    elif kind in ("one-op", "fold-edge"):
+        assert bool(tiles.all())
+    dense = _check_dense(feat)
+    if kind == "one-op":
+        assert int(dense.sum()) == n * (n - 1)
+
+
+def test_dense_kernel_on_unaligned_features(cuda):
+    """Features 4 bytes off 16-byte alignment: the wrapper copies them
+    to an aligned buffer for the kernel's 16-byte loads."""
+    feat = _features(1000, 3, cuda)
+    moved = torch.empty(feat.numel() + 1, dtype=torch.int32,
+                        device=cuda)[1:].view(feat.shape)
+    moved.copy_(feat)
+    assert moved.data_ptr() % 16 != 0
+    assert torch.equal(_check_dense(moved), conflict_matrix_dense(feat))
+
+
 def test_vertex_entry_points_default_to_the_card(cuda):
     from repro_torch.kernels.conflict_matrix import (conflict_matrix,
                                                      conflict_matrix_packed)
