@@ -62,7 +62,9 @@ each printed as one JSON line:
    (II, routing PEs) must equal the pinned `GOLDEN_16X16`.
 9. times: the rates of the four tensor-core instructions that could
    carry `selection_counts` (``csrc/mma_probe.cu``: mma.sync and wgmma,
-   .b1 and .s8), which chose the .b1 wgmma; `selection_counts` per call
+   .b1 and .s8), which chose the .b1 wgmma, and of the two TF32 forms
+   (mma.sync m16n8k8, wgmma m64n256k8) that the fp32 flash and SSD
+   kernels' split products could take; `selection_counts` per call
    (CUDA events, after warm-up), its bound (bytes, or the 0/1 product at
    the int8 rate, or at the measured .b1 rate where the kernel beats
    the int8 one), the CUDA cores' POPC floor, its plain version and the
@@ -76,53 +78,55 @@ each printed as one JSON line:
    init, seed 0) served by `WaveServer` with 4 slots: 8 requests of
    1000 prompt tokens, 32 new tokens each.  The launch counts are reset
    just before the two waves and read just after: `ssd` 76 times (38
-   Mamba2 layers per prefill), all on its bf16 tensor-core route
-   (`ssd_tc`), `flash_attention` never (the cached prefill takes the
-   plain masked product, as the reference's does).
+   Mamba2 layers per prefill), all on its bf16 route (`ssd_bf16`),
+   `flash_attention` never (the cached prefill takes the plain masked
+   product, as the reference's does).
    Teacher-forced prefill and decode logits against the no-cache
    forward's: in fp32 compute with an fp32 cache within the reference's
    hybrid tolerance (atol = rtol = 0.15, tests/test_models.py:100-106);
    in bf16, as served, the prefill within it, and at each decode step
    the same argmax wherever the no-cache forward's top-2 margin exceeds
    twice it (the rule the CPU tests hold `WaveServer` to: 38 random
-   layers part bf16 roundings by more than 0.15).  Prefill and decode
-   tokens/s and peak device memory.
+   layers part bf16 roundings by more than 0.15).  The counts are reset
+   just before each teacher-forced run and read just after: `ssd` 76
+   times on the run's route (38 in its no-cache forward, 38 in its
+   prefill; the fp32 run is the fp32 route's path), nothing else.
+   Prefill and decode tokens/s and peak device memory.
 11. llm-forward-long: the no-cache forward at (1, 8192), which takes
    flash attention (8192^2 > 4096^2): `flash_attention` 6 times (the
    shared block's invocations), `ssd` 38 times, each on its bf16
-   tensor-core route (`flash_attention_tc`, `ssd_tc`), every logit
-   finite.
+   route (`flash_attention_bf16`, `ssd_bf16`), every logit finite.
    Wall and peak device memory.
 12. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
    their plain versions on the card: the reference's kernel cases
    (tests/test_kernels.py) in fp32 and bf16, cases across the
-   tensor-core kernels' tile edges and their plain loads (`FA_CASES`,
-   `SSD_CASES`; one bf16 case each with its first input at an offset of
-   2 elements), and the inputs one layer really got on the path (captured during phases 10
-   and 11); each case records the route it took (bf16: tensor-core,
-   fp32: the fp32 kernel) and fails on the other.  Tolerances: flash
+   kernels' tile edges and their plain loads (`FA_CASES`, `SSD_CASES`;
+   one case each in both dtypes with its first input at an offset of 2
+   elements), and the inputs one layer really got on the path (captured
+   during phases 10 and 11); each case records the route it took (the
+   bf16 or the fp32 kernel) and fails on the other.  Tolerances: flash
    2e-6 (fp32) and 2e-2 (bf16), the reference's; SSD 1e-4 in fp32, the
    reference's, and in bf16 one bf16 ulp of y (1e-4 + 2^-7 |y|: both
    sides compute in fp32 and round y once) with the fp32 state at
    1e-4 + 1e-5 |state|.
 13. llm-times: both kernels at their path shapes (CUDA events, after
-   warm-up), their times before the tensor-core redesign (`earlier_ms`,
-   the fp32 CUDA-core kernels' times, quoted from PERF.md and not
-   measured, so the kernels line leaves them out), their plain
-   versions, their bounds (the SSD scan's products counted at the bf16
-   rate times the fewest bf16 passes that meet its tolerances,
-   `SSD_PASSES`), and for flash
-   `F.scaled_dot_product_attention(is_causal=True)` on the same bf16
-   tensors as the library yardstick (off the path; the SSD scan has no
-   single PyTorch call), with its error against the plain version:
-   it computes P V from bf16 P on tensor cores, and must meet the
+   warm-up), in bf16 and then on the same inputs cast to fp32, each
+   dtype on its own kernels, with the launch counts reset just before
+   each dtype's run and read just after (the fp32 route's launches on
+   its path).  Each row: ms, route and error (both checked), each
+   route's time before its redesign (`earlier_ms`, quoted from PERF.md
+   and not measured, so the kernels line leaves it out), the plain
+   version, and the bound: the SSD scan's products counted at the bf16
+   rate times the fewest bf16 passes that meet its tolerances
+   (`SSD_PASSES`), on fp32 at the TF32 rate times the fewest split-TF32
+   passes that meet the fp32 ones (`FA_PASSES_FP32`, `SSD_PASSES_FP32`),
+   with the CUDA cores' fp32 rate beside it (`fp32_rate_bound_ms`).  For
+   flash `F.scaled_dot_product_attention(is_causal=True)` on the same
+   tensors is the library yardstick (off the path; the SSD scan has no
+   single PyTorch call), with its error against the plain version: in
+   bf16 it computes P V from bf16 P on tensor cores, and must meet the
    kernel's own bf16 tolerance, which is what lets the flash bound
-   count all its products at the bf16 tensor-core rate.  Then the fp32
-   CUDA-core kernels (``flash_attention.cu``, ``ssd.cu``) on the same
-   inputs cast to fp32: ms, route and error (both checked, at the fp32
-   tolerances above), plain version, their bound at the fp32 rate
-   (`PEAK_OPS_S`) or by bytes, and for flash the fp32 SDPA with its
-   error.
+   count all its products at the bf16 tensor-core rate.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
@@ -170,6 +174,7 @@ WORKLOADS_16X16 = ("scale_16x16_loop", "loop40", "stencil16t3",
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_BF16_S = 989e12      # bf16 tensor cores, dense
+PEAK_TF32_S = 494e12      # TF32 tensor cores, dense
 PEAK_INT8_S = 1979e12     # int8 tensor cores, dense
 # The CUDA cores' popcount pipe: 16 POPC a clock an SM (the CUDA
 # programming guide's throughput table, compute capability 9.0), over
@@ -207,16 +212,18 @@ FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SSD_ATOL = 1e-4
 SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # The reference's kernel cases (tests/test_kernels.py:17-25, :70-75),
-# then cases across the tensor-core kernels' tile edges: flash's Sq and Sk
-# off its 128-row query and 64-key tiles, D 48 and 128, a window,
-# q_offset > 0, GQA 4:1; SSD's single chunk, S < chunk, P = 96 (a ragged
-# second column tile), N off 64 and a ragged last chunk.  D = 5 and 44,
-# P = 20 and N = 12 are not multiples of 8, so their bf16 calls take the
-# kernels' plain loads instead of cp.async, as does a bf16 input at an
-# offset of 2 elements (4 bytes off 16-byte alignment, `_at_offset`).
-# D = 192 and 256 (three and four 64-column panels; bf16 takes the
-# two-stage K/V ring there) are the widest heads of the repository's
-# configs; D = 250 takes the bf16 plain loads at four panels.
+# then cases across the kernels' tile edges: flash's Sq and Sk off its
+# 128-row query and 64-key tiles (the fp32 kernel's 64-row, 32-key tiles
+# past D = 128), D 48 and 128, a window, q_offset > 0, GQA 4:1; SSD's
+# single chunk, S < chunk, P = 96 (a ragged second column tile), N off
+# 64 and a ragged last chunk.  D = 5 and 44, P = 20 and N = 12 are not
+# multiples of 8, so their bf16 calls take the kernels' plain loads
+# instead of cp.async; D = 5 and 250, P = 18 and N = 10 are not
+# multiples of 4, so their fp32 calls do too, as does an input at an
+# offset of 2 elements (off 16-byte alignment, `_at_offset`).  D = 192
+# and 256 (three and four 64-column panels; bf16 takes the two-stage K/V
+# ring there) are the widest heads of the repository's configs; D = 250
+# takes the plain loads at four panels.
 FA_CASES = [(2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
             (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
             (1, 64, 64, 2, 2, 128, 16, 0), (1, 1, 512, 4, 2, 64, None, 511),
@@ -225,17 +232,22 @@ FA_CASES = [(2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
             (1, 777, 900, 4, 1, 64, 300, 123), (1, 150, 170, 4, 2, 5, None, 0),
             (1, 200, 260, 8, 2, 44, 70, 60),
             (2, 300, 333, 8, 2, 192, None, 0), (1, 200, 260, 4, 1, 256, 70, 60),
-            (1, 150, 170, 2, 1, 250, None, 0)]
+            (1, 150, 170, 2, 1, 250, None, 0),
+            (1, 65, 33, 2, 1, 192, None, 0)]
 SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
              (2, 128, 4, 64, 128, 64), (2, 1000, 4, 64, 64, 256),
              (1, 256, 4, 64, 64, 256), (2, 100, 4, 64, 64, 256),
              (1, 1000, 3, 96, 64, 256), (2, 700, 3, 40, 24, 128),
-             (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128)]
-# Each kernel's time before the tensor-core redesign, when bf16 took the
-# fp32 CUDA-core kernels, ms: quoted in llm-times' rows, never measured
-# here, so the kernels line leaves it out.
-EARLIER_MS = {"flash_attention": 12.57, "ssd_long": 4.574,
-              "ssd_serve": 0.787}
+             (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128),
+             (1, 200, 3, 18, 10, 64)]
+# Each route's time before its tensor-core redesign, ms: bf16 when it
+# took the fp32 CUDA-core kernels, and fp32 on those kernels (PERF.md
+# section 6).  Quoted in llm-times' rows, never measured here, so the
+# kernels line leaves them out.
+EARLIER_MS = {"bfloat16": {"flash_attention": 12.57, "ssd_long": 4.574,
+                           "ssd_serve": 0.787},
+              "float32": {"flash_attention": 12.39, "ssd_long": 4.183,
+                          "ssd_serve": 0.739}}
 EARLIER_FROM = ("quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, "
                 "700 W), not measured in this run")
 # The fewest bf16 passes of each SSD product that meet the bf16
@@ -245,7 +257,17 @@ EARLIER_FROM = ("quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, "
 # and one term of any of the three misses them.  csrc/ssd_tc.cu takes
 # three terms for the states and the inter-chunk term.
 SSD_PASSES = {"scores": 1, "gate": 2, "state": 2, "inter": 2}
-
+# On fp32 inputs every product of both kernels takes three TF32 passes
+# (hi hi, hi lo, lo hi): tests/test_torch_flash_attention.py and
+# tests/test_torch_ssd.py show that three meet the fp32 tolerances and
+# one or two miss them, and that the .cu files take three (`kPasses`).
+FA_PASSES_FP32 = 3
+SSD_PASSES_FP32 = {"scores": 3, "gate": 3, "state": 3, "inter": 3}
+# The route keys of the kernels with one per dtype (`LAUNCHES`).
+ROUTES = ("bf16", "fp32")
+ROUTE_OF = {"bfloat16": "bf16", "float32": "fp32"}
+LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention")
+                 for r in ("", "_bf16", "_fp32"))
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -751,8 +773,7 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
         outs = [server.run_wave(prompts[lo:lo + SERVE_SLOTS], SERVE_NEW)
                 for lo in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
         wall = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in (
-            "ssd", "ssd_tc", "flash_attention", "flash_attention_tc")}
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS}
     peak = torch.cuda.max_memory_allocated()
     tokens = np.concatenate(outs)
     check(tokens.shape == (SERVE_REQUESTS, SERVE_NEW),
@@ -761,11 +782,15 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
     # Teacher-forced: the first wave's prompts and the tokens it got.
     wave = torch.from_numpy(prompts[:SERVE_SLOTS]).to(dev)
     forced = torch.from_numpy(tokens[:SERVE_SLOTS, :8]).to(dev)
-    tf = {}
+    # Each teacher-forced run with the launch counts read around it: its
+    # no-cache forward and its prefill take `ssd` on the run's dtype.
+    tf, tf_launches = {}, {}
     for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         with compute_dtype(dtype):
+            reset_launches()
             tf[name] = teacher_forced(cfg, model, dev, wave, forced, s_max,
                                       dtype)
+            tf_launches[name] = {k: LAUNCHES[k] for k in LLM_KEYS}
     first_token = tf["bf16"].pop("first_token")
     tf["fp32"].pop("first_token")
     # Where a wave's time goes: one more prefill and 8 decode steps under
@@ -792,7 +817,7 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
                                      for t in pre.seconds[:2]],
                decode_tokens_per_s=[n_dec / t for t in dec_s],
                decode_step_ms_mean=step_ms, peak_mem_bytes=peak,
-               teacher_forced=tf,
+               teacher_forced=tf, teacher_forced_launches=tf_launches,
                prefill_profile=dict(
                    prof_pre, busy_share=None if prof_pre["device_ms"] is None
                    else prof_pre["device_ms"] / (1e3 * pre.seconds[1])),
@@ -803,13 +828,20 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
                sample=tokens[0, :8].tolist())
     emit(dict(phase="llm-serve", **extra, **row))
     check(((tokens >= 0) & (tokens < cfg.vocab)).all(), "token out of range")
-    for name in ("ssd", "ssd_tc"):
+    for name in ("ssd", "ssd_bf16"):
         check(launches[name] == 2 * cfg.n_layers,
               f"{name} launched {launches[name]} times, expected "
               f"{2 * cfg.n_layers} (38 per prefill wave, bf16)")
     check(launches["flash_attention"] == 0,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in serving; the cached prefill takes sdpa")
+    for name, counts in tf_launches.items():
+        want = {k: 0 for k in LLM_KEYS}
+        want.update({"ssd": 2 * cfg.n_layers,
+                     f"ssd_{name}": 2 * cfg.n_layers})
+        check(counts == want,
+              f"the {name} teacher-forced run launched {counts}, expected "
+              f"{want} (38 ssd in its forward, 38 in its prefill)")
     check(torch.equal(first_token,
                       torch.from_numpy(tokens[:SERVE_SLOTS, 0]).long()),
           "a replayed prefill disagrees with the served first token")
@@ -849,8 +881,7 @@ def llm_forward_long(cfg, model, dev, extra: dict):
         logits, _, _ = T.forward(cfg, model, {"tokens": toks})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in (
-            "ssd", "ssd_tc", "flash_attention", "flash_attention_tc")}
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS}
     finite = bool(torch.isfinite(logits).all())
     row = dict(arch=cfg.name, seq=LONG_SEQ, launches=launches, wall_s=wall,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -858,10 +889,10 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     del logits
     emit(dict(phase="llm-forward-long", **extra, **row))
     n_inv = T.n_hybrid_attn_invocations(cfg)
-    for name in ("flash_attention", "flash_attention_tc"):
+    for name in ("flash_attention", "flash_attention_bf16"):
         check(launches[name] == n_inv,
               f"{name} launched {launches[name]} times, expected {n_inv}")
-    for name in ("ssd", "ssd_tc"):
+    for name in ("ssd", "ssd_bf16"):
         check(launches[name] == cfg.n_layers,
               f"{name} launched {launches[name]} times, expected "
               f"{cfg.n_layers}")
@@ -870,12 +901,15 @@ def llm_forward_long(cfg, model, dev, extra: dict):
 
 
 def _route(name: str, before: dict) -> str:
-    """The kernel a call of `name`'s wrapper took: its tensor-core route
-    (bf16) or its fp32 route, by which launch counts moved."""
+    """The kernel a call of `name`'s wrapper took, "bf16" or "fp32", by
+    which route's launch count moved; exactly one must have, by one."""
     from repro_torch.kernels import LAUNCHES
-    moved = {k: LAUNCHES[k] - before[k] for k in (name, f"{name}_tc")}
-    check(moved[name] == 1, f"{name} launched {moved[name]} times")
-    return "tensor-core" if moved[f"{name}_tc"] == 1 else "fp32"
+    moved = {r: LAUNCHES[f"{name}_{r}"] - before[f"{name}_{r}"]
+             for r in ROUTES}
+    total = LAUNCHES[name] - before[name]
+    check(total == 1 and sorted(moved.values()) == [0, 1],
+          f"{name} launched {total} times, by route {moved}")
+    return next(r for r, c in moved.items() if c == 1)
 
 
 def _flash_err(q, k, v, q_offset, window) -> tuple[float, str]:
@@ -929,10 +963,12 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     fa_cases, ssd_cases = [], []
     bf16 = torch.bfloat16
-    # Every case in fp32 and bf16, then the first in bf16 with its first
+    # Every case in fp32 and bf16, then the first in both with its first
     # input (q, x) at an offset of 2 elements.
-    runs = [(c, t, False) for c in FA_CASES for t in (torch.float32, bf16)]
-    for case, dtype, offset in runs + [(FA_CASES[0], bf16, True)]:
+    dtypes = (torch.float32, bf16)
+    runs = [(c, t, False) for c in FA_CASES for t in dtypes]
+    for case, dtype, offset in runs + [(FA_CASES[0], t, True)
+                                       for t in dtypes]:
         b, sq, sk, hq, hkv, d, window, q_offset = case
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, sq, hq, d), (b, sk, hkv, d),
@@ -944,13 +980,14 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
         fa_cases.append(dict(case=list(case), dtype=name, route=route,
                              first_input_at_offset_2=offset,
                              max_abs_err=err, tolerance=FA_TOL[name]))
-        check(route == ("tensor-core" if name == "bfloat16" else "fp32"),
+        check(route == ROUTE_OF[name],
               f"flash_attention {case} {name} took the {route} route")
         check(err <= FA_TOL[name], f"flash_attention {case} {name} "
                                    f"(offset {offset}): {err} > "
                                    f"{FA_TOL[name]}")
-    runs = [(c, t, False) for c in SSD_CASES for t in (torch.float32, bf16)]
-    for case, dtype, offset in runs + [(SSD_CASES[0], bf16, True)]:
+    runs = [(c, t, False) for c in SSD_CASES for t in dtypes]
+    for case, dtype, offset in runs + [(SSD_CASES[0], t, True)
+                                       for t in dtypes]:
         b, s, h, p, n, chunk = case
         args = [torch.randn((b, s, h, p), generator=gen, device=dev),
                 torch.nn.functional.softplus(torch.randn(
@@ -968,7 +1005,7 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
                               max_abs_err_y=dy, max_abs_err_state=df))
         check(ok, f"ssd {case} {name} (offset {offset}): |dy| {dy}, "
                   f"|dstate| {df}")
-        check(route == ("tensor-core" if name == "bfloat16" else "fp32"),
+        check(route == ROUTE_OF[name],
               f"ssd {case} {name} took the {route} route")
     path = {}
     q, k, v = captured["flash_long"].args
@@ -978,7 +1015,7 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
                                    route=route, max_abs_err=err)
     check(err <= FA_TOL["bfloat16"],
           "flash_attention at the path's inputs exceeds 2e-2")
-    check(route == "tensor-core", "the path's flash input took the fp32 route")
+    check(route == "bf16", "the path's flash input took the fp32 route")
     for label in ("ssd_long", "ssd_serve"):
         cap = captured[label]
         dy, df, ok, route = _ssd_err(cap.args, cap.kwargs["chunk"])
@@ -987,7 +1024,7 @@ def llm_kernels_vs_plain(dev, captured: dict) -> dict:
                            max_abs_err_y=dy, max_abs_err_state=df)
         check(ok, f"ssd at the path's inputs ({label}): |dy| {dy}, "
                   f"|dstate| {df}")
-        check(route == "tensor-core",
+        check(route == "bf16",
               f"the path's ssd input ({label}) took the fp32 route")
     return dict(flash_attention=fa_cases, ssd=ssd_cases, path=path)
 
@@ -1017,32 +1054,43 @@ def counts_bound(k: int, n_pad: int, w: int, ms: float,
                 ops=ops, bytes=nbytes)
 
 
-def flash_bound(b, sq, sk, hq, d, nbytes, rate=PEAK_BF16_S) -> dict:
+def flash_bound(b, sq, sk, hq, d, nbytes, fp32=False) -> dict:
     """The least time of causal attention: 4 d FLOP for each visible
-    (query, key) pair at ``rate``.  On bf16 inputs that is the bf16
-    tensor-core rate: Q K^T takes bf16 operands whose products are exact
-    in fp32; P V may take P rounded to bf16, since the library call that
-    does so meets the kernel's own bf16 tolerance in this run
-    (`llm_times` checks).  On fp32 inputs it is the fp32 rate
-    (`PEAK_OPS_S`)."""
+    (query, key) pair.  On bf16 inputs at the bf16 tensor-core rate: Q K^T
+    takes bf16 operands whose products are exact in fp32; P V may take P
+    rounded to bf16, since the library call that does so meets the
+    kernel's own bf16 tolerance in this run (`llm_times` checks).  On fp32
+    inputs (``fp32``) at the TF32 tensor-core rate, each product
+    `FA_PASSES_FP32` times (the fewest split-TF32 passes that meet the
+    fp32 tolerance); the CUDA cores' fp32 rate gives `fp32_rate_bound_ms`
+    beside it.  The larger of that time and the bytes' binds."""
     pairs = sum(min(i + 1 + (sk - sq), sk) for i in range(sq))
     flop = 4 * d * pairs * hq * b
-    t_ops, t_bytes = flop / rate, nbytes / PEAK_BYTES_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    extra = {}
+    if fp32:
+        t_ops = FA_PASSES_FP32 * flop / PEAK_TF32_S
+        extra = dict(flop_tf32_passes=FA_PASSES_FP32 * flop,
+                     fp32_rate_bound_ms=1e3 * max(flop / PEAK_OPS_S,
+                                                  t_bytes))
+    else:
+        t_ops = flop / PEAK_BF16_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flop=flop, bytes=nbytes)
+                flop=flop, **extra, bytes=nbytes)
 
 
 def ssd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
     """The least time of the scan.  Per chunk of l real steps: the
     scores C B^T shared by the heads of the one group (l (l + 1) N), and
     per head the causal half of the gate product with x (l (l + 1) P),
-    the inter-chunk term and the chunk state (2 l P N each).  On bf16
-    inputs all run on the bf16 tensor cores, each product as many times
-    as the fewest bf16 terms of its fp32 operand that meet the bf16
-    tolerances (`SSD_PASSES`, shown by the CPU tests); on fp32 inputs
-    (``fp32``) each once at the fp32 rate (`PEAK_OPS_S`).  The larger of
-    that time and the bytes' binds."""
+    the inter-chunk term and the chunk state (2 l P N each).  Each product
+    runs on the tensor cores as many times as the fewest split passes of
+    its operands that meet the tolerances, shown by the CPU tests: on
+    bf16 inputs at the bf16 rate (`SSD_PASSES`), on fp32 inputs
+    (``fp32``) at the TF32 rate (`SSD_PASSES_FP32`), with the CUDA
+    cores' rate, every product once, as `fp32_rate_bound_ms` beside it.
+    The larger of that time and the bytes' binds."""
     flop = {name: 0 for name in SSD_PASSES}
     for t0 in range(0, s, chunk):
         ln = min(chunk, s - t0)
@@ -1050,29 +1098,36 @@ def ssd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
         flop["gate"] += b * h * ln * (ln + 1) * p
         flop["state"] += b * h * 2 * ln * p * n
         flop["inter"] += b * h * 2 * ln * p * n
-    passes = {} if fp32 else dict(flop_bf16_passes=sum(
-        SSD_PASSES[k] * f for k, f in flop.items()))
-    t_ops = sum(flop.values()) / PEAK_OPS_S if fp32 \
-        else passes["flop_bf16_passes"] / PEAK_BF16_S
     t_bytes = nbytes / PEAK_BYTES_S
+    if fp32:
+        passes = sum(SSD_PASSES_FP32[k] * f for k, f in flop.items())
+        t_ops = passes / PEAK_TF32_S
+        extra = dict(flop_tf32_passes=passes, fp32_rate_bound_ms=1e3 * max(
+            sum(flop.values()) / PEAK_OPS_S, t_bytes))
+    else:
+        passes = sum(SSD_PASSES[k] * f for k, f in flop.items())
+        t_ops = passes / PEAK_BF16_S
+        extra = dict(flop_bf16_passes=passes)
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flop=sum(flop.values()), **passes, bytes=nbytes)
+                flop=sum(flop.values()), **extra, bytes=nbytes)
 
 
 def llm_times(captured: dict) -> list:
     """Phase 13: both kernels at their path shapes, on the captured
-    inputs as they are (bf16: the tensor-core kernels) and cast to fp32
-    (the CUDA-core kernels ``flash_attention.cu``, ``ssd.cu``).  Each
-    row: ms (CUDA events, after warm-up), the route taken and the error
-    against the plain version, both checked, the plain version's ms and
-    the bound at the dtype's rate; for flash also
-    `F.scaled_dot_product_attention(is_causal=True)` on the same tensors
-    as the library yardstick, with its error.  The bf16 rows carry the
-    fp32 kernels' times before the tensor-core redesign as quoted
-    `earlier_ms`."""
+    inputs as they are (bf16) and cast to fp32, each dtype on its own
+    tensor-core kernels.  Each row: ms (CUDA events, after warm-up), the
+    route taken and the error against the plain version, both checked,
+    the plain version's ms, the bound at the dtype's rate (and on fp32
+    the CUDA cores' fp32 rate beside it), the route's time before its
+    redesign as quoted `earlier_ms`, and the route's launches in the
+    dtype's run of this phase (the counts reset just before it), checked
+    to equal the kernel calls the phase makes; for
+    flash also `F.scaled_dot_product_attention(is_causal=True)` on the
+    same tensors as the library yardstick, with its error."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd import ssd
@@ -1081,8 +1136,10 @@ def llm_times(captured: dict) -> list:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         bf16 = dtype == torch.bfloat16
-        route_want = "tensor-core" if bf16 else "fp32"
+        route_want = ROUTE_OF[name]
         reps = dict(kernel=10 if bf16 else 5, library=20 if bf16 else 10)
+        first = len(rows)
+        reset_launches()
         q, k, v = (t.to(dtype) for t in captured["flash_long"].args)
         b, sq, hq, d = q.shape
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
@@ -1105,19 +1162,18 @@ def llm_times(captured: dict) -> list:
                   f"scaled_dot_product_attention differs from the plain "
                   f"version by {lib_err} > {FA_TOL['bfloat16']}: the flash "
                   f"bound's bf16 rate for P V does not hold")
-        earlier = dict(earlier_ms=EARLIER_MS["flash_attention"],
-                       earlier_ms_from=EARLIER_FROM) if bf16 else {}
         rows.append(dict(
             kernel="flash_attention", shape=list(q.shape), dtype=name,
-            route=route, ms=cuda_ms(lambda: flash_attention(q, k, v),
-                                    reps["kernel"]),
-            **earlier, max_abs_err=err, tolerance=FA_TOL[name],
+            route=route, calls=2 + reps["kernel"],
+            ms=cuda_ms(lambda: flash_attention(q, k, v), reps["kernel"]),
+            earlier_ms=EARLIER_MS[name]["flash_attention"],
+            earlier_ms_from=EARLIER_FROM, max_abs_err=err,
+            tolerance=FA_TOL[name],
             plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 2),
             library_ms=cuda_ms(library, reps["library"]),
             library="torch.nn.functional.scaled_dot_product_attention",
             library_max_abs_err=lib_err,
-            **flash_bound(b, sq, k.shape[1], hq, d, nbytes,
-                          PEAK_BF16_S if bf16 else PEAK_OPS_S)))
+            **flash_bound(b, sq, k.shape[1], hq, d, nbytes, fp32=not bf16)))
         del q, k, v
         for label in ("ssd_long", "ssd_serve"):
             args = list(captured[label].args) if bf16 else \
@@ -1133,16 +1189,27 @@ def llm_times(captured: dict) -> list:
                   f"{name} ssd ({label}) took the {route} route")
             check(ok, f"{name} ssd at {tuple(args[0].shape)} ({label}): "
                       f"|dy| {dy}, |dstate| {df}")
-            earlier = dict(earlier_ms=EARLIER_MS[label],
-                           earlier_ms_from=EARLIER_FROM) if bf16 else {}
             rows.append(dict(
                 kernel="ssd", label=label, shape=list(args[0].shape),
-                chunk=chunk, n=n, dtype=name, route=route,
-                ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10), **earlier,
+                chunk=chunk, n=n, dtype=name, route=route, calls=2 + 10,
+                ms=cuda_ms(lambda: ssd(*args, chunk=chunk), 10),
+                earlier_ms=EARLIER_MS[name][label],
+                earlier_ms_from=EARLIER_FROM,
                 max_abs_err_y=dy, max_abs_err_state=df,
                 plain_ms=cuda_ms(lambda: ssd_chunked(*args, chunk=chunk), 3),
                 library_ms=None, library="none: no single PyTorch call",
                 **ssd_bound(bsz, s, h, p, n, chunk, nbytes, fp32=not bf16)))
+        # Each row's kernel calls: the error check, cuda_ms's warm-up and
+        # its reps.  The route's count must be exactly their sum.
+        for kernel in ("flash_attention", "ssd"):
+            mine = [r for r in rows[first:] if r["kernel"] == kernel]
+            want = sum(r.pop("calls") for r in mine)
+            got = LAUNCHES[f"{kernel}_{route_want}"]
+            check(got == want == LAUNCHES[kernel],
+                  f"{name} {kernel}: {got} launches on the {route_want} "
+                  f"route, {LAUNCHES[kernel]} in all, in {want} calls")
+            for r in mine:
+                r["route_launches_in_phase"] = got
     return rows
 
 
@@ -1538,29 +1605,35 @@ def main() -> int:
              source_fp32="src/repro_torch/kernels/flash_attention/csrc/"
                          "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:89",
-             launches=long_row["launches"]["flash_attention_tc"],
+             launches=long_row["launches"]["flash_attention_bf16"],
              max_abs_err=fa_err, ms=fa_row["ms"],
              plain_ms=fa_row["plain_ms"], bound_ms=fa_row["bound_ms"],
              bound_by=fa_row["bound_by"], library_ms=fa_row["library_ms"],
              shape=f"{tuple(fa_row['shape'])} bf16 causal "
                    f"(llm-forward-long)",
-             fp32={key: fa32_row[key] for key in (
+             fp32=dict({key: fa32_row[key] for key in (
                  "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
+                 "fp32_rate_bound_ms", "library_ms")},
+                 launches=fa32_row["route_launches_in_phase"],
+                 launches_from="llm-times")),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
              source_fp32="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:80",
-             launches=long_row["launches"]["ssd_tc"],
-             launches_serving=serve_row["launches"]["ssd_tc"],
+             launches=long_row["launches"]["ssd_bf16"],
+             launches_serving=serve_row["launches"]["ssd_bf16"],
              max_abs_err=ssd_err, ms=ssd_row["ms"],
              plain_ms=ssd_row["plain_ms"], bound_ms=ssd_row["bound_ms"],
              bound_by=ssd_row["bound_by"], library_ms=None,
              shape=f"{tuple(ssd_row['shape'])} N={ssd_row['n']} "
                    f"chunk={ssd_row['chunk']} bf16 (llm-forward-long)",
-             fp32={key: ssd32_row[key] for key in (
+             fp32=dict({key: ssd32_row[key] for key in (
                  "ms", "max_abs_err_y", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")})],
+                 "fp32_rate_bound_ms", "library_ms")},
+                 launches=ssd32_row["route_launches_in_phase"],
+                 launches_from="llm-times (both path shapes)",
+                 launches_serving=serve_row["teacher_forced_launches"][
+                     "fp32"]["ssd_fp32"]))],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@ and ``ops.py`` (the checked wrapper):
                     .b1 wgmma (replaces
                     ``repro/kernels/sbts_step/kernel.py::selection_counts_pallas``);
                     ``probe.mma_rates`` times the four MMA instructions
-                    that could carry it (``csrc/mma_probe.cu``)
+                    that could carry it and the two TF32 forms the fp32
+                    kernels below could take (``csrc/mma_probe.cu``)
 - conflict_matrix/  ``conflict_matrix`` and ``conflict_matrix_packed``:
                     the conflict graph's occupancy/clique predicate
                     over every vertex pair, as a dense int8 matrix (the
@@ -23,24 +24,29 @@ and ``ops.py`` (the checked wrapper):
                     no-cache forward's shared-attention block on long
                     prompts (replaces
                     ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``).
-                    Two routes by dtype: bf16 to ``flash_attention_tc.cu``
-                    (wgmma on the bf16 tensor cores), fp32 to
-                    ``flash_attention.cu`` (fp32 CUDA cores); head dims
+                    Two routes by dtype, both on the tensor cores: bf16
+                    to ``flash_attention_tc.cu`` (wgmma), fp32 to
+                    ``flash_attention.cu`` (split-TF32 operands,
+                    3xTF32: wgmma up to D = 64; past it P V on
+                    mma.sync, S in fp32 on the CUDA cores); head dims
                     up to 256 on both
 - ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
                     layer's prefill (replaces
                     ``repro/kernels/ssd/kernel.py::ssd_pallas``).  Two
-                    routes by dtype: bf16 to ``ssd_tc.cu`` (three
-                    chunk-parallel stages, mma.sync with split-bf16
-                    operands), fp32 to ``ssd.cu`` (fp32 CUDA cores)
+                    routes by dtype, each three chunk-parallel stages on
+                    the tensor cores: bf16 to ``ssd_tc.cu`` (mma.sync,
+                    split-bf16 operands), fp32 to ``ssd.cu`` (split-TF32
+                    operands, 3xTF32; mma.sync, and wgmma for the last
+                    stage up to N = 64)
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
 wrapper call that launches adds one to ``LAUNCHES[name]`` through
 `count_launch`, so a run can show which kernels its path went through;
-a call that took a tensor-core route adds one to
-``LAUNCHES[name + "_tc"]`` too.  The counts are exact when several
-threads launch: every update holds one lock.
+a kernel with a route per dtype also adds one to
+``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]``, the route
+it took.  The counts are exact when several threads launch: every
+update holds one lock.
 """
 
 import threading
@@ -50,18 +56,21 @@ _COUNT_LOCK = threading.Lock()
 #: kernel name -> launches since the last `reset_launches`.
 LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "conflict_matrix_packed": 0,
-                             "flash_attention": 0, "flash_attention_tc": 0,
-                             "ssd": 0, "ssd_tc": 0}
+                             "flash_attention": 0,
+                             "flash_attention_bf16": 0,
+                             "flash_attention_fp32": 0,
+                             "ssd": 0, "ssd_bf16": 0, "ssd_fp32": 0}
 
 
-def count_launch(name: str, tc: bool = False) -> None:
-    """Add one to ``LAUNCHES[name]`` and, for a tensor-core launch, to
-    ``LAUNCHES[name + "_tc"]``, under one lock (a ``+=`` on a dict
+def count_launch(name: str, route: str | None = None) -> None:
+    """Add one to ``LAUNCHES[name]`` and, with a ``route`` ("bf16" or
+    "fp32": the dtype whose kernel launched), to
+    ``LAUNCHES[f"{name}_{route}"]``, under one lock (a ``+=`` on a dict
     entry is a read and a write that two threads can interleave)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
-        if tc:
-            LAUNCHES[name + "_tc"] += 1
+        if route is not None:
+            LAUNCHES[f"{name}_{route}"] += 1
 
 
 def reset_launches() -> None:

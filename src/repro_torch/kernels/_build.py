@@ -37,8 +37,11 @@ SOURCES = {
 #: library name -> headers its sources include, hashed with them so an
 #: edited header rebuilds the library.
 HEADERS = {
-    "sbts_step": ("sbts_step/csrc/wgmma_s32.cuh",),
-    "mma_probe": ("sbts_step/csrc/wgmma_s32.cuh",),
+    "sbts_step": ("sbts_step/csrc/wgmma_s32.cuh", "csrc/sm90.cuh"),
+    "mma_probe": ("sbts_step/csrc/wgmma_s32.cuh", "csrc/sm90.cuh"),
+    "flash_attention": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
+    "flash_attention_tc": ("csrc/sm90.cuh",),
+    "ssd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

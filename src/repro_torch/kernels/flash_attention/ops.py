@@ -3,15 +3,17 @@
 `flash_attention(q, k, v, q_offset=, window=)` takes q (B, Sq, Hq, D)
 and k, v (B, Sk, Hkv, D), float32 or bfloat16, and returns
 (B, Sq, Hq, D) in q's type.  Tensors on the CPU go to the plain version
-(`ref.flash_attention_ref`).  CUDA tensors go to a kernel chosen by
-dtype, built at first use, or the call raises: bfloat16 to the
-tensor-core kernel (``csrc/flash_attention_tc.cu``, wgmma), float32 to
-the fp32 kernel (``csrc/flash_attention.cu``), whose 2e-6 tolerance no
-bf16 or TF32 product meets.  Both take head dims D up to 256, the
-largest of the repository's configs; a wider head raises.  Every
-launch adds one to
-``LAUNCHES["flash_attention"]``; a bfloat16 launch adds one to
-``LAUNCHES["flash_attention_tc"]`` too.
+(`ref.flash_attention_ref`).  CUDA tensors go to a tensor-core kernel
+chosen by dtype, built at first use, or the call raises: bfloat16 to
+``csrc/flash_attention_tc.cu`` (wgmma), float32 to
+``csrc/flash_attention.cu`` (TF32 operands, each product split into
+three, which holds the 2e-6 fp32 tolerance that one TF32 or bf16
+product misses: wgmma up to D = 64; past it P V on mma.sync and S in
+fp32 on the CUDA cores, in the plain version's order).  Both take head
+dims D up to 256, the largest of the repository's configs; a wider head
+raises.  Every launch adds one to ``LAUNCHES["flash_attention"]`` and
+one to the route it took, ``LAUNCHES["flash_attention_bf16"]`` or
+``LAUNCHES["flash_attention_fp32"]``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .._build import load
 from .ref import flash_attention_ref
 
 _NAME = "flash_attention"
-_TC = "flash_attention_tc"
+_TC = "flash_attention_tc"     # the bf16 kernel's library
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -56,15 +58,11 @@ def _check(q, k, v) -> None:
         raise ValueError(f"{_NAME} runs on cpu or cuda, not {q.device}")
 
 
-def _launcher(tc: bool):
-    if tc:
-        fn = load(_TC).flash_attention_tc_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn = load(_NAME).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
+def _launcher(bf16: bool):
+    fn = load(_TC).flash_attention_tc_launch if bf16 else \
+        load(_NAME).flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,22 +92,21 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    tc = q.dtype == torch.bfloat16
+    bf16 = q.dtype == torch.bfloat16
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    # cp.async moves 16 bytes: rows of D % 8 == 0 bf16 or D % 4 == 0
+    # fp32 values from 16-byte aligned bases; otherwise plain loads.
+    vec = int(d % (16 // q.element_size()) == 0 and
+              all(p % 16 == 0 for p in ptrs))
+    # The bf16 kernel takes the scale times log2(e) (it computes exp2).
+    scale = d ** -0.5 * (math.log2(math.e) if bf16 else 1.0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tc:
-            # cp.async moves 16 bytes: rows of D % 8 == 0 bf16 values
-            # from 16-byte aligned bases; otherwise plain loads.
-            vec = int(d % 8 == 0 and all(p % 16 == 0 for p in ptrs))
-            err = _launcher(True)(*ptrs, b, sq, sk, hq, hkv, d,
-                                  int(q_offset), win,
-                                  d ** -0.5 * math.log2(math.e), vec, stream)
-        else:
-            err = _launcher(False)(*ptrs, b, sq, sk, hq, hkv, d,
-                                   int(q_offset), win, d ** -0.5, stream)
+        err = _launcher(bf16)(*ptrs, b, sq, sk, hq, hkv, d, int(q_offset),
+                              win, scale, vec, stream)
+    route = "bf16" if bf16 else "fp32"
     if err != 0:
-        raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
+        raise RuntimeError(f"{_NAME} ({route}) launch failed: "
                            f"CUDA error {err}")
-    count_launch(_NAME, tc)
+    count_launch(_NAME, route)
     return out

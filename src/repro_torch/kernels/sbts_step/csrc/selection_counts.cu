@@ -91,7 +91,7 @@ __device__ __forceinline__ void load_panel(uint8_t* dst,
   for (int idx = tid; idx < R * 8; idx += kThreads) {
     const int r = idx >> 3, c = idx & 7;
     const int row = r0 + r, word = p * kPanelWords + c * 4;
-    uint8_t* dp = dst + swz128(r, c);
+    uint8_t* dp = dst + swz(r, c);
     const uint32_t* sp = src + static_cast<size_t>(row) * w + word;
     if (vec) {
       const bool ok = row < nrows && word < w;
@@ -135,8 +135,8 @@ selection_counts_kernel(const uint32_t* __restrict__ rows,
   const uint32_t base = smem_u32(smem);
   // Descriptors of stage 0 (this warpgroup's 64 rows of sel; the 256
   // rows of rows); a panel adds its stage's offset, a wgmma 32 bytes.
-  const uint64_t da = wgmma_desc(base + wg * 64 * 128, 16, 1024);
-  const uint64_t db = wgmma_desc(base + kTK * 128, 16, 1024);
+  const uint64_t da = desc(base + wg * 64 * 128, 16, 1024);
+  const uint64_t db = desc(base + kTK * 128, 16, 1024);
   int acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0;
@@ -150,16 +150,16 @@ selection_counts_kernel(const uint32_t* __restrict__ rows,
     cp_async_commit();
     if (active) {
       const uint64_t off = ((p & (kStages - 1)) * kStageBytes) >> 4;
-      wgmma_fence();
+      wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_b1_m64n256(acc, da + off + 2 * kk, db + off + 2 * kk, 1);
-      wgmma_commit();
-      wgmma_wait<1>();   // panel p - 1's wgmmas are done
+      wg_commit();
+      wg_wait<1>();   // panel p - 1's wgmmas are done
     }
   }
   if (active) {
-    wgmma_wait<0>();
+    wg_wait<0>();
     wgmma_fence_regs(acc);
   }
   cp_async_wait<0>();

@@ -1,62 +1,17 @@
-// Helpers shared by selection_counts.cu and mma_probe.cu: shared-memory
-// addresses, cp.async, the async-proxy fence, wgmma descriptors and the
-// two integer wgmma shapes (64 x 256 outputs, s32 accumulators in 128
+// Helpers shared by selection_counts.cu and mma_probe.cu: the two
+// integer wgmma shapes (64 x 256 outputs, s32 accumulators in 128
 // registers a thread, both operands from shared memory, K-major under
 // the 128-byte swizzle: a 128-byte row of depth is four wgmmas of 32
-// bytes, 32 int8 values or 256 bits each).
+// bytes, 32 int8 values or 256 bits each).  Addresses, cp.async, fences
+// and descriptors come from csrc/sm90.cuh.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+#include "../../csrc/sm90.cuh"
 
-// Byte offset of 16-byte chunk c of row r in a panel of 128-byte rows
-// under the 128-byte swizzle (the layout the descriptors name).
-__device__ __forceinline__ uint32_t swz128(int r, int c) {
-  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Makes generic-proxy writes of shared memory (cp.async, plain stores)
-// visible to wgmma, which reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Orders the compiler's accesses of an accumulator around wgmma.
 __device__ __forceinline__ void wgmma_fence_regs(int (&d)[128]) {
 #pragma unroll

@@ -1,11 +1,13 @@
 """Peak rates of the tensor-core instructions that can carry
-`selection_counts`, measured on the card (``csrc/mma_probe.cu``).
+`selection_counts`, and of the two TF32 forms that can carry the fp32
+kernels' split products, measured on the card (``csrc/mma_probe.cu``).
 
 `mma_rates()` times each probe with CUDA events and returns, per
-instruction, its operations per second of the 0/1 product (2 m n k an
-instruction, k in bits for ``.b1``): the numbers that chose the
-``.b1`` wgmma for ``csrc/selection_counts.cu``.  It measures and never
-runs on the main path; it needs a CUDA GPU.
+instruction, its operations per second (2 m n k an instruction, k in
+bits for ``.b1``): the numbers that chose the ``.b1`` wgmma for
+``csrc/selection_counts.cu``, and the TF32 rate that the fp32 kernels'
+bounds take from the data sheet.  It measures and never runs on the main
+path; it needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ PROBES = {
     1: ("mma.sync m16n8k32 .s8", 2 * 16 * 8 * 32, 64),
     2: ("wgmma m64n256k32 .s8", 2 * 64 * 256 * 32, 8),
     3: ("wgmma m64n256k256 .b1 .and.popc", 2 * 64 * 256 * 256, 8),
+    4: ("mma.sync m16n8k8 .tf32", 2 * 16 * 8 * 8, 64),
+    5: ("wgmma m64n256k8 .tf32", 2 * 64 * 256 * 8, 8),
 }
 
 

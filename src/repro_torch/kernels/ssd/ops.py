@@ -3,15 +3,16 @@
 `ssd(x, dt, a_log, b, c, chunk=)` takes x (B, S, H, P), dt (B, S, H),
 a_log (H,) float32 and b, c (B, S, G, N) and returns (y (B, S, H, P) in
 x's type, final state (B, H, P, N) float32), as `ref.ssd_chunked`.
-Tensors on the CPU go to that plain version.  CUDA tensors go to a
-kernel chosen by dtype, built at first use, or the call raises: bfloat16
-to the chunk-parallel tensor-core kernels (``csrc/ssd_tc.cu``: three
-CUDA kernels a call, on scratch this wrapper allocates), float32 to the
-fp32 kernel (``csrc/ssd.cu``), whose 1e-5 relative tolerance on fp32 x
-no bf16 split of two terms meets.  Both take one group (G = 1), as the
-TPU kernel does, N <= 128 and chunks of up to 1024 steps; S need not be
-a multiple of the chunk.  Every call adds one to ``LAUNCHES["ssd"]``; a
-bfloat16 call adds one to ``LAUNCHES["ssd_tc"]`` too.
+Tensors on the CPU go to that plain version.  CUDA tensors go to the
+chunk-parallel tensor-core stages chosen by dtype (three CUDA kernels a
+call, on scratch this wrapper allocates), built at first use, or the
+call raises: bfloat16 to ``csrc/ssd_tc.cu`` (split-bf16 operands),
+float32 to ``csrc/ssd.cu`` (TF32 operands, each product split into
+three, which holds the fp32 tolerances of 1e-4 + 1e-5 |y| that one or
+two TF32 products miss).  Both take one group (G = 1), as the TPU kernel does,
+N <= 128 and chunks of up to 1024 steps; S need not be a multiple of
+the chunk.  Every call adds one to ``LAUNCHES["ssd"]`` and one to the
+route it took, ``LAUNCHES["ssd_bf16"]`` or ``LAUNCHES["ssd_fp32"]``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from .._build import load
 from .ref import ssd_chunked
 
 _NAME = "ssd"
-_TC = "ssd_tc"
+_TC = "ssd_tc"     # the bf16 stages' library
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -53,15 +54,10 @@ def _check(x, dt, a_log, b, c) -> None:
         raise ValueError(f"{_NAME} runs on cpu or cuda, not {x.device}")
 
 
-def _launcher(tc: bool):
-    if tc:
-        fn = load(_TC).ssd_tc_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-    else:
-        fn = load(_NAME).ssd_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+def _launcher(bf16: bool):
+    fn = load(_TC).ssd_tc_launch if bf16 else load(_NAME).ssd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -98,29 +94,30 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 and fin.numel() == 0:
         return y, fin
-    tc = x.dtype == torch.bfloat16
-    ptrs = [t.data_ptr() for t in (x, dt, a_log, b, c, y, fin)]
+    bf16 = x.dtype == torch.bfloat16
+    # Scratch of the stages: cum per chunk and head, the chunk states,
+    # and the state before each chunk as the split terms the last stage
+    # reads (three bf16 terms; two TF32 terms, hi and lo, held in fp32).
+    nc = -(-s // chunk)
+    cum = torch.empty((bsz, nc, h, chunk), dtype=torch.float32,
+                      device=x.device)
+    st = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
+                     device=x.device)
+    prev = torch.empty((3 if bf16 else 2, bsz, nc, h, p, n), dtype=x.dtype,
+                       device=x.device)
+    ptrs = [t.data_ptr() for t in (x, dt, a_log, b, c, y, fin, cum, st,
+                                   prev)]
+    # cp.async moves 16 bytes: P and N multiples of 8 bf16 or 4 fp32
+    # values, from 16-byte aligned bases; otherwise plain loads.
+    per16 = 16 // x.element_size()
+    vec = int(p % per16 == 0 and n % per16 == 0 and
+              all(q % 16 == 0 for q in ptrs))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tc:
-            # Scratch of the stages: cum per chunk and head, the chunk
-            # states, and the state before each chunk as three bf16 terms.
-            nc = -(-s // chunk)
-            cum = torch.empty((bsz, nc, h, chunk), dtype=torch.float32,
-                              device=x.device)
-            st = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
-                             device=x.device)
-            prev = torch.empty((3, bsz, nc, h, p, n), dtype=torch.bfloat16,
-                               device=x.device)
-            ptrs += [cum.data_ptr(), st.data_ptr(), prev.data_ptr()]
-            vec = int(p % 8 == 0 and n % 8 == 0 and
-                      all(q % 16 == 0 for q in ptrs))
-            err = _launcher(True)(*ptrs, bsz, s, h, p, n, chunk, vec,
-                                  stream)
-        else:
-            err = _launcher(False)(*ptrs, bsz, s, h, p, n, chunk, stream)
+        err = _launcher(bf16)(*ptrs, bsz, s, h, p, n, chunk, vec, stream)
+    route = "bf16" if bf16 else "fp32"
     if err != 0:
-        raise RuntimeError(f"{_TC if tc else _NAME} launch failed: "
+        raise RuntimeError(f"{_NAME} ({route}) launch failed: "
                            f"CUDA error {err}")
-    count_launch(_NAME, tc)
+    count_launch(_NAME, route)
     return y, fin

@@ -11,10 +11,11 @@ where JAX is not installed.  The counts, the adjacency bits and the
 engine state are integers and bools, compared exactly.  Flash attention
 is held to the reference's kernel tolerances (2e-6 fp32, 2e-2 bf16);
 the SSD scan to the reference's 1e-4 in fp32 and, in bf16, to one bf16
-ulp of y (both sides compute in fp32 and round y once).  bf16 calls of
-both must take the tensor-core kernels (``LAUNCHES["flash_attention_tc"]``,
-``LAUNCHES["ssd_tc"]``), fp32 calls the fp32 kernels; flash takes head
-dims up to 256 on both.  `selection_counts` runs on the .b1 tensor
+ulp of y (both sides compute in fp32 and round y once).  Each call must
+take its dtype's kernel, counted in ``LAUNCHES["flash_attention_bf16"]``
+or ``LAUNCHES["flash_attention_fp32"]`` (``ssd_bf16``, ``ssd_fp32``):
+both dtypes run on the tensor cores, fp32 in split-TF32 products; flash
+takes head dims up to 256 on both.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
 threads.
@@ -110,7 +111,8 @@ def test_tensor_core_counts_plain_loads(cuda, case):
 
 def test_mma_probe_measures_four_rates(cuda):
     """The probe behind the .b1 choice runs and gives a positive rate for
-    each of its four instructions."""
+    each of its instructions: the four that could carry selection_counts
+    and the two TF32 forms."""
     from repro_torch.kernels.sbts_step.probe import PROBES, mma_rates
     rates = mma_rates(iters=50)
     assert set(rates) == {name for name, _, _ in PROBES.values()}
@@ -354,6 +356,18 @@ def test_packed_cuda_route_equals_host_build(cuda):
         assert got.bits.rows.tobytes() == host.bits.rows.tobytes()
 
 
+def _route_counts(name):
+    return tuple(LAUNCHES[k] for k in (name, f"{name}_bf16",
+                                       f"{name}_fp32"))
+
+
+def _moved(name, before, dtype):
+    """The counts ``name``'s call must leave: one launch, on ``dtype``'s
+    route."""
+    bf16 = int(dtype == torch.bfloat16)
+    return (before[0] + 1, before[1] + bf16, before[2] + 1 - bf16)
+
+
 def _flash_case(b, sq, sk, hq, hkv, d, dtype, device, seed):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(shape, generator=g).to(dtype).to(device)
@@ -371,20 +385,23 @@ def _flash_case(b, sq, sk, hq, hkv, d, dtype, device, seed):
     # 64-key tiles, D 48 and 128, a window, q_offset > 0, GQA 4:1
     (2, 300, 333, 8, 2, 128, None, 0), (1, 200, 260, 8, 2, 48, 70, 60),
     (1, 129, 65, 4, 1, 128, None, 0), (1, 777, 900, 4, 1, 64, 300, 123),
-    # D off a multiple of 8: the bf16 kernel's plain loads
-    (1, 150, 170, 4, 2, 5, None, 0), (1, 200, 260, 8, 2, 44, 70, 60)],
+    # D off a multiple of 8: the bf16 kernel's plain loads; D = 5 also
+    # the fp32 kernel's (off a multiple of 4)
+    (1, 150, 170, 4, 2, 5, None, 0), (1, 200, 260, 8, 2, 44, 70, 60),
+    # the fp32 kernel's two-stage ring over many key tiles, and its
+    # rows past Sq in the last 128-row tile
+    (1, 1000, 1100, 2, 1, 64, None, 100), (1, 257, 257, 2, 2, 64, 70, 0)],
     ids=str)
 def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     b, sq, sk, hq, hkv, d, window, q_offset = case
     q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, sum(case[:6]))
-    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
+    before = _route_counts("flash_attention")
     got = flash_attention(q, k, v, q_offset=q_offset, window=window)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16)   # bf16 takes the tensor-core kernel
-    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"]) == \
-        (before[0] + 1, before[1] + tc)
+    assert _route_counts("flash_attention") == \
+        _moved("flash_attention", before, dtype)
     want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
@@ -396,21 +413,23 @@ def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
 @pytest.mark.parametrize("case", [
     (2, 128, 128, 4, 2, 192, None, 0), (1, 300, 333, 8, 2, 256, None, 0),
     (1, 200, 260, 4, 1, 256, 70, 60), (1, 129, 65, 4, 4, 192, None, 0),
-    (1, 150, 170, 2, 1, 250, None, 0)], ids=str)
+    (1, 150, 170, 2, 1, 250, None, 0), (1, 65, 33, 2, 1, 192, None, 0),
+    (2, 97, 300, 4, 2, 256, None, 203)], ids=str)
 def test_flash_attention_head_dims_to_256(cuda, case, dtype, tol):
     """D = 192 and 256, the repository's widest heads (and 250, off a
-    multiple of 8: the bf16 kernel's plain loads): three and four
-    64-column panels, with the two-stage K/V ring on the bf16 route."""
+    multiple of 8 and of 4: both kernels' plain loads): three and four
+    64-column panels, with the two-stage K/V ring on the bf16 route and
+    64-row query, 32-key tiles on the fp32 route (Sq 65, 97 and Sk 33
+    off them)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     b, sq, sk, hq, hkv, d, window, q_offset = case
     q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, sum(case[:6]))
-    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
+    before = _route_counts("flash_attention")
     got = flash_attention(q, k, v, q_offset=q_offset, window=window)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16)
-    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"]) == \
-        (before[0] + 1, before[1] + tc)
+    assert _route_counts("flash_attention") == \
+        _moved("flash_attention", before, dtype)
     want = flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -445,19 +464,21 @@ def _ssd_case(b, s, h, p, n, dtype, device, seed, g=1):
     # column tiles, the second ragged), N off 64, a ragged last chunk
     (1, 256, 4, 64, 64, 256), (2, 100, 4, 64, 64, 256),
     (1, 1000, 3, 96, 64, 256), (2, 700, 3, 40, 24, 128),
-    # P or N off a multiple of 8: the bf16 stages' plain loads
-    (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128)], ids=str)
+    # P or N off a multiple of 8: the bf16 stages' plain loads; off a
+    # multiple of 4 (P = 18, N = 10): the fp32 stages' too
+    (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128),
+    (1, 200, 3, 18, 10, 64),
+    # N = 100: the fp32 stages' 128-column N tiles, two chunks of 1024
+    (1, 2000, 2, 64, 100, 1024)], ids=str)
 def test_ssd_equals_plain_version(cuda, case, dtype):
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
     b, s, h, p, n, chunk = case
     args = _ssd_case(b, s, h, p, n, dtype, cuda, sum(case))
-    before = (LAUNCHES["ssd"], LAUNCHES["ssd_tc"])
+    before = _route_counts("ssd")
     y, fin = ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16)   # bf16 takes the tensor-core stages
-    assert (LAUNCHES["ssd"], LAUNCHES["ssd_tc"]) == (before[0] + 1,
-                                                     before[1] + tc)
+    assert _route_counts("ssd") == _moved("ssd", before, dtype)
     wy, wf = ssd_chunked(*args, chunk=chunk)
     assert y.dtype == dtype and fin.dtype == torch.float32
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
@@ -475,40 +496,44 @@ def _at_offset(t):
     return out
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("which", [0, 1, 2])
-def test_flash_attention_at_an_unaligned_address(cuda, which):
-    """A bf16 input 4 bytes off 16-byte alignment takes the tensor-core
-    kernel's plain loads and still meets the bf16 tolerance."""
+def test_flash_attention_at_an_unaligned_address(cuda, which, dtype, tol):
+    """An input 2 elements off 16-byte alignment takes its kernel's plain
+    loads and still meets the dtype's tolerance."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    qkv = _flash_case(2, 200, 260, 4, 2, 64, torch.bfloat16, cuda, 11)
+    qkv = _flash_case(2, 200, 260, 4, 2, 64, dtype, cuda, 11)
     qkv[which] = _at_offset(qkv[which])
     assert qkv[which].data_ptr() % 16 != 0
-    before = LAUNCHES["flash_attention_tc"]
+    before = _route_counts("flash_attention")
     got = flash_attention(*qkv, q_offset=60)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention_tc"] == before + 1
+    assert _route_counts("flash_attention") == \
+        _moved("flash_attention", before, dtype)
     want = flash_attention_ref(*qkv, q_offset=60)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                               rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("which", [0, 1, 3, 4])
-def test_ssd_at_an_unaligned_address(cuda, which):
-    """A bf16 input (x, dt, B or C) 4 bytes off 16-byte alignment takes
-    the tensor-core stages' plain loads and still meets the bf16
-    tolerances."""
+def test_ssd_at_an_unaligned_address(cuda, which, dtype):
+    """An input (x, dt, B or C) 2 elements off 16-byte alignment takes
+    its stages' plain loads and still meets the dtype's tolerances."""
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
-    args = _ssd_case(2, 300, 3, 64, 64, torch.bfloat16, cuda, 5)
+    args = _ssd_case(2, 300, 3, 64, 64, dtype, cuda, 5)
     args[which] = _at_offset(args[which])
-    before = LAUNCHES["ssd_tc"]
+    before = _route_counts("ssd")
     y, fin = ssd(*args, chunk=128)
     torch.cuda.synchronize()
-    assert LAUNCHES["ssd_tc"] == before + 1
+    assert _route_counts("ssd") == _moved("ssd", before, dtype)
     wy, wf = ssd_chunked(*args, chunk=128)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert ((y.float() - wy.float()).abs()
-            <= 1e-4 + 2.0 ** -7 * wy.float().abs()).all()
+            <= 1e-4 + rtol * wy.float().abs()).all()
     torch.testing.assert_close(fin, wf, atol=1e-4, rtol=1e-5)
 
 
@@ -538,11 +563,11 @@ def test_zamba2_smoke_model_on_the_card_equals_the_cpu(cuda):
     before = dict(LAUNCHES)
     got, _, _ = T.forward(cfg, on_card, {"tokens": toks})
     torch.cuda.synchronize()
-    # bf16 compute: every launch takes the tensor-core kernels
-    for name in ("flash_attention", "flash_attention_tc"):
+    # bf16 compute: every launch takes the bf16 kernels
+    for name in ("flash_attention", "flash_attention_bf16"):
         assert LAUNCHES[name] - before[name] == \
             T.n_hybrid_attn_invocations(cfg)
-    for name in ("ssd", "ssd_tc"):
+    for name in ("ssd", "ssd_bf16"):
         assert LAUNCHES[name] - before[name] == cfg.n_layers
     want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks})
     assert torch.isfinite(got).all()

@@ -123,22 +123,23 @@ def test_launch_counts_are_exact_across_threads():
     """Every wrapper counts through `count_launch`, which holds a lock: a
     bare ``LAUNCHES[name] += 1`` is a read and a write that threads can
     interleave.  Eight threads, switching as often as the interpreter
-    allows, lose no count and count the tensor-core key with it."""
+    allows, lose no count and count each launch's route key with it."""
     import sys
     import threading
     n_threads, per = 8, 4000
     before = dict(LAUNCHES)
     start = threading.Barrier(n_threads, timeout=60)
 
-    def work(tc: bool) -> None:
+    def work(route: str) -> None:
         start.wait()
         for _ in range(per):
-            count_launch("ssd", tc)
+            count_launch("ssd", route)
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=work, args=(i % 2 == 0,))
+        threads = [threading.Thread(target=work,
+                                    args=("bf16" if i % 2 else "fp32",))
                    for i in range(n_threads)]
         for t in threads:
             t.start()
@@ -148,6 +149,8 @@ def test_launch_counts_are_exact_across_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert LAUNCHES["ssd"] - before["ssd"] == n_threads * per
-    assert LAUNCHES["ssd_tc"] - before["ssd_tc"] == n_threads * per // 2
+    for route in ("bf16", "fp32"):
+        assert LAUNCHES[f"ssd_{route}"] - before[f"ssd_{route}"] == \
+            n_threads * per // 2
     assert all(LAUNCHES[k] == before[k] for k in LAUNCHES
-               if k not in ("ssd", "ssd_tc"))
+               if k not in ("ssd", "ssd_bf16", "ssd_fp32"))

@@ -28,6 +28,7 @@ from repro.kernels.ssd.kernel import ssd_pallas  # noqa: E402
 from repro.kernels.ssd.ref import segsum as jax_segsum  # noqa: E402
 from repro.kernels.ssd.ref import ssd_chunked as jax_ssd  # noqa: E402
 from repro.kernels.ssd.ref import ssd_step as jax_step  # noqa: E402
+from _tf32 import split_mm  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.ssd import ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import (segsum, ssd_chunked,  # noqa: E402
@@ -263,3 +264,118 @@ def test_one_bf16_term_misses_the_bf16_tolerances(product):
     than two passes (the scores, of bf16 operands, take one)."""
     err_y, err_f = _tc_errors(TC_CASES[3], **{f"{product}_terms": 1})
     assert max(err_y, err_f) > 1.0, (err_y, err_f)
+
+
+# ---- the fp32 stages' split-TF32 design (csrc/ssd.cu)
+
+def _tf32_emulation(x, dt, a_log, b, c, chunk, passes=3):
+    """The fp32 stages' arithmetic (csrc/ssd.cu) in plain torch: per
+    chunk, cum in order with dt A rounded first; the chunk state
+    x^T (B dt exp(total - cum)) per tile of 64 steps, summed in fp32;
+    the scan over chunks; y = exp(cum_i) (C_i . state_prev) plus the gate
+    (C_i . B_j) exp(cum_i - cum_j) dt_j times x, per tile of 64 columns
+    j; every product split-TF32 (`split_mm`)."""
+    bsz, s, h, p = x.shape
+    a = -torch.exp(a_log)
+    bf, cf = b[:, :, 0], c[:, :, 0]
+    y = torch.zeros((bsz, s, h, p))
+    carry = torch.zeros((bsz, h, p, bf.shape[-1]))
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, min(t0 + chunk, s))
+        ln = sl.stop - t0
+        xs, dts = x[:, sl], dt[:, sl]
+        cum = torch.cumsum(dts * a, dim=1)                    # (B, l, H)
+        w = dts * torch.exp(cum[:, -1:] - cum)
+        wb = bf[:, sl, None, :] * w[..., None]                # (B, l, H, N)
+        state = sum(split_mm("bjhp,bjhn->bhpn", xs[:, j:j + 64],
+                              wb[:, j:j + 64], passes)
+                    for j in range(0, ln, 64))
+        inter = split_mm("bin,bhpn->bihp", cf[:, sl], carry, passes) * \
+            torch.exp(cum)[..., None]
+        scores = split_mm("bin,bjn->bij", cf[:, sl], bf[:, sl], passes)
+        tril = torch.tril(torch.ones((ln, ln), dtype=torch.bool))
+        gate = scores[..., None] * torch.exp(
+            cum[:, :, None, :] - cum[:, None, :, :]) * dts[:, None]
+        gate = torch.where(tril[None, :, :, None], gate, 0.0)  # (B,i,j,H)
+        intra = sum(split_mm("bijh,bjhp->bihp", gate[:, :, j:j + 64],
+                              xs[:, j:j + 64], passes)
+                    for j in range(0, ln, 64))
+        y[:, sl] = intra + inter
+        carry = carry * torch.exp(cum[:, -1])[..., None, None] + state
+    return y, carry
+
+
+TF32_CASES = SSD_CASES + [
+    (2, 200, 4, 16, 32, 64, 0), (1, 12, 4, 16, 16, 64, 0),
+    (2, 1000, 4, 64, 64, 256, 0)]     # the serve prefill's ragged chunks
+
+
+def _tf32_errors(case, passes=3):
+    """The largest ratio of |error| to the fp32 stages' tolerance
+    (1e-4 + 1e-5 |want|), for y and for the final state, of the emulation
+    against the plain version on fp32 inputs (<= 1 where it holds), and
+    the emulated (y, state)."""
+    b, s, h, p, n, chunk, _ = case
+    args = [torch.from_numpy(a) for a in _inputs(b, s, h, p, n)]
+    want_y, want_f = ssd_chunked(*args, chunk=chunk)
+    got_y, got_f = _tf32_emulation(*args, chunk, passes=passes)
+    err_y = (got_y - want_y).abs() / (1e-4 + 1e-5 * want_y.abs())
+    err_f = (got_f - want_f).abs() / (1e-4 + 1e-5 * want_f.abs())
+    return float(err_y.max()), float(err_f.max()), got_y, got_f
+
+
+@pytest.mark.parametrize("case", TF32_CASES, ids=str)
+def test_split_tf32_design_meets_the_fp32_tolerances(case):
+    """The fp32 stages' design (three TF32 products per fp32 product)
+    against the plain version at the kernel's fp32 tolerances (1e-4 +
+    1e-5 |y|, the same for the state), and, on the cases whose plain
+    version meets it, against the JAX package's reference at this file's
+    tolerance (at 1000 steps the two packages' fp32 scans themselves
+    differ by up to 1.2e-3, over this file's tolerance)."""
+    err_y, err_f, got_y, got_f = _tf32_errors(case)
+    assert err_y <= 1.0 and err_f <= 1.0, (err_y, err_f)
+    b, s, h, p, n, chunk, _ = case
+    if s > 200:
+        return
+    want_y, want_f = jax_ssd(*(jnp.asarray(a) for a in
+                               _inputs(b, s, h, p, n)), chunk=chunk)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_fewer_tf32_products_miss_the_fp32_tolerances(passes):
+    """One TF32 product (hi hi), or two (hi hi + hi lo), per fp32 product
+    misses the fp32 tolerances at the serve prefill's shape by over 10x:
+    three is the fewest, which is what chip_smoke.py's fp32 SSD bound
+    counts (`SSD_PASSES_FP32`)."""
+    err_y, err_f, _, _ = _tf32_errors(TF32_CASES[-1], passes=passes)
+    assert max(err_y, err_f) > 10.0, (err_y, err_f)
+
+
+def test_fp32_passes_match_the_kernel_source():
+    """chip_smoke.py's `SSD_PASSES_FP32` counts, for each of the scan's
+    four products, the TF32 products the stages take per fp32 product:
+    the shared header's `kPasses`, which the stages' products are held
+    to."""
+    import importlib.util
+    import pathlib
+    import re
+    kernels = pathlib.Path(ops.__file__).parents[1]
+    src = (kernels / "ssd" / "csrc" / "ssd.cu").read_text()
+    assert '#include "../../csrc/tf32_mma.cuh"' in src
+    header = (kernels / "csrc" / "tf32_mma.cuh").read_text()
+    passes = int(re.search(r"constexpr int kPasses = (\d+);",
+                           header).group(1))
+    assert src.count("static_assert(kPasses == 3") >= 1
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.SSD_PASSES_FP32 == {name: passes for name in
+                                     ("scores", "gate", "state", "inter")}
+    assert passes == 3
+    assert (smoke.SSD_ATOL, smoke.SSD_RTOL["float32"]) == (1e-4, 1e-5)
