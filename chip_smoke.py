@@ -128,6 +128,28 @@ each printed as one JSON line:
    kernel's own bf16 tolerance, which is what lets the flash bound
    count all its products at the bf16 tensor-core rate.
 
+14. race: `map_dfg(backend="race")` with the portfolio side on the card,
+   on C5K5 bandmap (its (II, routing PEs) must be the golden pair) and
+   on the forced loser of tests/test_exact_race.py (busmap, max_ii 2,
+   certify off, seed 7: the exact side must win, and the cancelled
+   portfolio may run at most one chunk of iterations past the cancel).
+   Every "race-side" span must carry its ``ok`` (a side that raised
+   lacks it: the race would have degraded around it).
+15. comap: `co_map` on the card on the tier-1 cases of
+   tests/test_comap.py and on `COMAP_PORTFOLIO_PAIR`; every ok merged
+   binding must pass the port's validator, the 2x2 case must fail
+   cleanly.
+16. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
+   point) on the card, `SERVICE_TRACE` requests at 8x8 with
+   `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
+   outcome, no serve-crash event, every ok result valid.  Requests/s,
+   p50/p95/p99 latency, sources, hit rates, the slowest requests.
+17. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
+   with their span walls by name (`obs.export.to_json`) and
+   `MappingResult.explain()`'s report.
+Each of phases 14-17 resets the launch counts just before it and reads
+them just after: `selection_counts` must have launched.
+
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
 """
@@ -187,6 +209,17 @@ POPC_S = 16 * 132 * 1.98e9
 # output word is the OR of at most two group masks with the diagonal
 # cleared (csrc/conflict_matrix.cu): an OR and a mask.
 OPS_PER_OUT_WORD = 2
+# The service tier's phases.  The map-trace phase serves
+# `run_map_trace`'s default trace (64 requests at 8x8) on a pool of 2
+# workers: the scheduler's own advice for device-engine deployments
+# (1-2 workers, the engine's K-way parallelism inside each map).
+SERVICE_TRACE = 64
+SERVICE_WORKERS = 2
+# The co-mapping cases: the tier-1 cases of tests/test_comap.py (which
+# the host settles: the certificate stage or the constructive starts
+# place every op) and one pair of the 8x8 serve catalog whose regions
+# reach the portfolio.
+COMAP_PORTFOLIO_PAIR = ("loop2x0", "reduce6a3")
 # Launches of `selection_counts` in the main-path phase: all of them
 # C5K5:bandmap's portfolio, the only golden case the host does not
 # settle (every earlier chip run read the same count).
@@ -1213,6 +1246,229 @@ def llm_times(captured: dict) -> list:
     return rows
 
 
+# ------------------------------------------------ the service tier
+def span_walls(tracer) -> dict:
+    """Wall seconds and count by span name, from the ported
+    `obs.export.to_json`, largest first."""
+    from repro_torch.obs import to_json
+    spans: dict = {}
+    for span in to_json(tracer)["spans"]:
+        agg = spans.setdefault(span["name"], dict(count=0, wall_s=0.0))
+        agg["count"] += 1
+        agg["wall_s"] += span["t1"] - span["t0"]
+    return dict(sorted(spans.items(), key=lambda kv: -kv[1]["wall_s"]))
+
+
+def _race_attrs(tracer) -> tuple[dict, dict]:
+    """The "race" span's attributes and each "race-side" span's; a side
+    without its ``ok`` attribute raised (the race degraded around it)."""
+    (race,) = [s.attrs for s in tracer.finished if s.name == "race"]
+    sides = {s.attrs["side"]: s.attrs for s in tracer.finished
+             if s.name == "race-side"}
+    check(set(sides) == {"exact", "portfolio"}, f"race sides {sides}")
+    for side, attrs in sides.items():
+        check("ok" in attrs, f"the race's {side} side raised")
+    return race, sides
+
+
+def service_race(dev) -> dict:
+    """The exact-vs-portfolio race with its portfolio side on the card:
+    the golden C5K5 bandmap case, then the forced-loser case of
+    tests/test_exact_race.py (certification off on an infeasible II
+    range: only the prover can answer, so the portfolio is cancelled)."""
+    from repro_torch.core import CGRAConfig, DeviceSBTS, make_cnkm, map_dfg
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import Tracer
+    chunk = DeviceSBTS.__init__.__kwdefaults__["chunk"]
+    runs = []
+    reset_launches()
+    t_phase = time.perf_counter()
+    for label, kw in (
+            ("C5K5:bandmap", dict(mode="bandmap")),
+            ("C5K5:busmap max_ii=2 certify=False seed=7",
+             dict(mode="busmap", max_ii=2, certify=False, seed=7))):
+        tr = Tracer()
+        before = LAUNCHES["selection_counts"]
+        t0 = time.perf_counter()
+        r = map_dfg(make_cnkm(5, 5), CGRAConfig(), backend="race",
+                    device=dev, tracer=tr, **kw)
+        wall = time.perf_counter() - t0
+        race, sides = _race_attrs(tr)
+        runs.append(dict(
+            case=label, ok=r.ok, ii=r.ii, routing_pes=r.n_routing_pes,
+            backend=r.backend, winner=race.get("winner"),
+            loser=race.get("loser"),
+            cancel_latency_s=race.get("cancel_latency_s"),
+            loser_iters_after_cancel=race.get("loser_iters_after_cancel"),
+            sides={k: dict(ok=v["ok"], wall_s=v.get("wall_s"))
+                   for k, v in sides.items()},
+            span_walls=span_walls(tr),
+            launches=LAUNCHES["selection_counts"] - before, wall_s=wall))
+        if kw["mode"] == "bandmap":
+            check(r.ok and (r.ii, r.n_routing_pes) == GOLDEN[(5, 5,
+                                                             "bandmap")],
+                  f"race {label}: {r.summary()}")
+        else:
+            check(r.backend == "race:exact" and race["winner"] == "exact"
+                  and not r.ok and r.proved_infeasible,
+                  f"race {label}: the exact side must win: {r.summary()}")
+            check(race.get("loser_iters_after_cancel", 0) <= chunk,
+                  f"race {label}: the loser ran "
+                  f"{race.get('loser_iters_after_cancel')} iterations "
+                  f"after the cancel, more than a chunk of {chunk}")
+    launches = LAUNCHES["selection_counts"]
+    check(launches > 0, "the race phase never launched selection_counts")
+    return dict(phase="race", chunk_size=chunk, launches=launches,
+                wall_s=time.perf_counter() - t_phase, runs=runs)
+
+
+def service_comap(dev) -> dict:
+    """`co_map` on the card, on the tier-1 cases of tests/test_comap.py
+    and on `COMAP_PORTFOLIO_PAIR`; every merged binding that comes back
+    ok must pass the port's validator."""
+    from repro_torch.comap import co_map
+    from repro_torch.core import (CGRAConfig, make_cnkm, make_stencil,
+                                  serve_catalog)
+    from repro_torch.core.validate import validate_mapping
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    catalog = {s.name: s for s in serve_catalog("8x8")}
+    cases = (
+        ("C2K4+stencil(4,3)@8x8", [make_cnkm(2, 4),
+                                   make_stencil(points=4, taps=3)],
+         CGRAConfig(rows=8, cols=8), 8, True),
+        ("C2K6x2@2x2", [make_cnkm(2, 6)] * 2, CGRAConfig(rows=2, cols=2),
+         3, False),
+        ("+".join(COMAP_PORTFOLIO_PAIR) + "@8x8",
+         [catalog[name].build() for name in COMAP_PORTFOLIO_PAIR],
+         CGRAConfig(rows=8, cols=8), 8, True))
+    runs = []
+    reset_launches()
+    t_phase = time.perf_counter()
+    for label, dfgs, cgra, max_ii, mappable in cases:
+        before = LAUNCHES["selection_counts"]
+        t0 = time.perf_counter()
+        cm = co_map(dfgs, cgra, max_ii=max_ii, device=dev)
+        wall = time.perf_counter() - t0
+        valid = None
+        if cm.ok:
+            valid = (validate_mapping(cm.sched, cgra, cm.placement).ok
+                     and len(cm.placement) == len(cm.sched.dfg.ops))
+        runs.append(dict(
+            case=label, ok=cm.ok, common_ii=cm.ii, rounds=cm.attempts,
+            regions=[vars(r) for r in cm.regions],
+            region_ii=[None if r is None else r.ii for r in cm.results],
+            valid=valid, launches=LAUNCHES["selection_counts"] - before,
+            wall_s=wall))
+        if mappable:
+            check(cm.ok and valid, f"comap {label}: {cm.summary()}")
+        else:
+            check(not cm.ok and cm.report is None,
+                  f"comap {label} must fail cleanly: {cm.summary()}")
+    launches = LAUNCHES["selection_counts"]
+    check(launches > 0, "the comap phase never launched selection_counts")
+    return dict(phase="comap", launches=launches,
+                wall_s=time.perf_counter() - t_phase, runs=runs)
+
+
+def service_trace(dev) -> dict:
+    """``run_map_trace``, the ``--map-trace`` entry point, on the card
+    with a cold in-memory cache.  The service it builds is captured (its
+    ``map_batch`` wrapped for the call) so that every outcome can be
+    held to the checks: no crash outcome, no serve-crash event, every ok
+    result valid."""
+    from repro_torch.core.validate import validate_mapping
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import run_map_trace
+    from repro_torch.serve import service as service_mod
+    served = []
+    map_batch = service_mod.MappingService.map_batch
+
+    def capture(self, requests):
+        outcomes = map_batch(self, requests)
+        served.append((self, requests, outcomes))
+        return outcomes
+
+    service_mod.MappingService.map_batch = capture
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = run_map_trace(SERVICE_TRACE, scale="8x8", device=dev,
+                                max_workers=SERVICE_WORKERS, quiet=True)
+        wall = time.perf_counter() - t0
+        launches = LAUNCHES["selection_counts"]
+    finally:
+        service_mod.MappingService.map_batch = map_batch
+    ((svc, requests, outcomes),) = served
+    crashes = [o.req_id for o in outcomes if o.source == "crash"]
+    crash_events = [e for e in svc.flight.dump()
+                    if e["kind"] == "serve-crash"]
+    invalid = [o.req_id for req, o in zip(requests, outcomes)
+               if o.ok and not validate_mapping(
+                   o.result.sched, req.cgra, o.result.placement).ok]
+    failed = [dict(req_id=o.req_id, source=o.source, ii=o.result.ii,
+                   backend=o.result.backend) for o in outcomes if not o.ok]
+    # Where the trace's time goes: its slowest computed requests.
+    slowest = sorted((o for o in outcomes if o.source == "computed"),
+                     key=lambda o: -o.wall_s)[:3]
+    row = dict(
+        phase="map-trace", requests=metrics["requests"],
+        ok=metrics["ok"], failed=failed, wall_s=wall,
+        requests_per_s=metrics["throughput_rps"],
+        p50_ms=metrics["p50_ms"], p95_ms=metrics["p95_ms"],
+        p99_ms=metrics["p99_ms"], sources=metrics["sources"],
+        hit_rate=metrics["hit_rate"],
+        cache={k: v for k, v in metrics["cache"].items()
+               if k in ("hits", "misses", "puts", "hit_rate")},
+        launches=launches, max_workers=SERVICE_WORKERS,
+        slowest=[dict(req_id=o.req_id, n_ops=o.result.n_ops,
+                      ii=o.result.ii, mii=o.result.mii,
+                      attempts=o.result.attempts, wall_s=o.wall_s,
+                      map_wall_s=o.result.wall_s) for o in slowest],
+        summary=svc.summary())
+    check(not crashes and not crash_events,
+          f"map-trace: crashed requests {crashes}, events {crash_events}")
+    check(not invalid, f"map-trace: invalid ok results {invalid}")
+    check(launches > 0, "the map-trace phase never launched "
+                        "selection_counts")
+    return row
+
+
+def service_explain(dev) -> dict:
+    """Traced and recorded maps on the card: C4K8@8x8 busmap (the host
+    settles it) and C5K5 bandmap (the golden case the portfolio
+    settles).  For each, the host spans' walls by name, read from the
+    ported `obs.export.to_json`, and `MappingResult.explain()`."""
+    from repro_torch.core import CGRAConfig, make_cnkm, map_dfg
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import FlightRecorder, Tracer
+    runs = []
+    reset_launches()
+    for label, dfg, cgra, mode in (
+            ("C4K8@8x8:busmap", make_cnkm(4, 8), CGRAConfig(rows=8, cols=8),
+             "busmap"),
+            ("C5K5@4x4:bandmap", make_cnkm(5, 5), CGRAConfig(), "bandmap")):
+        tr, rec = Tracer(), FlightRecorder()
+        before = LAUNCHES["selection_counts"]
+        t0 = time.perf_counter()
+        r = map_dfg(dfg, cgra, mode=mode, device=dev, tracer=tr,
+                    record=rec)
+        wall = time.perf_counter() - t0
+        spans = span_walls(tr)
+        rep = r.explain(tracer=tr, flight=rec.dump())
+        runs.append(dict(
+            case=label, ok=r.ok, ii=r.ii, routing_pes=r.n_routing_pes,
+            wall_s=wall, launches=LAUNCHES["selection_counts"] - before,
+            span_walls=spans, explain=rep.render().splitlines()))
+        check(r.ok and rep.ok and rep.ii == r.ii,
+              f"explain {label}: {r.summary()}")
+        check(set(spans) >= {"map-dfg", "schedule", "conflict-build"},
+              f"explain {label}: spans {sorted(spans)}")
+    launches = LAUNCHES["selection_counts"]
+    check(launches > 0, "the explain phase never launched "
+                        "selection_counts")
+    return dict(phase="explain", launches=launches, runs=runs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1571,6 +1827,15 @@ def main() -> int:
     fa_err = max(max(c["max_abs_err"] for c in llm_vs["flash_attention"]),
                  llm_vs["path"]["flash_attention"]["max_abs_err"])
 
+    # ---- 14-17. the service tier: race, co-mapping, the serve tier
+    # behind --map-trace, and traced maps with their explain reports
+    service = {}
+    for run in (service_race, service_comap, service_trace,
+                service_explain):
+        row = run(dev)
+        service[row["phase"]] = row["launches"]
+        emit(dict(row, card=card))
+
     # ---- the kernel table: the full-width shape of the main path
     row = next(t for t in times
                if t["graph"] == "C4K8@16x16:bandmap" and t["k"] == 1024)
@@ -1579,7 +1844,8 @@ def main() -> int:
         source="src/repro_torch/kernels/sbts_step/csrc/"
                "selection_counts.cu",
         replaces="src/repro/kernels/sbts_step/kernel.py:42",
-        launches=main_launches, max_abs_err=max_err, ms=row["ms"],
+        launches=main_launches, launches_service=service,
+        max_abs_err=max_err, ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         bound_ops_rate=row["bound_ops_rate"],

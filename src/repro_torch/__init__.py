@@ -8,4 +8,7 @@ of it: each module it needs is its own copy.  Its entry point is
 through the hand-written kernel in `repro_torch.kernels.sbts_step`.
 Pass ``device="cpu"`` to run the same engine on the host (its kernel's
 plain torch version), or ``engine="numpy"`` for the numpy portfolio.
+Around the mapper: the exact prover and the exact-vs-portfolio race
+(`repro_torch.exact`), co-mapping (`repro_torch.comap`) and the mapping
+service (`repro_torch.serve`), each taking the same ``device`` handle.
 """

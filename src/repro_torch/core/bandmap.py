@@ -6,11 +6,10 @@ graph → incomplete-mapping processing.
 baseline policy (one port per datum, routing-PE broadcast), which is the
 paper's comparison target.
 
-This is the port's copy of `repro.core.bandmap`.  It differs in three
+This is the port's copy of `repro.core.bandmap`.  It differs in two
 places: ``engine="device"`` (the default here) binds the port's
-GPU-resident `mis_device.DeviceSBTS`, ``device`` picks where that engine
-runs, and what this slice does not port yet (``backend="exact"`` and
-``"race"``, `MappingResult.explain`) raises NotImplementedError.
+GPU-resident `mis_device.DeviceSBTS`, and ``device`` picks where that
+engine runs (the race passes it on to its portfolio side).
 """
 
 from __future__ import annotations
@@ -56,16 +55,15 @@ class MappingResult:
     # (II, jitter) combination proven unbindable and skipped).
     certificates: list[IICertificate] = dataclasses.field(
         default_factory=list)
-    # Set by the exact backend (`repro.exact`, not ported yet).
-    # ``optimal`` marks an ok=True result whose II is proven minimal:
-    # every lower (II, jitter) combination from MII up carries a
-    # certificate (MII itself is a sound absolute lower bound, so the
-    # claim is absolute at II=MII and relative to the engine's
-    # deterministic schedule family above it).  ``proved_infeasible``
-    # marks an ok=False result where *every* (II, jitter) combination up
-    # to ``max_ii`` was certified unbindable — the sound negative the
-    # serve cache admits even when validation attempts were spent along
-    # the way.
+    # Set by the exact backend (`repro_torch.exact`).  ``optimal`` marks
+    # an ok=True result whose II is proven minimal: every lower
+    # (II, jitter) combination from MII up carries a certificate (MII
+    # itself is a sound absolute lower bound, so the claim is absolute
+    # at II=MII and relative to the engine's deterministic schedule
+    # family above it).  ``proved_infeasible`` marks an ok=False result
+    # where *every* (II, jitter) combination up to ``max_ii`` was
+    # certified unbindable — the sound negative the serve cache admits
+    # even when validation attempts were spent along the way.
     # ``backend`` records which engine produced the result
     # ("portfolio" | "exact" | "race:portfolio" | "race:exact").
     optimal: bool = False
@@ -116,11 +114,16 @@ class MappingResult:
                 f"ok={self.ok}")
 
     def explain(self, *, tracer=None, flight=None):
-        """Not ported yet: the report needs `obs/explain.py` (ROADMAP,
-        "obs/explain|expo|export")."""
-        raise NotImplementedError(
-            "MappingResult.explain() is not ported yet (ROADMAP: "
-            "obs/explain|expo|export)")
+        """Narrated report of *why* the mapping landed here: the II
+        escalation path with per-II cause (static floor / certificate
+        stage / portfolio exhaustion), routing-PE accounting, coverage
+        curve and race outcome.  Returns `repro_torch.obs.ExplainReport`;
+        pass the run's ``tracer`` for the coverage/kick detail (the
+        result alone carries certificates and any attached flight
+        dump).  Imported lazily — `repro_torch.obs.explain` must not be
+        a dependency of constructing results."""
+        from repro_torch.obs.explain import explain_result
+        return explain_result(self, tracer=tracer, flight=flight)
 
 
 def map_dfg(dfg: DFG, cgra: CGRAConfig,
@@ -177,8 +180,9 @@ def map_dfg(dfg: DFG, cgra: CGRAConfig,
     engine runs; like ``tracer`` it is a runtime handle, not a mapping
     knob, and never enters `MapOptions.fingerprint`.  With no GPU
     present a CUDA ``device`` raises: the engine never carries on on
-    the CPU unless ``device="cpu"`` asks for it.  ``backend="exact"``
-    and ``"race"`` are not ported yet and raise NotImplementedError.
+    the CPU unless ``device="cpu"`` asks for it.  ``backend="race"``
+    hands ``device`` to its portfolio side; ``backend="exact"`` runs
+    on the host and ignores it.
 
     ``cancel`` (`core.cancel.CancelToken`) makes the run cooperatively
     cancellable: polled between (II, jitter) combinations, between
@@ -197,11 +201,16 @@ def map_dfg(dfg: DFG, cgra: CGRAConfig,
     ``recorder-default-none`` AST lint rules); like ``tracer``,
     ``record`` is a runtime handle, never a fingerprinted knob."""
     opts = MapOptions.coerce(options, kwargs)
-    if opts.backend in ("exact", "race"):
-        raise NotImplementedError(
-            f"backend={opts.backend!r} is not ported yet (ROADMAP: "
-            f"exact/backend + race)")
     if opts.backend != "portfolio":
+        from repro_torch.exact import exact_map_dfg, race_map_dfg
+        if opts.backend == "exact":
+            return exact_map_dfg(dfg, cgra, options=opts, cancel=cancel,
+                                 tracer=tracer)
+        if opts.backend == "race":
+            # The port's runtime handle reaches the portfolio side.
+            return race_map_dfg(dfg, cgra, options=opts, cancel=cancel,
+                                tracer=tracer, record=record,
+                                device=device)
         raise ValueError(f"unknown mapping backend {opts.backend!r}")
     if opts.portfolio.engine == "device":
         device = resolve_device(device)

@@ -1,1 +1,2 @@
-"""Launch drivers of the port: `serve` (the LLM wave server)."""
+"""Launch drivers of the port: `serve` (the LLM wave server, and the
+mapping service behind ``--map-trace``)."""

@@ -14,8 +14,14 @@ Before serving, the driver prints the plan's **bandwidth rounds**
 (`planner.schedule_transfer_rounds`): which per-step collectives can
 overlap and which contend for the same mesh axis.
 
-``--map-trace N`` (kernel-mapping requests through a mapping service)
-is not ported yet and raises.
+The CGRA mapping analogue of this loop lives behind ``--map-trace N``:
+instead of LLM requests, serve ``N`` kernel-mapping requests through the
+`repro_torch.serve.MappingService` (canonical-hash cache + batched
+scheduler over the portfolio engine, on the card unless ``--device
+cpu``) and report hit-rate and latency percentiles:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --map-trace 64 \
+      --device cuda
 """
 
 from __future__ import annotations
@@ -28,10 +34,6 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as M
-
-_MAP_TRACE_TODO = ("--map-trace needs the mapping service, which is not "
-                   "ported yet (ROADMAP Queue 1, item 7: serve/)")
-
 
 class WaveServer:
     """Admit `slots` requests at a time; one prefill + N decode ticks, on
@@ -94,8 +96,34 @@ def serving_transfer_rounds(cfg, *, batch: int, seq: int,
     return rounds, text
 
 
-def run_map_trace(*args, **kwargs):
-    raise NotImplementedError(_MAP_TRACE_TODO)
+def run_map_trace(n_requests: int = 64, *, scale: str = "8x8",
+                  rows: int = 8, cols: int = 8, seed: int = 0,
+                  max_workers: int | None = None,
+                  art_dir: str | None = None,
+                  quiet: bool = False, device=None) -> dict:
+    """Serve a Zipf kernel-mapping trace through `MappingService`.
+
+    This is the mapping-as-a-service loop: canonical-hash cache in
+    front of the portfolio engine, batched admission, per-request
+    metrics.  ``device`` (None means ``"cuda"``) is where the requests'
+    device engines run.  Returns the service metrics dict."""
+    from repro_torch.core.cgra import CGRAConfig
+    from repro_torch.core.workloads import make_request_trace
+    from repro_torch.serve import MappingService, MapRequest
+
+    trace = make_request_trace(n_requests, scale=scale, seed=seed)
+    cgra = CGRAConfig(rows=rows, cols=cols)
+    svc = MappingService(max_workers=max_workers, art_dir=art_dir,
+                         base_seed=seed, device=device)
+    svc.map_batch([MapRequest(dfg=t.dfg, cgra=cgra, deadline=t.deadline,
+                              tenant=t.tenant, req_id=f"r{i}")
+                   for i, t in enumerate(trace)])
+    metrics = svc.metrics()
+    if not quiet:
+        print(svc.summary())
+        print(f"  sources: {metrics['sources']}")
+        print(f"  cache:   {metrics['cache']}")
+    return metrics
 
 
 def main(argv=None):
@@ -110,13 +138,20 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--map-trace", type=int, default=0, metavar="N",
-                    help="serve N kernel-mapping requests (not ported)")
+                    help="serve N kernel-mapping requests through "
+                         "MappingService instead of LLM requests")
     ap.add_argument("--trace-scale", default="8x8",
                     choices=["4x4", "8x8", "16x16"])
     args = ap.parse_args(argv)
 
     if args.map_trace:
-        raise NotImplementedError(_MAP_TRACE_TODO)
+        from repro_torch.serve import DEFAULT_ART_DIR
+        rows = cols = int(args.trace_scale.split("x")[0])
+        # Persistent artifact store: a second invocation hits the disk
+        # tier for every kernel this one mapped.
+        return run_map_trace(args.map_trace, scale=args.trace_scale,
+                             rows=rows, cols=cols,
+                             art_dir=DEFAULT_ART_DIR, device=args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)

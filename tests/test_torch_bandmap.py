@@ -104,17 +104,26 @@ def test_options_match_reference_but_for_the_engine_default():
 
 
 @pytest.mark.parametrize("backend", ["exact", "race"])
-def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.map_dfg(port.make_cnkm(1, 2), port.CGRAConfig(),
-                     backend=backend, engine="numpy")
+@pytest.mark.parametrize("engine", ["numpy", "device"])
+def test_exact_and_race_backends_reach_the_reference_pair(backend, engine):
+    want = ref.map_dfg(ref.make_cnkm(1, 2), ref.CGRAConfig(),
+                       backend=backend)
+    extra = {"engine": "numpy"} if engine == "numpy" else \
+        {"device": "cpu", "device_seeds": 32}
+    got = port.map_dfg(port.make_cnkm(1, 2), port.CGRAConfig(),
+                       backend=backend, **extra)
+    assert got.ok and want.ok
+    assert (got.ii, got.n_routing_pes) == (want.ii, want.n_routing_pes)
+    assert got.backend.startswith(backend)
 
 
-def test_explain_is_not_ported():
-    r = port.map_dfg(port.make_cnkm(1, 2), port.CGRAConfig(),
-                     engine="numpy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.explain()
+def test_explain_equals_the_reference_report():
+    want = ref.map_dfg(ref.make_cnkm(1, 2), ref.CGRAConfig())
+    got = port.map_dfg(port.make_cnkm(1, 2), port.CGRAConfig(),
+                       engine="numpy")
+    a, b = got.explain(), want.explain()
+    assert a.as_dict() == b.as_dict()
+    assert a.render() == b.render()
 
 
 def test_vocabularies_match_the_reference():

@@ -580,3 +580,77 @@ def test_zamba2_smoke_model_on_the_card_equals_the_cpu(cuda):
     prompts = toks[0, :64].reshape(4, 16).numpy()
     out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
     assert out.shape == (4, 8)
+
+
+# ------------------------------------------------------ the service tier
+def test_race_on_the_card(cuda):
+    """The forced-loser race (only the prover can be sound): the exact
+    side wins, the device portfolio launched and was cancelled within
+    a chunk, and neither side raised."""
+    from repro_torch.obs import Tracer
+    chunk = DeviceSBTS.__init__.__kwdefaults__["chunk"]
+    tr = Tracer()
+    before = LAUNCHES["selection_counts"]
+    r = map_dfg(make_cnkm(5, 5), CGRAConfig(), mode="busmap", max_ii=2,
+                backend="race", certify=False, seed=7, device_seeds=64,
+                device=cuda, tracer=tr)
+    assert LAUNCHES["selection_counts"] > before
+    assert r.backend == "race:exact" and r.proved_infeasible
+    (race,) = [s.attrs for s in tr.finished if s.name == "race"]
+    assert race["winner"] == "exact"
+    assert race["loser_iters_after_cancel"] <= chunk
+    sides = [s.attrs for s in tr.finished if s.name == "race-side"]
+    assert len(sides) == 2 and all("ok" in a for a in sides)
+
+
+def test_co_map_on_the_card(cuda):
+    """A pair whose regions reach the portfolio: the merged binding is
+    valid and the device engine launched."""
+    from repro_torch.comap import co_map
+    from repro_torch.core import serve_catalog
+    from repro_torch.core.validate import validate_mapping
+    catalog = {s.name: s for s in serve_catalog("8x8")}
+    cgra = CGRAConfig(rows=8, cols=8)
+    before = LAUNCHES["selection_counts"]
+    cm = co_map([catalog["loop2x0"].build(), catalog["reduce6a3"].build()],
+                cgra, max_ii=8, device=cuda)
+    assert LAUNCHES["selection_counts"] > before
+    assert cm.ok, cm.summary()
+    assert validate_mapping(cm.sched, cgra, cm.placement).ok
+
+
+def test_serve_trace_on_the_card(cuda):
+    """A 4x4 request trace through the service on the card (16 requests,
+    seed 1: one computed request reaches the portfolio): no crash, every
+    ok result valid, and the device engine launched."""
+    from repro_torch.core import make_request_trace
+    from repro_torch.core.validate import validate_mapping
+    from repro_torch.serve import MappingService, MapRequest
+    svc = MappingService(max_workers=2, device=cuda)
+    cgra = CGRAConfig()
+    before = LAUNCHES["selection_counts"]
+    reqs = [MapRequest(dfg=t.dfg, cgra=cgra, deadline=t.deadline,
+                       req_id=f"r{i}")
+            for i, t in enumerate(make_request_trace(16, scale="4x4",
+                                                     seed=1))]
+    outs = svc.map_batch(reqs)
+    assert LAUNCHES["selection_counts"] > before
+    assert not [o.req_id for o in outs if o.source == "crash"]
+    assert not [e for e in svc.flight.dump() if e["kind"] == "serve-crash"]
+    for o in outs:
+        if o.ok:
+            assert validate_mapping(o.result.sched, cgra,
+                                    o.result.placement).ok
+    assert sum(o.ok for o in outs) == len(outs)
+
+
+def test_service_with_no_device_maps_on_the_card(cuda):
+    """``device=None`` is the card: the service's scheduler holds a CUDA
+    device and its maps launch the kernel."""
+    from repro_torch.serve import MappingService
+    svc = MappingService(max_workers=1)
+    assert svc.scheduler.device.type == "cuda"
+    before = LAUNCHES["selection_counts"]
+    out = svc.map(make_cnkm(5, 5), CGRAConfig(), mode="bandmap")
+    assert out.ok and out.source == "computed"
+    assert LAUNCHES["selection_counts"] > before

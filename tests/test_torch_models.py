@@ -20,6 +20,7 @@ tokens.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -330,11 +331,39 @@ def test_unported_parts_raise_not_implemented(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("gemma3-4b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--map-trace", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.loss_fn(cfg, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.mla_attention()
+
+
+def _summary_lines(text: str) -> list[str]:
+    """`run_map_trace`'s printed summary without its times: the serve
+    line up to its latencies, the sources line, and the cache line
+    without the replay wall."""
+    import re
+    serve_line, sources, cache = text.strip().splitlines()[-3:]
+    return [serve_line.split(", p50")[0], sources,
+            re.sub(r"'replay_wall_s': [^,]*, ", "", cache)]
+
+
+def test_map_trace_prints_the_reference_summary(tmp_path, monkeypatch,
+                                                capsys):
+    """``--map-trace`` serves kernel-mapping requests through the port's
+    `MappingService` (here on the CPU) and prints the reference's
+    summary lines.  Both write their disk tier under the working
+    directory, each in its own ``DEFAULT_ART_DIR``."""
+    monkeypatch.chdir(tmp_path)
+    got = serve.main(["--map-trace", "4", "--trace-scale", "4x4",
+                      "--device", "cpu"])
+    got_text = capsys.readouterr().out
+    want = ref_serve.main(["--map-trace", "4", "--trace-scale", "4x4"])
+    want_text = capsys.readouterr().out
+    assert _summary_lines(got_text) == _summary_lines(want_text)
+    assert got_text.startswith("serve: 4 requests (4 ok)")
+    assert (got["requests"], got["ok"], got["sources"]) == \
+        (want["requests"], want["ok"], want["sources"])
+    assert os.listdir(tmp_path / "artifacts" / "serve_torch")
+    assert os.listdir(tmp_path / "artifacts" / "serve")
 
 
 def test_entry_points_default_to_the_card(cfg):
