@@ -3,8 +3,10 @@
 Every assigned architecture is a module ``configs/<id>.py`` exposing
 ``CONFIG`` (the exact published configuration) and ``SMOKE_CONFIG`` (a
 reduced same-family config for CPU smoke tests).  The port holds only
-the configurations of the families it runs (zamba2-1.2b); asking for
-another raises `NotImplementedError`.  ``input_specs`` (the dry-run's
+the configurations of the families it runs (`hybrid`: zamba2-1.2b;
+`ssm`: mamba2-2.7b; `dense`: gemma3-4b, qwen1.5-4b, glm4-9b,
+starcoder2-7b); asking for another (the `moe`, MLA, `encdec` and vision
+archs) raises `NotImplementedError`.  ``input_specs`` (the dry-run's
 stand-ins) waits for the dry-run item.
 """
 
@@ -28,7 +30,9 @@ LONG_OK: frozenset = frozenset(
     {"mixtral-8x7b", "gemma3-4b", "mamba2-2.7b", "zamba2-1.2b"})
 
 #: the architectures whose config module the port holds.
-PORTED: frozenset = frozenset({"zamba2-1.2b"})
+PORTED: frozenset = frozenset(
+    {"zamba2-1.2b", "mamba2-2.7b", "gemma3-4b", "qwen1.5-4b", "glm4-9b",
+     "starcoder2-7b"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +57,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"{arch}'s configuration is not ported yet (ROADMAP Queue 1, "
-            f"item 11: dense, ssm, moe, MLA, encdec and vision families)")
+            f"item 11: the moe, MLA, encdec and vision families)")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
 

@@ -5,8 +5,11 @@ next wave starts when the wave completes.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --requests 8 --gen 32
 
+``--arch`` takes the ported archs: zamba2-1.2b (`hybrid`), mamba2-2.7b
+(`ssm`), gemma3-4b, qwen1.5-4b, glm4-9b and starcoder2-7b (`dense`).
 The prefill of a wave fills the decode cache (the Mamba2 layers' SSD scan
-runs as the CUDA kernel on the card) and each decode tick is one
+runs as the CUDA kernel on the card; attention takes the plain masked
+product with a cache, as in the reference) and each decode tick is one
 `model.serve_step`.  PyTorch runs eagerly: there is no compiled step, and
 the cache is updated in place with the reference's ``pos`` semantics.
 

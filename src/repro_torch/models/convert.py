@@ -4,11 +4,13 @@ port's modules.
 The reference holds its parameters as nested dicts with the layer axis
 stacked (``["layers"]["mamba"]["in_x"]["w"]`` is (L, d_in, d_out)); the
 port's module paths are the same keys with that axis split per layer
-(``layers.<i>.mamba.in_x.w``).  `from_reference` takes the tree as
+(``layers.<i>.mamba.in_x.w``, ``layers.<i>.attn.q.w``,
+``layers.<i>.ln1.bias``).  `from_reference` takes the tree as
 nested dicts of numpy arrays (for instance ``jax.tree.map(np.asarray,
 params)``) and builds the port's model from it; `to_reference` gives
-the tree back.  The shared attention block is one module, loaded once
-and reused by every invocation.
+the tree back.  A tied embedding has no ``unembed`` leaf on either side.
+zamba2's shared attention block is one module, loaded once and reused
+by every invocation.
 """
 
 from __future__ import annotations

@@ -42,26 +42,42 @@ def count_params(cfg: ModelConfig) -> int:
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
     """The zeroed decode cache of ``batch`` sequences with capacity
-    ``s_max``, as the reference's pytree: {"layers": {"mamba": {"conv":
-    (L, B, W-1, conv_dim), "ssm": (L, B, H, P, N) float32}, "attn":
-    {"k", "v": (n_inv, B, s_max, Hkv, D), "pos": [int] * n_inv}},
-    "pos": int}.  Positions are Python ints (the loop is eager)."""
+    ``s_max``, as the reference's pytree (`cache_specs`):
+
+    - dense: {"layers": {"k", "v": (L, B, s_max, Hkv, D), "pos": [int] *
+      L}, "pos": int};
+    - ssm: {"layers": {"conv": (L, B, W-1, conv_dim), "ssm": (L, B, H, P,
+      N) float32}, "pos": int};
+    - hybrid: {"layers": {"mamba": the ssm family's layers, "attn":
+      {"k", "v": (n_inv, B, s_max, Hkv, D), "pos": [int] * n_inv}},
+      "pos": int}.
+
+    Positions are Python ints (the loop is eager), where the reference
+    holds int32 arrays of the same shapes."""
     T.require_ported(cfg)
     dev = resolve_device(device)
+
+    def zeros(lead, shape, dt):
+        return torch.zeros((lead, *shape), dtype=dt, device=dev)
+
+    def kv(lead):
+        shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(lead, shape, dtype), "v": zeros(lead, shape, dtype),
+                "pos": [0] * lead}
+
+    if cfg.family == "dense":
+        return {"layers": kv(cfg.n_layers), "pos": 0}
     one = mamba2_cache_shapes(batch, d_model=cfg.d_model,
                               d_state=cfg.d_state, expand=cfg.ssm_expand,
                               n_groups=cfg.ssm_groups,
                               head_dim=cfg.ssm_head_dim, dtype=dtype)
-    n_inv = T.n_hybrid_attn_invocations(cfg)
-    kv = (n_inv, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": {
-        "mamba": {name: torch.zeros((cfg.n_layers, *shape), dtype=dt,
-                                    device=dev)
-                  for name, (shape, dt) in one.items()},
-        "attn": {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                 "v": torch.zeros(kv, dtype=dtype, device=dev),
-                 "pos": [0] * n_inv}},
-        "pos": 0}
+    mamba = {name: zeros(cfg.n_layers, shape, dt)
+             for name, (shape, dt) in one.items()}
+    if cfg.family == "ssm":
+        return {"layers": mamba, "pos": 0}
+    return {"layers": {"mamba": mamba,
+                       "attn": kv(T.n_hybrid_attn_invocations(cfg))},
+            "pos": 0}
 
 
 # -------------------------------------------------------------------- loss

@@ -1,5 +1,5 @@
 """Mamba2 block (SSD — state-space duality, arXiv:2405.21060), used by
-zamba2-1.2b's hybrid backbone.
+mamba2-2.7b (pure SSM stack) and zamba2-1.2b (hybrid backbone).
 
 Projections → causal depthwise conv → SSD scan (chunked for the
 no-cache forward and for prefill, the recurrent step for decode) →

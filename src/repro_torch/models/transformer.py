@@ -1,19 +1,24 @@
 """Unified transformer/SSM/hybrid stack, as the reference's
-``models/transformer.py``; the port runs the ``hybrid`` family.
+``models/transformer.py``; the port runs the ``hybrid``, ``ssm`` and
+``dense`` families.
 
 Families:
+- ``dense``  — GQA attention + (gated) MLP (gemma3, starcoder2, glm4,
+               qwen1.5): ported; qwen2-vl's vision inputs are not.
+- ``ssm``    — Mamba2 SSD blocks, attention-free (mamba2-2.7b): ported.
 - ``hybrid`` — Mamba2 backbone + one *shared* GQA block invoked every k
                layers (zamba2-1.2b): ported.
-- ``dense``, ``moe``, ``ssm``, ``encdec`` — not ported yet; building or
-               running them raises `NotImplementedError`.
+- ``moe``, ``encdec``, MLA attention and vision inputs — not ported
+               yet; building or running them raises `NotImplementedError`.
 
-The model is an `nn.Module` (`HybridModel`) whose parameter paths are
-the reference's pytree keys with the stacked layer axis split per layer
-(``layers.<i>.<rest>``).  PyTorch runs eagerly: the reference's
-``lax.scan`` over stacked layers is a loop over the layer modules, and
-its activation remat (``cfg.remat``) has no counterpart in this
-inference-only slice.  The one-device sharding constraint
-(``launch/sharding.constrain``) is a no-op and is not copied.
+The model is an `nn.Module` (`DenseModel`, `SSMModel`, `HybridModel`)
+whose parameter paths are the reference's pytree keys with the stacked
+layer axis split per layer (``layers.<i>.<rest>``).  PyTorch runs
+eagerly: the reference's ``lax.scan`` over stacked layers is a loop over
+the layer modules, each layer taking its own window (gemma3's 5 local :
+1 global) as a Python int, and its activation remat (``cfg.remat``) has
+no counterpart in this inference-only port.  The one-device sharding
+constraint (``launch/sharding.constrain``) is a no-op and is not copied.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ from . import layers as L
 from .attention import GQA
 from .ssm import Mamba2Block
 
-_FAMILY_TODO = ("the {family!r} family is not ported yet (ROADMAP Queue 1, "
-                "item 11: dense, ssm, moe, MLA, encdec and vision families)")
+_FAMILIES = ("dense", "ssm", "hybrid")
+_TODO = ("{what} is not ported yet (ROADMAP Queue 1, item 11: the moe, "
+         "MLA, encdec and vision families)")
 
 
 # ---------------------------------------------------------------- config
@@ -106,11 +112,15 @@ class ModelConfig:
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
-        raise NotImplementedError(_FAMILY_TODO.format(family=cfg.family))
+    """Raise `NotImplementedError` for what the port does not run yet."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            _TODO.format(what=f"the {cfg.family!r} family"))
     if cfg.attn_kind != "gqa":
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP Queue 1, item 11)")
+        raise NotImplementedError(_TODO.format(what="MLA attention"))
+    if cfg.n_vision_tokens or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            _TODO.format(what="vision inputs and M-RoPE positions"))
 
 
 # --------------------------------------------------------------- modules
@@ -139,26 +149,56 @@ class MambaLayer(nn.Module):
             device=device, generator=generator)
 
 
-class HybridModel(nn.Module):
-    """zamba2: embed, ``n_layers`` Mamba layers, ONE shared attention
-    block (`shared_attn`, reused by every invocation), final norm and
-    unembedding."""
+class _LanguageModel(nn.Module):
+    """Embedding, final norm and (unless tied) unembedding; the families'
+    models add their layers after these."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
         super().__init__()
-        require_ported(cfg)
         kw = dict(device=device, generator=generator)
         self.embed = L.Embed(cfg.vocab, cfg.d_model, **kw)
         self.final_norm = cfg.norm_cls()(cfg.d_model, device=device)
         self.unembed = None if cfg.tie_embeddings else \
             L.Dense(cfg.d_model, cfg.vocab, **kw)
-        self.layers = nn.ModuleList(MambaLayer(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
-        self.shared_attn = Block(cfg, **kw)
+
+
+class DenseModel(_LanguageModel):
+    """gemma3, qwen1.5, glm4, starcoder2: ``n_layers`` `Block`s."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        self.layers = nn.ModuleList(
+            Block(cfg, device=device, generator=generator)
+            for _ in range(cfg.n_layers))
+
+
+class SSMModel(_LanguageModel):
+    """mamba2: ``n_layers`` Mamba layers, attention-free."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        self.layers = nn.ModuleList(
+            MambaLayer(cfg, device=device, generator=generator)
+            for _ in range(cfg.n_layers))
+
+
+class HybridModel(SSMModel):
+    """zamba2: the Mamba layers and ONE shared attention block
+    (`shared_attn`, reused by every invocation)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        self.shared_attn = Block(cfg, device=device, generator=generator)
+
+
+_MODELS = {"dense": DenseModel, "ssm": SSMModel, "hybrid": HybridModel}
 
 
 def build_model(cfg: ModelConfig, *, device, generator=None) -> nn.Module:
-    return HybridModel(cfg, device=device, generator=generator)
+    """``cfg``'s model (the one way to build one: it refuses what is not
+    ported)."""
+    require_ported(cfg)
+    return _MODELS[cfg.family](cfg, device=device, generator=generator)
 
 
 # --------------------------------------------------------------- windows
@@ -192,6 +232,37 @@ def _mamba_apply(cfg: ModelConfig, layer: MambaLayer, x, cache):
     return x + h, new_cache
 
 
+# ----------------------------------------------------------- main stacks
+def _scan_blocks(cfg: ModelConfig, blocks, x, positions, windows, caches):
+    """The transformer blocks in order, each with its own window (an int,
+    0 meaning plain causal; None for every layer without
+    ``sliding_window``).  caches: {"k", "v": (L, B, S_max, Hkv, D),
+    "pos": [int] * L} or None; updated in place."""
+    aux = torch.zeros((), device=x.device)
+    for li, blk in enumerate(blocks):
+        cache = ({"k": caches["k"][li], "v": caches["v"][li],
+                  "pos": caches["pos"][li]} if caches is not None else None)
+        window = int(windows[li]) if windows is not None else None
+        x, new_cache, a = _block_apply(cfg, blk, x, positions, window, cache)
+        aux = aux + a
+        if new_cache is not None:
+            caches["pos"][li] = new_cache["pos"]
+    return x, aux, caches
+
+
+def _scan_mamba(cfg: ModelConfig, layers, x, caches):
+    """The Mamba layers in order.  caches: {"conv", "ssm"} with a leading
+    layer axis, or None; updated in place."""
+    for li, layer in enumerate(layers):
+        cache = ({"conv": caches["conv"][li], "ssm": caches["ssm"][li]}
+                 if caches is not None else None)
+        x, new_cache = _mamba_apply(cfg, layer, x, cache)
+        if new_cache is not None:
+            cache["conv"].copy_(new_cache["conv"])
+            cache["ssm"].copy_(new_cache["ssm"])
+    return x, caches
+
+
 def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
                   caches):
     """zamba2: mamba backbone; ONE shared attention block (weights
@@ -206,13 +277,9 @@ def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
     start, inv = 0, 0
     while start < n:
         end = min(start + k, n)
-        for li in range(start, end):
-            lc = ({"conv": mc["conv"][li], "ssm": mc["ssm"][li]}
-                  if mc is not None else None)
-            x, nc = _mamba_apply(cfg, model.layers[li], x, lc)
-            if nc is not None:
-                mc["conv"][li].copy_(nc["conv"])
-                mc["ssm"][li].copy_(nc["ssm"])
+        seg_cache = ({name: t[start:end] for name, t in mc.items()}
+                     if mc is not None else None)
+        x, _ = _scan_mamba(cfg, model.layers[start:end], x, seg_cache)
         if end - start == k:        # full segment -> shared attn invocation
             cache = ({"k": ac["k"][inv], "v": ac["v"][inv],
                       "pos": ac["pos"][inv]} if ac is not None else None)
@@ -240,22 +307,29 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
     Returns (logits (B, S, vocab), aux_loss, caches).
     """
     require_ported(cfg)
-    if cfg.n_vision_tokens or cfg.family == "encdec":
-        raise NotImplementedError("vision and audio inputs are not "
-                                  "ported yet (ROADMAP Queue 1, item 11)")
     dev = model.embed.table.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = model.embed(tokens)
     if cfg.embed_scale:
+        # The scale rounded to x's type first, as the reference does:
+        # gemma3's sqrt(2560) = 50.596 enters as 50.5 in bf16.
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
     b, s = x.shape[:2]
     pos0 = int(caches["pos"]) if caches is not None else 0
     positions = (pos0 + torch.arange(s, device=dev))[None, :].expand(b, s)
 
-    x, aux, new_lc = _hybrid_apply(
-        cfg, model, x, positions,
-        caches["layers"] if caches is not None else None)
+    lc = caches["layers"] if caches is not None else None
+    aux = torch.zeros((), device=dev)
+    if cfg.family == "dense":
+        windows = layer_windows(cfg) if cfg.sliding_window is not None \
+            else None
+        x, aux, new_lc = _scan_blocks(cfg, model.layers, x, positions,
+                                      windows, lc)
+    elif cfg.family == "ssm":
+        x, new_lc = _scan_mamba(cfg, model.layers, x, lc)
+    else:  # hybrid
+        x, aux, new_lc = _hybrid_apply(cfg, model, x, positions, lc)
     new_caches = _bump(caches, new_lc, s)
 
     x = model.final_norm(x)

@@ -369,3 +369,46 @@ def test_wide_heads_sum_s_in_the_plain_order(monkeypatch):
     assert max(plain_err) > 1e-6, plain_err
     assert max(fp32_s) <= FA_TOL_FP32, fp32_s
     assert max(split_s) > FA_TOL_FP32, split_s
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (8, 8, 0, None), (8, 8, 0, 0), (16, 16, 0, 4), (10, 30, 20, 7),
+    (7, 20, 13, None), (1, 512, 511, 100), (12, 5, 0, 3), (300, 333, 60, 70),
+    (4, 8, 100, 5)], ids=str)
+def test_flash_bound_counts_the_masks_pairs(sq, sk, q_offset, window):
+    """chip_smoke.py's `flash_bound` counts the (query, key) pairs that
+    the reference's `causal_window_mask` lets through (keys below Sk),
+    with and without a window and a q_offset; its FLOP are 4 D of them
+    per head and batch row."""
+    from repro.models.attention import causal_window_mask
+    smoke = _chip_smoke()
+    mask = causal_window_mask(q_offset + jnp.arange(sq), jnp.arange(sk),
+                              window)
+    want = int(np.asarray(mask).sum())
+    assert smoke.visible_pairs(sq, sk, q_offset, window) == want
+    bound = smoke.flash_bound(2, sq, sk, 3, 16, 1000, q_offset=q_offset,
+                              window=window)
+    assert bound["pairs"] == want and bound["flop"] == 4 * 16 * want * 3 * 2
+
+
+def test_flash_bound_at_the_path_shapes():
+    """Plain causal at 8192 is S (S + 1) / 2 pairs a head, as before the
+    window was counted (zamba2's bound unchanged); gemma3's local layers
+    (window 1024) see 7.86e6 of them, not 33.6e6."""
+    smoke = _chip_smoke()
+    s = 8192
+    assert smoke.visible_pairs(s, s) == s * (s + 1) // 2
+    assert smoke.visible_pairs(s, s, 0, 0) == s * (s + 1) // 2
+    assert smoke.visible_pairs(s, s, 0, 1024) == \
+        1024 * 1025 // 2 + (s - 1024) * 1024 == 7_864_832

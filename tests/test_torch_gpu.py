@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels
 against their plain torch versions, the engine on the card against the
 engine on the CPU, the conflict build's CUDA route against the host
-build, and the zamba2 smoke model on the card against the CPU.  They
+build, and the zamba2, mamba2 and gemma3 smoke models on the card
+against the CPU.  They
 skip without a GPU; on the card they run with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -414,7 +415,9 @@ def test_flash_attention_equals_plain_version(cuda, case, dtype, tol):
     (2, 128, 128, 4, 2, 192, None, 0), (1, 300, 333, 8, 2, 256, None, 0),
     (1, 200, 260, 4, 1, 256, 70, 60), (1, 129, 65, 4, 4, 192, None, 0),
     (1, 150, 170, 2, 1, 250, None, 0), (1, 65, 33, 2, 1, 192, None, 0),
-    (2, 97, 300, 4, 2, 256, None, 203)], ids=str)
+    (2, 97, 300, 4, 2, 256, None, 203),
+    # gemma3's local layers: D = 256, GQA 2:1, window 1024, Sq = Sk past it
+    (1, 2048, 2048, 8, 4, 256, 1024, 0)], ids=str)
 def test_flash_attention_head_dims_to_256(cuda, case, dtype, tol):
     """D = 192 and 256, the repository's widest heads (and 250, off a
     multiple of 8 and of 4: both kernels' plain loads): three and four
@@ -469,7 +472,9 @@ def _ssd_case(b, s, h, p, n, dtype, device, seed, g=1):
     (1, 300, 3, 20, 64, 128), (2, 300, 3, 64, 12, 128),
     (1, 200, 3, 18, 10, 64),
     # N = 100: the fp32 stages' 128-column N tiles, two chunks of 1024
-    (1, 2000, 2, 64, 100, 1024)], ids=str)
+    (1, 2000, 2, 64, 100, 1024),
+    # mamba2's N = 128 at chunk 256, the last chunk ragged
+    (1, 1000, 4, 64, 128, 256), (2, 300, 3, 64, 128, 256)], ids=str)
 def test_ssd_equals_plain_version(cuda, case, dtype):
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked
@@ -577,6 +582,49 @@ def test_zamba2_smoke_model_on_the_card_equals_the_cpu(cuda):
     short, _, _ = T.forward(cfg, on_card, {"tokens": toks[:, :32]})
     want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks[:, :32]})
     assert (short.cpu() - want).abs().max() <= 0.15
+    prompts = toks[0, :64].reshape(4, 16).numpy()
+    out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
+    assert out.shape == (4, 8)
+
+
+@pytest.mark.parametrize("arch,kernel,calls", [
+    ("mamba2-2.7b", "ssd", 2), ("gemma3-4b", "flash_attention", 4)])
+def test_family_smoke_models_on_the_card_equal_the_cpu(cuda, arch, kernel,
+                                                       calls):
+    """mamba2's and gemma3's smoke models: the no-cache forward at
+    S = 4160 on the card (the SSD scan in each Mamba2 layer; flash in each
+    of gemma3's layers, with window 8 and plain causal in turn) against
+    the same weights on the CPU, and a served wave.  Both have tied
+    embeddings, whose logits reach tens: one bf16 ulp of the final hidden
+    state moves a logit by about 0.1, so the argmax must agree wherever
+    the CPU's top-2 margin exceeds 0.3, at S = 4160 and S = 32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import WaveServer
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config(arch)
+    on_card = M.init_params(cfg, 0, device=cuda)
+    on_cpu = M.init_params(cfg, 0, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 4160),
+                         generator=torch.Generator().manual_seed(0))
+    for s in (4160, 32):
+        before = dict(LAUNCHES)
+        got, _, _ = T.forward(cfg, on_card, {"tokens": toks[:, :s]})
+        torch.cuda.synchronize()
+        moved = {k: LAUNCHES[k] - before[k] for k in
+                 ("ssd", "ssd_bf16", "flash_attention",
+                  "flash_attention_bf16")}
+        want_calls = calls if s == 4160 or kernel == "ssd" else 0
+        assert moved[kernel] == moved[f"{kernel}_bf16"] == want_calls
+        assert sum(moved.values()) == 2 * want_calls
+        want, _, _ = T.forward(cfg, on_cpu, {"tokens": toks[:, :s]})
+        assert torch.isfinite(got).all()
+        top2 = want[0].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 0.3
+        assert sure.any()
+        assert (got[0].cpu().argmax(-1) == want[0].argmax(-1))[sure].all()
     prompts = toks[0, :64].reshape(4, 16).numpy()
     out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
     assert out.shape == (4, 8)

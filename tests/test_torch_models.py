@@ -319,17 +319,33 @@ def test_kv_cache_overflow_raises(ref_cfg, cfg, ref_params, model, where):
 
 
 def test_unported_parts_raise_not_implemented(cfg):
+    """The `dense` and `ssm` families run; `moe`, `encdec`, MLA attention,
+    vision inputs, their archs' configs and training raise, naming the
+    ROADMAP item."""
     dense = T.ModelConfig(name="d", family="dense", n_layers=2, d_model=32,
                           n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
                           vocab=64)
-    for family in ("dense", "moe", "ssm", "encdec"):
+    ssm = T.ModelConfig(name="s", family="ssm", n_layers=2, d_model=32,
+                        vocab=64, d_state=8, ssm_head_dim=16, ssm_chunk=8)
+    for ok in (dense, ssm):
+        M.init_params(ok, device="cpu")
+        M.init_cache(ok, 1, 8, device="cpu")
+    unported = [dataclasses.replace(dense, family="moe", n_experts=4,
+                                    top_k=2, moe_d_ff=32),
+                dataclasses.replace(dense, family="encdec", n_enc_layers=1,
+                                    enc_seq=8),
+                dataclasses.replace(dense, kv_lora=16),
+                dataclasses.replace(dense, n_vision_tokens=4,
+                                    mrope_sections=(2, 3, 3))]
+    for bad in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(dataclasses.replace(dense, family=family),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_cache(dense, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma3-4b")
+            M.init_params(bad, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            M.init_cache(bad, 1, 8, device="cpu")
+    for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "whisper-tiny",
+                 "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.loss_fn(cfg, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
