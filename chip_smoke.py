@@ -111,21 +111,49 @@ each printed as one JSON line:
    at (1, 8192), flash twice at D = 128 (GQA 20:20, 32:2, 36:4), and a
    wave of 4 prompts of 1000 tokens with 4 decode steps, which launches
    no kernel.
-17. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
+17. ragged-dot-vs-plain: `ragged_dot` (the MoE FFN's grouped product,
+   mma.sync) on the card against its plain version on the card
+   (`RAGGED_CASES`: empty groups, one group holding every row, M off
+   the 128-row tile, K and N at mixtral's and deepseek's widths, K or N
+   off a multiple of 8, x off 16-byte alignment, rows outside the
+   groups, which must be zero), each call one launch; tolerance 1e-4 +
+   2^-7 |y| (one bf16 ulp: both sum in fp32 and round once); the same
+   cases but the largest in fp32 on its fp32 route, 1e-4 + 1e-5 |y|; one
+   call under ``torch.cuda.set_sync_debug_mode("error")``: the kernel
+   reads the group offsets on the card, with no host sync.
+18-19. llm-serve and llm-forward-long for mixtral-8x7b (the moe family)
+   at its published widths cut to 4 of 32 layers (``reduced``): served
+   as above, `ragged_dot` 3 times a layer a forward (gate, up, down):
+   768 over the two waves (bf16), 108 in each teacher-forced run, on
+   the run's route (the fp32 run computes the experts in fp32 too, on
+   the kernel's fp32 route), flash never;
+   the long forward launches flash 4 times with the window 4096 at
+   (1, 8192, 32, 128), GQA 32:8, and `ragged_dot` 12 times.  Then
+   llm-moe-capacity (the capacity dispatch on the same model: no
+   `ragged_dot`) and ragged-dot-path (the kernel at each grouped
+   product the path gave: prefill, decode and long, gate/up and down;
+   error, ms, plain, bound, and ``torch._grouped_mm`` and a per-expert
+   ``torch.matmul`` loop as yardsticks off the path).
+20. the same for deepseek-v2-lite-16b uncut (27 layers, MLA, 64 routed
+   experts top-6 and 2 shared; 64.9 GB of fp32 weights, every earlier
+   model freed first; the peak printed): served, `ragged_dot` 81 a
+   forward, and ragged-dot-path; its long forward is left out (MLA
+   takes the plain masked product at any length: no kernel).
+21. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
    their plain versions on the card: the reference's kernel cases
    (tests/test_kernels.py) in fp32 and bf16, cases across the
    kernels' tile edges and their plain loads (`FA_CASES`, `SSD_CASES`;
    one case each in both dtypes with its first input at an offset of 2
    elements), and the inputs each path really gave (captured during
-   phases 10-16: each arch's first SSD call in serving and in the long
+   phases 10-19: each arch's first SSD call in serving and in the long
    forward, its first flash call for each window); each case records
    the route it took (the bf16 or the fp32 kernel) and fails on the
    other.  Tolerances: flash 2e-6 (fp32) and 2e-2 (bf16), the
    reference's; SSD 1e-4 in fp32, the reference's, and in bf16 one
    bf16 ulp of y (1e-4 + 2^-7 |y|: both sides compute in fp32 and round
    y once) with the fp32 state at 1e-4 + 1e-5 |state|.
-18. llm-times: both kernels at the path shapes of zamba2, mamba2 and
-   gemma3 (gemma3's local and global flash calls apart; CUDA events,
+22. llm-times: both kernels at the path shapes of zamba2, mamba2,
+   gemma3 and mixtral (gemma3's local and global flash calls apart; CUDA events,
    after warm-up), in bf16 and then on the same inputs cast to fp32,
    each dtype on its own kernels, with the launch counts reset just
    before each dtype's run and read just after (the fp32 route's
@@ -147,26 +175,26 @@ each printed as one JSON line:
    is what lets the flash bound count all its products at the bf16
    tensor-core rate.
 
-19. race: `map_dfg(backend="race")` with the portfolio side on the card,
+23. race: `map_dfg(backend="race")` with the portfolio side on the card,
    on C5K5 bandmap (its (II, routing PEs) must be the golden pair) and
    on the forced loser of tests/test_exact_race.py (busmap, max_ii 2,
    certify off, seed 7: the exact side must win, and the cancelled
    portfolio may run at most one chunk of iterations past the cancel).
    Every "race-side" span must carry its ``ok`` (a side that raised
    lacks it: the race would have degraded around it).
-20. comap: `co_map` on the card on the tier-1 cases of
+24. comap: `co_map` on the card on the tier-1 cases of
    tests/test_comap.py and on `COMAP_PORTFOLIO_PAIR`; every ok merged
    binding must pass the port's validator, the 2x2 case must fail
    cleanly.
-21. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
+25. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
    point) on the card, `SERVICE_TRACE` requests at 8x8 with
    `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
    outcome, no serve-crash event, every ok result valid.  Requests/s,
    p50/p95/p99 latency, sources, hit rates, the slowest requests.
-22. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
+26. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
    with their span walls by name (`obs.export.to_json`) and
    `MappingResult.explain()`'s report.
-Each of phases 19-22 resets the launch counts just before it and reads
+Each of phases 23-26 resets the launch counts just before it and reads
 them just after: `selection_counts` must have launched.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
@@ -272,7 +300,8 @@ LOGIT_TOL = 0.15        # the reference's hybrid tolerance (test_models.py)
 # The reference's tolerance per family (tests/test_models.py:100):
 # teacher-forced logits in fp32 are held to it; bf16 decode argmaxes
 # wherever the no-cache top-2 margin exceeds 2 * LOGIT_TOL.
-FAMILY_TOL = {"hybrid": LOGIT_TOL, "ssm": LOGIT_TOL, "dense": 3e-2}
+FAMILY_TOL = {"hybrid": LOGIT_TOL, "ssm": LOGIT_TOL, "dense": 3e-2,
+              "moe": 3e-2}
 FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SSD_ATOL = 1e-4
 SSD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -335,8 +364,41 @@ SSD_PASSES_FP32 = {"scores": 3, "gate": 3, "state": 3, "inter": 3}
 # The route keys of the kernels with one per dtype (`LAUNCHES`).
 ROUTES = ("bf16", "fp32")
 ROUTE_OF = {"bfloat16": "bf16", "float32": "fp32"}
-LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention")
+LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention", "ragged_dot")
                  for r in ("", "_bf16", "_fp32"))
+# The moe family: mixtral-8x7b at its published widths cut to 4 of its 32
+# layers (46.7e9 parameters, 187 GB in fp32, do not fit one card; 4
+# layers hold 6.07e9), and deepseek-v2-lite-16b uncut (16.2e9, 64.9 GB
+# in fp32), each served with the traffic above; mixtral's no-cache
+# forward at 8192 tokens takes flash with its 4096 window on every
+# layer.  deepseek's long forward is left out: MLA takes the plain
+# masked product at every length (V's width is not Q's), and its 16
+# heads' 8192^2 fp32 scores would add 4.3 GB a copy to 65 GB of weights.
+MOE_ARCHS = ("mixtral-8x7b", "deepseek-v2-lite-16b")
+MOE_REDUCED = {"mixtral-8x7b": {"n_layers": 4}, "deepseek-v2-lite-16b": {}}
+MOE_LONG = ("mixtral-8x7b",)
+# ragged_dot against its plain version: both sum each row's products in
+# fp32 and round once to bf16, in other orders, so a result next to a
+# rounding edge may land one bf16 ulp away: 1e-4 + 2^-7 |y|; on fp32
+# inputs (the fp32 compute mode's route) the fp32 sums themselves,
+# 1e-4 + 1e-5 |y| (the SSD scan's fp32 tolerance).
+RAGGED_ATOL = 1e-4
+RAGGED_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# (M, K, N, group sizes or a seed for random sizes over G groups):
+# empty groups, one group holding every row, M off the 128-row tile,
+# tiles that span several groups, K and N at mixtral's and deepseek's
+# widths (both projections), and K or N off a multiple of 8 (the plain
+# loads).
+RAGGED_CASES = [(8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
+                (257, 64, 96, [257]), (129, 64, 128, [0, 0, 129, 0]),
+                (300, 70, 198, [0, 100, 0, 150, 40]),
+                (200, 64, 100, [50, 50, 50, 50]),
+                (1000, 128, 256, ("random", 64)),
+                (8, 4096, 14336, [1, 1, 2, 0, 1, 1, 1, 1]),
+                (8000, 4096, 14336, ("random", 8)),
+                (8000, 14336, 4096, ("random", 8)),
+                (24000, 2048, 1408, ("random", 64)),
+                (24, 1408, 2048, ("random", 64))]
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -705,11 +767,15 @@ class Capture:
     a copy of the arguments of the first call for each value of
     ``key(args, kwargs)`` (one key for all calls unless given), with the
     number of calls for each: the inputs the path really gives the
-    kernel.  The wrapped call still counts its own launch."""
+    kernel.  The wrapped call still counts its own launch.  With
+    ``clone=False`` the arguments are kept as they are (for inputs the
+    path does not write after the call, such as the grouped products'
+    operands, whose expert weights are too large to copy)."""
 
-    def __init__(self, module, name: str, key=None) -> None:
+    def __init__(self, module, name: str, key=None, clone=True) -> None:
         self.module, self.name = module, name
         self.key = key or (lambda args, kwargs: None)
+        self.clone = clone
         self.calls: dict = {}
         self.counts: dict = {}
 
@@ -729,7 +795,8 @@ class Capture:
     def _call(self, *args, **kwargs):
         key = self.key(args, kwargs)
         if key not in self.calls:
-            self.calls[key] = (tuple(a.clone() for a in args), dict(kwargs))
+            self.calls[key] = (tuple(a.clone() if self.clone else a
+                                     for a in args), dict(kwargs))
         self.counts[key] = self.counts.get(key, 0) + 1
         return self.orig(*args, **kwargs)
 
@@ -740,6 +807,13 @@ class Capture:
 def by_window(args, kwargs):
     """A flash call's window: 0 for plain causal, as the kernel takes it."""
     return int(kwargs.get("window") or 0)
+
+
+def by_projection(args, kwargs):
+    """A grouped product's (rows, K, N): the gate and up projections of a
+    forward share one key, the down projection has its own."""
+    x, w, _ = args
+    return (x.shape[0], w.shape[1], w.shape[2])
 
 
 class StepClock:
@@ -774,27 +848,39 @@ def top2_margin(logits):
 
 
 class compute_dtype:
-    """While entered, the port's dense layers, embedding and tied
-    unembedding compute in ``dtype`` (their default is bf16, as in the
-    reference)."""
+    """While entered, the port's dense layers, embedding, tied
+    unembedding and MoE FFNs compute in ``dtype`` (their default is bf16,
+    as in the reference)."""
 
     def __init__(self, dtype) -> None:
         self.dtype = dtype
 
     def __enter__(self) -> None:
-        from repro_torch.models import layers
+        from repro_torch.models import layers, moe
         self.saved = (layers.dense.__kwdefaults__["compute_dtype"],
-                      layers.embed.__defaults__, layers.unembed.__defaults__)
+                      layers.embed.__defaults__, layers.unembed.__defaults__,
+                      moe.moe_ffn.__kwdefaults__["compute_dtype"])
         layers.dense.__kwdefaults__["compute_dtype"] = self.dtype
         layers.embed.__defaults__ = (self.dtype,)
         layers.unembed.__defaults__ = (self.dtype,
                                        layers.unembed.__defaults__[1])
+        for fn in (moe.moe_ffn, moe.moe_ffn_capacity):
+            fn.__kwdefaults__["compute_dtype"] = self.dtype
 
     def __exit__(self, *exc) -> None:
-        from repro_torch.models import layers
+        from repro_torch.models import layers, moe
         layers.dense.__kwdefaults__["compute_dtype"] = self.saved[0]
         layers.embed.__defaults__ = self.saved[1]
         layers.unembed.__defaults__ = self.saved[2]
+        for fn in (moe.moe_ffn, moe.moe_ffn_capacity):
+            fn.__kwdefaults__["compute_dtype"] = self.saved[3]
+
+
+def ragged_calls(cfg) -> int:
+    """The grouped products of one forward: three per MoE layer on the
+    ragged path (gate, up, down), none on the capacity path."""
+    return 3 * cfg.n_layers if cfg.family == "moe" and \
+        cfg.moe_impl == "ragged" else 0
 
 
 def ssd_calls(cfg) -> int:
@@ -803,12 +889,14 @@ def ssd_calls(cfg) -> int:
 
 
 def attention_calls(cfg) -> int:
-    """The attention calls of one forward: zamba2's shared-block
-    invocations, or one per dense layer."""
+    """The flash-capable attention calls of one forward: zamba2's
+    shared-block invocations, or one per GQA layer (MLA takes the plain
+    masked product)."""
     from repro_torch.models import transformer as T
     if cfg.family == "hybrid":
         return T.n_hybrid_attn_invocations(cfg)
-    return cfg.n_layers if cfg.family == "dense" else 0
+    return cfg.n_layers if cfg.family in ("dense", "moe") and \
+        cfg.attn_kind == "gqa" else 0
 
 
 def free_model() -> None:
@@ -862,13 +950,16 @@ def teacher_forced(cfg, model, dev, wave, forced, s_max, cache_dtype):
     return out
 
 
-def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
+def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, dict]:
     """`WaveServer` over two waves, with the launch counts read around
     them; then teacher-forced prefill and decode against the no-cache
-    forward.  Emits the phase's line (with ``extra``) before its checks."""
+    forward.  Emits the phase's line (with ``extra``) before its checks.
+    Returns the row and the waves' captured kernel inputs ("ssd_serve",
+    "ragged_serve")."""
     import numpy as np
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ragged_dot import ops as rd_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import WaveServer
     from repro_torch.models import layers
@@ -876,7 +967,7 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
 
     t_phase = time.perf_counter()
     tol = FAMILY_TOL[cfg.family]
-    n_ssd = ssd_calls(cfg)
+    n_ssd, n_rd = ssd_calls(cfg), ragged_calls(cfg)
     s_max = SERVE_PROMPT + SERVE_NEW + 8
     server = WaveServer(cfg, model, slots=SERVE_SLOTS, s_max=s_max)
     prompts = np.random.default_rng(0).integers(
@@ -884,6 +975,8 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with Capture(ssd_ops, "ssd") as cap, \
+            Capture(rd_ops, "ragged_dot", key=by_projection,
+                    clone=False) as rd_cap, \
             StepClock(M, "prefill_step") as pre, \
             StepClock(M, "serve_step") as dec, \
             StepClock(layers, "unembed") as unembed:
@@ -966,13 +1059,24 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
     check(launches["flash_attention"] == 0,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in serving; the cached prefill takes sdpa")
+    # A wave is SERVE_NEW forwards: its prefill and SERVE_NEW - 1 steps.
+    for name in ("ragged_dot", "ragged_dot_bf16"):
+        check(launches[name] == 2 * SERVE_NEW * n_rd,
+              f"{name} launched {launches[name]} times in serving, "
+              f"expected {2 * SERVE_NEW * n_rd} ({n_rd} a forward, bf16)")
+    # A teacher-forced run is its no-cache forward, its prefill and one
+    # step for each forced token but the last.
+    tf_forwards = 2 + forced.shape[1] - 1
     for name, counts in tf_launches.items():
         want = {k: 0 for k in LLM_KEYS}
-        want.update({"ssd": 2 * n_ssd, f"ssd_{name}": 2 * n_ssd})
+        want.update({"ssd": 2 * n_ssd, f"ssd_{name}": 2 * n_ssd,
+                     "ragged_dot": tf_forwards * n_rd,
+                     f"ragged_dot_{name}": tf_forwards * n_rd})
         check(counts == want,
               f"the {name} teacher-forced run launched {counts}, expected "
               f"{want} ({n_ssd} ssd in its forward, {n_ssd} in its "
-              f"prefill)")
+              f"prefill; {n_rd} ragged_dot in each of its {tf_forwards} "
+              f"forwards)")
     check(torch.equal(first_token,
                       torch.from_numpy(tokens[:SERVE_SLOTS, 0]).long()),
           "a replayed prefill disagrees with the served first token")
@@ -993,7 +1097,7 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, Capture]:
           f"no-cache forward at {sum(bf16['argmax_flips'])} of "
           f"{sum(bf16['clear_rows'])} rows whose top-2 margin exceeds "
           f"{2 * LOGIT_TOL}")
-    return row, cap
+    return row, {"ssd_serve": cap, "ragged_serve": rd_cap}
 
 
 def llm_forward_long(cfg, model, dev, extra: dict):
@@ -1004,6 +1108,7 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ragged_dot import ops as rd_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
@@ -1013,6 +1118,8 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     torch.cuda.reset_peak_memory_stats()
     with Capture(fa_ops, "flash_attention", key=by_window) as fa_cap, \
             Capture(ssd_ops, "ssd") as ssd_cap, \
+            Capture(rd_ops, "ragged_dot", key=by_projection,
+                    clone=False) as rd_cap, \
             StepClock(layers, "unembed") as unembed, torch.inference_mode():
         reset_launches()
         t0 = time.perf_counter()
@@ -1035,7 +1142,11 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     for name in ("flash_attention", "flash_attention_bf16"):
         check(launches[name] == n_attn,
               f"{name} launched {launches[name]} times, expected {n_attn}")
-    if cfg.family == "dense":
+    for name in ("ragged_dot", "ragged_dot_bf16"):
+        check(launches[name] == ragged_calls(cfg),
+              f"{name} launched {launches[name]} times, expected "
+              f"{ragged_calls(cfg)}")
+    if n_attn and cfg.family in ("dense", "moe"):
         windows = T.layer_windows(cfg) if cfg.sliding_window is not None \
             else np.zeros(cfg.n_layers, np.int32)
         want = {int(w): int((windows == w).sum()) for w in set(windows)}
@@ -1045,7 +1156,8 @@ def llm_forward_long(cfg, model, dev, extra: dict):
         check(launches[name] == n_ssd,
               f"{name} launched {launches[name]} times, expected {n_ssd}")
     check(finite, "the long forward gave a non-finite logit")
-    return row, fa_cap, ssd_cap
+    return row, {"flash_long": fa_cap, "ssd_long": ssd_cap,
+                 "ragged_long": rd_cap}
 
 
 def llm_dense_widths(dev, card: str) -> tuple[list, dict]:
@@ -1128,6 +1240,258 @@ def llm_dense_widths(dev, card: str) -> tuple[list, dict]:
               r["wave"]["shape"] == [SERVE_SLOTS, DENSE_WIDTH_NEW],
               f"{r['arch']}: the wave's tokens {r['wave']['shape']}")
     return rows, caps
+
+
+# ------------------------------------------------ the moe family
+def ragged_err(got, want) -> tuple[float, bool]:
+    """(max |d|, within `RAGGED_ATOL` + `RAGGED_RTOL` |want| for the
+    dtype)."""
+    d = (got.float() - want.float()).abs()
+    if d.numel() == 0:
+        return 0.0, True
+    rtol = RAGGED_RTOL[str(want.dtype).split(".")[1]]
+    ok = bool((d <= RAGGED_ATOL + rtol * want.float().abs()).all())
+    return float(d.max()), ok
+
+
+def ragged_inputs(m, k, n, sizes, gen, dev, offset=False,
+                  dtype=None):
+    """x (m, k) and w (G, k, n) ~ N(0, 1) and N(0, 1/k) in ``dtype``
+    (bf16 unless given), and the int32 offsets of ``sizes`` (a list, or
+    ("random", G): m rows dealt to G groups at random, some of them
+    empty)."""
+    import numpy as np
+    import torch
+    if isinstance(sizes, tuple):
+        groups = sizes[1]
+        p = np.random.default_rng(m + k + n).dirichlet(np.ones(groups))
+        p[::5] = 0.0
+        sizes = np.random.default_rng(m).multinomial(m, p / p.sum())
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                        dtype=torch.int32, device=dev)
+    dtype = dtype or torch.bfloat16
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    if offset:
+        x = _at_offset(x)
+    w = (torch.randn((len(sizes), k, n), generator=gen, device=dev)
+         * k ** -0.5).to(dtype)
+    return x, w, offs
+
+
+def ragged_vs_plain(dev) -> dict:
+    """`ragged_dot` on the card against its plain version on the card, on
+    `RAGGED_CASES` in bf16 (the path's) and, but for the largest, in fp32
+    (the fp32 compute mode's route), with x 2 elements into its storage
+    (the plain loads), and with offsets that leave rows before the first
+    group and past the last (written as zeros); and one call under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
+    sync.  Every call must add one launch, on its dtype's route."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    runs = [(c, False, torch.bfloat16) for c in RAGGED_CASES] + \
+        [(RAGGED_CASES[1], True, torch.bfloat16)] + \
+        [(c, False, torch.float32) for c in RAGGED_CASES
+         if c[0] * c[1] * c[2] < 1e10]
+    for (m, k, n, sizes), offset, dtype in runs:
+        x, w, offs = ragged_inputs(m, k, n, sizes, gen, dev, offset, dtype)
+        name = str(dtype).split(".")[1]
+        route = ROUTE_OF[name]
+        before = dict(LAUNCHES)
+        got = ragged_dot(x, w, offs)
+        torch.cuda.synchronize()
+        launched = (LAUNCHES["ragged_dot"] - before["ragged_dot"],
+                    LAUNCHES[f"ragged_dot_{route}"] -
+                    before[f"ragged_dot_{route}"])
+        err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
+        cases.append(dict(m=m, k=k, n=n, groups=w.shape[0], dtype=name,
+                          empty_groups=int((offs.diff() == 0).sum()),
+                          x_at_offset_2=offset, max_abs_err=err))
+        check(ok and launched == (1, 1),
+              f"ragged_dot ({m}, {k}, {n}, {w.shape[0]} groups, {name}, "
+              f"offset {offset}): max |d| {err}, launches {launched}")
+    x, w, _ = ragged_inputs(300, 64, 96, [100, 100, 100], gen, dev)
+    offs = torch.tensor([20, 120, 120, 250], dtype=torch.int32, device=dev)
+    got = ragged_dot(x, w, offs)
+    err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
+    outside = bool((got[:20] == 0).all() and (got[250:] == 0).all())
+    cases.append(dict(m=300, k=64, n=96, offsets=offs.tolist(),
+                      max_abs_err=err, rows_outside_zero=outside))
+    check(ok and outside, f"ragged_dot with rows outside the groups: "
+                          f"max |d| {err}, zeros {outside}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ragged_dot(x, w, offs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(cases=cases, no_host_sync=True,
+                max_abs_err=max(c["max_abs_err"] for c in cases
+                                if c.get("dtype") != "float32"),
+                max_abs_err_fp32=max(c["max_abs_err"] for c in cases
+                                     if c.get("dtype") == "float32"))
+
+
+def ragged_bound(m, k, n, groups_used, groups) -> dict:
+    """The least time of the grouped product: 2 m k n FLOP at the bf16
+    tensor-core rate, against x, the weights of the groups this input
+    uses, y and the offsets, each moved once."""
+    flop = 2 * m * k * n
+    nbytes = 2 * (m * k + groups_used * k * n + m * n) + 4 * (groups + 1)
+    t_ops, t_bytes = flop / PEAK_BF16_S, nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop, bytes=nbytes)
+
+
+def ragged_path(arch: str, cfg, caps: dict) -> list:
+    """`ragged_dot` at each grouped product the arch's path gave (the
+    serving waves' prefill and decode, the long forward's; gate and up
+    share a shape, down has its own), while the model is on the card:
+    the error against the plain version (checked), ms (CUDA events,
+    after warm-up), the plain version's ms, the bound, and two library
+    yardsticks on the same inputs, never used by the port:
+    ``torch._grouped_mm`` (it takes the offsets on the card) and a loop
+    of ``torch.matmul`` over the groups (which reads the offsets back
+    first, inside the timed call).  The launch count must equal the
+    kernel calls made here."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    rows, calls = [], 0
+    reset_launches()
+    for source, cap in caps.items():
+        for (m, k, n), (args, _) in cap.calls.items():
+            x, w, offs = args
+            stage = source if source == "long" else \
+                ("decode" if m <= SERVE_SLOTS * cfg.top_k else "prefill")
+            label = f"{stage} {'gate/up' if k == cfg.d_model else 'down'}"
+            err, ok = ragged_err(ragged_dot(x, w, offs),
+                                 ragged_dot_ref(x, w, offs))
+            check(ok, f"ragged_dot at {arch}'s {label} ({m}, {k}, {n}): "
+                      f"max |d| {err}")
+            reps = 20 if m >= 1000 else 50
+            row = dict(arch=arch, label=label, m=m, k=k, n=n,
+                       groups=w.shape[0], max_abs_err=err,
+                       calls_in_path=cap.counts[(m, k, n)],
+                       ms=cuda_ms(lambda: ragged_dot(x, w, offs), reps),
+                       plain_ms=cuda_ms(lambda: ragged_dot_ref(x, w, offs),
+                                        2))
+            calls += 2 + reps
+            try:
+                lib = torch._grouped_mm(x, w, offs=offs[1:])
+                row.update(
+                    library="torch._grouped_mm",
+                    library_max_abs_err=ragged_err(
+                        lib, ragged_dot_ref(x, w, offs))[0],
+                    library_ms=cuda_ms(
+                        lambda: torch._grouped_mm(x, w, offs=offs[1:]),
+                        reps))
+            except (RuntimeError, TypeError) as e:
+                row.update(library="torch._grouped_mm", library_ms=None,
+                           library_error=str(e)[:200])
+
+            def loop():
+                bounds = offs.tolist()
+                out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+                for g in range(w.shape[0]):
+                    lo, hi = bounds[g], bounds[g + 1]
+                    if hi > lo:
+                        torch.matmul(x[lo:hi], w[g], out=out[lo:hi])
+                return out
+
+            used = int((offs.diff() > 0).sum())
+            row.update(library_loop_ms=cuda_ms(loop, reps),
+                       groups_used=used,
+                       **ragged_bound(m, k, n, used, w.shape[0]))
+            rows.append(row)
+    check(LAUNCHES["ragged_dot"] == calls,
+          f"{arch}: ragged_dot launched {LAUNCHES['ragged_dot']} times in "
+          f"{calls} calls")
+    return rows
+
+
+def moe_capacity(cfg, model, dev) -> dict:
+    """The capacity dispatch (``moe_impl="capacity"``) on the same model:
+    a no-cache forward of `SERVE_SLOTS` x `SERVE_PROMPT` tokens with the
+    launch counts read around it: `ragged_dot` never (the batched
+    products are torch's, as the reference leaves them to XLA)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as T
+    ccfg = dataclasses.replace(cfg, moe_impl="capacity")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    with torch.inference_mode():
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, aux, _ = T.forward(ccfg, model, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS}
+    row = dict(arch=cfg.name, moe_impl="capacity",
+               tokens=list(toks.shape), wall_s=wall, launches=launches,
+               aux=float(aux), finite=bool(torch.isfinite(logits).all()))
+    check(launches["ragged_dot"] == 0,
+          f"the capacity path launched ragged_dot "
+          f"{launches['ragged_dot']} times")
+    check(row["finite"], "the capacity path gave a non-finite logit")
+    return row
+
+
+def llm_moe(dev, card: str, captured: dict) -> dict:
+    """The moe family: each of `MOE_ARCHS` at its published widths (cut
+    as `MOE_REDUCED` says) served by `WaveServer` (`llm_serve`), mixtral
+    run long (`llm_forward_long`: flash with its window on every layer)
+    and through the capacity dispatch (`moe_capacity`), then
+    `ragged_dot` at every path shape (`ragged_path`) while the model is
+    on the card; each model is freed before the next.  Emits each
+    phase's line; the flash inputs join ``captured`` for phases 21-22."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as llm
+    out = dict(serve={}, long={}, ragged=[], capacity=None)
+    for arch in MOE_ARCHS:
+        reduced = MOE_REDUCED[arch]
+        cfg = dataclasses.replace(get_config(arch), **reduced)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = llm.init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        extra = dict(card=card, reduced=reduced,
+                     init_s=time.perf_counter() - t0,
+                     params=sum(p.numel() for p in model.parameters()),
+                     allocated_after_init_bytes=torch.cuda.memory_allocated())
+        out["serve"][arch], serve_caps = llm_serve(cfg, model, dev, extra)
+        caps = {"serve": serve_caps["ragged_serve"]}
+        del serve_caps
+        if arch in MOE_LONG:
+            out["long"][arch], long_caps = llm_forward_long(
+                cfg, model, dev, dict(card=card, reduced=reduced))
+            captured[arch] = {"flash_long": long_caps["flash_long"]}
+            caps["long"] = long_caps["ragged_long"]
+            del long_caps
+            out["capacity"] = moe_capacity(cfg, model, dev)
+            emit(dict(phase="llm-moe-capacity", card=card,
+                      **out["capacity"]))
+        rows = ragged_path(arch, cfg, caps)
+        emit(dict(phase="ragged-dot-path", card=card, arch=arch,
+                  reduced=reduced, runs=rows))
+        out["ragged"] += rows
+        del model, caps
+        free_model()
+    return out
 
 
 def _route(name: str, before: dict) -> str:
@@ -1391,14 +1755,15 @@ def time_specs(captured: dict) -> tuple[list, list]:
     local and global layers) and of SSD (the long forward's and the
     serving prefill's), zamba2's first, under their earlier labels."""
     flash, ssd_rows = [], []
-    for arch in (LLM_ARCH,) + FAMILY_ARCHS:
+    for arch in (LLM_ARCH,) + FAMILY_ARCHS + MOE_LONG:
         caps = captured[arch]
-        for key, (args, kwargs) in caps["flash_long"].calls.items():
-            label = "flash_long" if arch == LLM_ARCH else \
+        calls = caps["flash_long"].calls
+        for key, (args, kwargs) in calls.items():
+            label = "flash_long" if len(calls) == 1 else \
                 ("flash_local" if key else "flash_global")
             flash.append((arch, label, args, kwargs))
         for label in ("ssd_long", "ssd_serve"):
-            if caps[label].calls:
+            if label in caps and caps[label].calls:
                 ssd_rows.append((arch, label, caps[label].args,
                                  caps[label].kwargs))
     return flash, ssd_rows
@@ -2123,20 +2488,30 @@ def main() -> int:
         model = llm.init_params(cfg, 0, device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        serve_rows[arch], ssd_serve = llm_serve(
+        serve_rows[arch], serve_caps = llm_serve(
             cfg, model, dev, dict(card=card, init_s=init_s, params=sum(
                 p.numel() for p in model.parameters())))
-        long_rows[arch], fa_long, ssd_long = llm_forward_long(
+        long_rows[arch], long_caps = llm_forward_long(
             cfg, model, dev, dict(card=card))
-        captured[arch] = {"flash_long": fa_long, "ssd_long": ssd_long,
-                          "ssd_serve": ssd_serve}
-        del model
+        captured[arch] = {"flash_long": long_caps["flash_long"],
+                          "ssd_long": long_caps["ssd_long"],
+                          "ssd_serve": serve_caps["ssd_serve"]}
+        del model, serve_caps, long_caps
         free_model()
     dense_rows, dense_caps = llm_dense_widths(dev, card)
     captured.update({arch: {"flash_long": cap}
                      for arch, cap in dense_caps.items()})
 
-    # ---- 17-18. the kernels against their plain versions and their
+    # ---- 17-20. the moe family: ragged_dot against its plain version,
+    # then mixtral-8x7b (4 layers) and deepseek-v2-lite-16b (uncut)
+    rd_vs = ragged_vs_plain(dev)
+    emit(dict(phase="ragged-dot-vs-plain",
+              tolerance=dict(atol=RAGGED_ATOL, rtol=RAGGED_RTOL), **rd_vs))
+    moe = llm_moe(dev, card, captured)
+    serve_rows.update(moe["serve"])
+    long_rows.update(moe["long"])
+
+    # ---- 21-22. the kernels against their plain versions and their
     # times, at every path's captured inputs
     llm_vs = llm_kernels_vs_plain(dev, captured)
     emit(dict(phase="llm-kernels-vs-plain",
@@ -2158,7 +2533,7 @@ def main() -> int:
     fa_err = max(max(c["max_abs_err"] for c in llm_vs["flash_attention"]),
                  path_err["flash"])
 
-    # ---- 19-22. the service tier: race, co-mapping, the serve tier
+    # ---- 23-26. the service tier: race, co-mapping, the serve tier
     # behind --map-trace, and traced maps with their explain reports
     service = {}
     for run in (service_race, service_comap, service_trace,
@@ -2173,7 +2548,7 @@ def main() -> int:
         forward_long=long_rows[arch]["launches"]["flash_attention_bf16"],
         forward_long_by_window=long_rows[arch]["flash_calls_by_window"],
         serve=serve_rows[arch]["launches"]["flash_attention"])
-        for arch in serve_rows}
+        for arch in serve_rows if arch in long_rows}
     flash_launches.update({r["arch"]: dict(
         forward_long=r["long"]["launches"]["flash_attention_bf16"],
         wave=r["wave"]["launches"]["flash_attention"], reduced=r["reduced"])
@@ -2186,6 +2561,19 @@ def main() -> int:
         for arch in serve_rows if ssd_calls(get_config(arch))}
     row = next(t for t in times
                if t["graph"] == "C4K8@16x16:bandmap" and t["k"] == 1024)
+    rd_row = next(r for r in moe["ragged"] if r["arch"] == MOE_ARCHS[0]
+                  and r["label"] == "prefill gate/up")
+    rd_keys = ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+               "library_loop_ms", "max_abs_err", "groups_used",
+               "calls_in_path")
+    rd_launches = {arch: dict(
+        serve=r["launches"]["ragged_dot"],
+        teacher_forced=r["teacher_forced_launches"]["bf16"]["ragged_dot"],
+        forward_long=moe["long"][arch]["launches"]["ragged_dot"]
+        if arch in moe["long"] else None)
+        for arch, r in moe["serve"].items()}
+    rd_launches[MOE_ARCHS[0]]["capacity_forward"] = \
+        moe["capacity"]["launches"]["ragged_dot"]
     emit({"kernels": [dict(
         name="selection_counts", route="cuda",
         source="src/repro_torch/kernels/sbts_step/csrc/"
@@ -2251,7 +2639,27 @@ def main() -> int:
                  launches_from="llm-times (both path shapes)",
                  launches_serving=serve_rows[LLM_ARCH][
                      "teacher_forced_launches"]["fp32"]["ssd_fp32"]),
-             path_shapes=path_shapes(llm_rows, "ssd"))],
+             path_shapes=path_shapes(llm_rows, "ssd")),
+        dict(name="ragged_dot", route="cuda",
+             source="src/repro_torch/kernels/ragged_dot/csrc/ragged_dot.cu",
+             replaces="src/repro/models/moe.py:67 (jax.lax.ragged_dot in "
+                      "moe_ffn, an XLA operation: no pl.pallas_call)",
+             launches=rd_launches[MOE_ARCHS[0]]["serve"],
+             launches_from=f"llm-serve, {MOE_ARCHS[0]}",
+             launches_by_arch=rd_launches,
+             max_abs_err=max([rd_vs["max_abs_err"]] +
+                             [r["max_abs_err"] for r in moe["ragged"]]),
+             ms=rd_row["ms"], plain_ms=rd_row["plain_ms"],
+             bound_ms=rd_row["bound_ms"], bound_by=rd_row["bound_by"],
+             library_ms=rd_row["library_ms"], library="torch._grouped_mm",
+             library_loop_ms=rd_row["library_loop_ms"],
+             shape=f"({rd_row['m']}, {rd_row['k']}) x ({rd_row['groups']}, "
+                   f"{rd_row['k']}, {rd_row['n']}) bf16 ({MOE_ARCHS[0]} "
+                   f"prefill gate/up)",
+             path_shapes=[dict({k: r[k] for k in rd_keys}, arch=r["arch"],
+                               label=r["label"],
+                               shape=[r["m"], r["k"], r["n"], r["groups"]])
+                          for r in moe["ragged"]])],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,8 +5,8 @@ Every assigned architecture is a module ``configs/<id>.py`` exposing
 reduced same-family config for CPU smoke tests).  The port holds only
 the configurations of the families it runs (`hybrid`: zamba2-1.2b;
 `ssm`: mamba2-2.7b; `dense`: gemma3-4b, qwen1.5-4b, glm4-9b,
-starcoder2-7b); asking for another (the `moe`, MLA, `encdec` and vision
-archs) raises `NotImplementedError`.  ``input_specs`` (the dry-run's
+starcoder2-7b; `moe`: mixtral-8x7b, deepseek-v2-lite-16b); asking for
+another (the `encdec` and vision archs) raises `NotImplementedError`.  ``input_specs`` (the dry-run's
 stand-ins) waits for the dry-run item.
 """
 
@@ -32,7 +32,7 @@ LONG_OK: frozenset = frozenset(
 #: the architectures whose config module the port holds.
 PORTED: frozenset = frozenset(
     {"zamba2-1.2b", "mamba2-2.7b", "gemma3-4b", "qwen1.5-4b", "glm4-9b",
-     "starcoder2-7b"})
+     "starcoder2-7b", "mixtral-8x7b", "deepseek-v2-lite-16b"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +57,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"{arch}'s configuration is not ported yet (ROADMAP Queue 1, "
-            f"item 11: the moe, MLA, encdec and vision families)")
+            f"item 11: the encdec and vision families)")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
 

@@ -38,6 +38,14 @@ and ``ops.py`` (the checked wrapper):
                     split-bf16 operands), fp32 to ``ssd.cu`` (split-TF32
                     operands, 3xTF32; mma.sync, and wgmma for the last
                     stage up to N = 64)
+- ragged_dot/       ``ragged_dot``: the grouped matrix product of the
+                    MoE FFN (rows sorted by expert, each expert's rows
+                    times its own weights), with the group offsets read
+                    on the card: bf16 on mma.sync, fp32 on the CUDA
+                    cores — the port's counterpart of
+                    ``jax.lax.ragged_dot`` in
+                    ``repro/models/moe.py::moe_ffn``, an XLA operation
+                    with no Pallas kernel behind it
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
@@ -59,7 +67,9 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "flash_attention": 0,
                              "flash_attention_bf16": 0,
                              "flash_attention_fp32": 0,
-                             "ssd": 0, "ssd_bf16": 0, "ssd_fp32": 0}
+                             "ssd": 0, "ssd_bf16": 0, "ssd_fp32": 0,
+                             "ragged_dot": 0, "ragged_dot_bf16": 0,
+                             "ragged_dot_fp32": 0}
 
 
 def count_launch(name: str, route: str | None = None) -> None:

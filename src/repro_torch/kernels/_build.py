@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention_tc": ("flash_attention/csrc/flash_attention_tc.cu",),
     "ssd": ("ssd/csrc/ssd.cu",),
     "ssd_tc": ("ssd/csrc/ssd_tc.cu",),
+    "ragged_dot": ("ragged_dot/csrc/ragged_dot.cu",),
 }
 
 #: library name -> headers its sources include, hashed with them so an
@@ -42,6 +43,7 @@ HEADERS = {
     "flash_attention": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
     "flash_attention_tc": ("csrc/sm90.cuh",),
     "ssd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
+    "ragged_dot": ("csrc/sm90.cuh",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

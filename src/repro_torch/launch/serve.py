@@ -6,10 +6,12 @@ next wave starts when the wave completes.
       --requests 8 --gen 32
 
 ``--arch`` takes the ported archs: zamba2-1.2b (`hybrid`), mamba2-2.7b
-(`ssm`), gemma3-4b, qwen1.5-4b, glm4-9b and starcoder2-7b (`dense`).
-The prefill of a wave fills the decode cache (the Mamba2 layers' SSD scan
-runs as the CUDA kernel on the card; attention takes the plain masked
-product with a cache, as in the reference) and each decode tick is one
+(`ssm`), gemma3-4b, qwen1.5-4b, glm4-9b and starcoder2-7b (`dense`),
+mixtral-8x7b and deepseek-v2-lite-16b (`moe`).  The prefill of a wave
+fills the decode cache (the Mamba2 layers' SSD scan and the MoE layers'
+grouped products run as CUDA kernels on the card; attention takes the
+plain masked product with a cache, as in the reference) and each decode
+tick is one
 `model.serve_step`.  PyTorch runs eagerly: there is no compiled step, and
 the cache is updated in place with the reference's ``pos`` semantics.
 

@@ -1,13 +1,19 @@
-"""Attention for the architecture pool: GQA (grouped-query) with
-optional QKV bias, RoPE / M-RoPE, causal and sliding-window masks —
-zamba2's shared attention block and the dense families' layers.
+"""Attention for the architecture pool:
 
-Long sequences go to the flash-attention kernel
+- GQA (grouped-query) with optional QKV bias, RoPE / M-RoPE, causal and
+  sliding-window masks — zamba2's shared attention block and the dense
+  and moe families' layers (mixtral: a 4096 window on every layer);
+- MLA (multi-head latent attention, DeepSeek-V2): a low-rank compressed
+  KV cache (c_kv, k_pe), with both the naive decode path (materialise K
+  and V) and the *absorbed* one (attention in the latent space).
+
+GQA's long sequences go to the flash-attention kernel
 (`repro_torch.kernels.flash_attention`: the CUDA kernel for tensors on
 the card, its plain torch version on the CPU), at the reference's
 thresholds; short ones and every cached step take the plain masked
-product `sdpa`, as the reference does.  MLA and cross-attention are not
-ported (they raise).
+product `sdpa`, as the reference does.  MLA always takes `sdpa`, as the
+reference does (V's width is not Q's and K's).  Cross-attention is not
+ported (it raises).
 
 Shapes follow (B, S, H, D); KV caches are (B, S_max, H_kv, D).
 """
@@ -19,10 +25,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
-from .layers import Dense, apply_rope
+from .layers import Dense, apply_rope, einsum
 
-_MLA_TODO = ("MLA attention is not ported yet: it comes with the "
-             "moe family (ROADMAP Queue 1, item 11)")
 _CROSS_TODO = ("cross-attention is not ported yet: it comes with the "
                "encdec family (ROADMAP Queue 1, item 11)")
 
@@ -58,7 +62,7 @@ def sdpa(q, k, v, mask, *, scale=None, logit_cap: float | None = None):
                          f"{tuple(mask.shape)}")
     logits = torch.where(mask[:, :, None, :, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    out = einsum("bhgqk,bkhd->bqhgd", w, v)
     return out.reshape(b, sq, hq, v.shape[-1])
 
 
@@ -128,12 +132,90 @@ class GQA(nn.Module):
         return self.o(out), new_cache
 
 
-def mla_init(*args, **kwargs):
-    raise NotImplementedError(_MLA_TODO)
+# ---------------------------------------------------------------------- MLA
+class MLA(nn.Module):
+    """Multi-head latent attention's projections (the reference's
+    ``mla_init``): the query, the KV compression ``dkv``, the shared rope
+    key ``kpe``, the latent up-projections ``uk`` and ``uv``, and the
+    output."""
 
+    def __init__(self, d_model: int, n_heads: int, *, kv_lora: int,
+                 qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+                 v_dim: int = 128, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.q = Dense(d_model, (n_heads, qk_nope_dim + qk_rope_dim), **kw)
+        self.dkv = Dense(d_model, kv_lora, **kw)
+        self.kpe = Dense(d_model, qk_rope_dim, **kw)
+        self.uk = Dense(kv_lora, (n_heads, qk_nope_dim), **kw)
+        self.uv = Dense(kv_lora, (n_heads, v_dim), **kw)
+        self.o = Dense(n_heads * v_dim, d_model, **kw)
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(_MLA_TODO)
+    def forward(self, x, positions, *, n_heads: int, kv_lora: int,
+                qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+                v_dim: int = 128, rope_theta: float = 10000.0,
+                cache: dict | None = None, absorbed: bool = True):
+        """Returns (out, new_cache).  cache = {"c_kv": (B, S_max,
+        kv_lora), "k_pe": (B, S_max, rope), "pos": int}, updated in place
+        as GQA's; None for the no-cache forward.  ``absorbed`` computes a
+        cached step in the latent space (the latent query q_nope W_uk
+        with fp32 logits; the context re-expanded through W_uv)."""
+        b, s, _ = x.shape
+        q = self.q(x)                                 # (B,S,H,nope+rope)
+        q_nope, q_pe = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+        q_pe = apply_rope(q_pe, positions, theta=rope_theta)
+        c_kv = self.dkv(x)                            # (B,S,L)
+        k_pe = self.kpe(x)[:, :, None, :]             # (B,S,1,R)
+        k_pe = apply_rope(k_pe, positions, theta=rope_theta)[:, :, 0, :]
+        scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+
+        if cache is not None:
+            pos = int(cache["pos"])
+            c_all, kpe_all = cache["c_kv"], cache["k_pe"]
+            s_max = c_all.shape[1]
+            if pos + s > s_max:
+                raise ValueError(f"the KV cache holds {s_max} positions; "
+                                 f"{pos} + {s} do not fit")
+            c_all[:, pos:pos + s] = c_kv.to(c_all.dtype)
+            kpe_all[:, pos:pos + s] = k_pe.to(kpe_all.dtype)
+            new_cache = {"c_kv": c_all, "k_pe": kpe_all, "pos": pos + s}
+            q_pos = pos + torch.arange(s, device=x.device)
+            mask = (q_pos[:, None] >= torch.arange(
+                s_max, device=x.device)[None, :])[None, None]
+            if absorbed:
+                q_lat = einsum("bshn,lhn->bshl", q_nope,
+                               self.uk.w.to(q_nope.dtype))
+                logits = (torch.einsum("bshl,bkl->bhsk", q_lat.float(),
+                                       c_all.float())
+                          + torch.einsum("bshr,bkr->bhsk", q_pe.float(),
+                                         kpe_all.float()))
+                w = torch.softmax(torch.where(mask, logits * scale, -1e30),
+                                  dim=-1)
+                ctx_lat = einsum("bhsk,bkl->bshl", w.to(c_all.dtype), c_all)
+                out = einsum("bshl,lhv->bshv", ctx_lat,
+                             self.uv.w.to(ctx_lat.dtype))
+            else:
+                out = self._naive(q_nope, q_pe, c_all, kpe_all, mask,
+                                  n_heads, scale)
+        else:
+            new_cache = None
+            q_pos = torch.arange(s, device=x.device)
+            mask = (q_pos[:, None] >= q_pos[None, :])[None, None]
+            out = self._naive(q_nope, q_pe, c_kv, k_pe, mask, n_heads,
+                              scale)
+
+        out = out.reshape(b, s, -1)
+        return self.o(out), new_cache
+
+    def _naive(self, q_nope, q_pe, c_kv, k_pe, mask, n_heads, scale):
+        """K and V materialised from the latent (B, S_k, kv_lora), the
+        rope key shared by the heads, and the masked `sdpa`."""
+        k_nope = einsum("bkl,lhn->bkhn", c_kv, self.uk.w.to(c_kv.dtype))
+        val = einsum("bkl,lhv->bkhv", c_kv, self.uv.w.to(c_kv.dtype))
+        k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+            *k_pe.shape[:2], n_heads, k_pe.shape[-1])], dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        return sdpa(q_full, k_full, val, mask, scale=scale)
 
 
 def cross_attention_init(*args, **kwargs):

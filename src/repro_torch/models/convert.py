@@ -10,7 +10,11 @@ nested dicts of numpy arrays (for instance ``jax.tree.map(np.asarray,
 params)``) and builds the port's model from it; `to_reference` gives
 the tree back.  A tied embedding has no ``unembed`` leaf on either side.
 zamba2's shared attention block is one module, loaded once and reused
-by every invocation.
+by every invocation.  The moe family's leaves need nothing special:
+the stacked expert weights ``["layers"]["ffn"]["w_gate"]`` (L, E, D,
+F) are ``layers.<i>.ffn.w_gate`` (E, D, F), the router and the shared
+MLP are ``ffn.router`` and ``ffn.shared``, and MLA's projections
+``attn.q``, ``dkv``, ``kpe``, ``uk``, ``uv`` and ``o``.
 """
 
 from __future__ import annotations

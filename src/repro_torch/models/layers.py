@@ -47,11 +47,31 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 # -------------------------------------------------------------- functions
+def product(fn, a, b):
+    """``fn(a, b)``, a product of two operands of one type, with its
+    products summed in float32 and the result rounded once to that type,
+    as the reference's bf16 dots compute.  cuBLAS sums bf16 products in
+    fp32; torch's bf16 product on the CPU (oneDNN) sums in an order of
+    its own that parts from an fp32 sum by an ulp now and then (enough to
+    move a tied unembedding's logits by ~0.1), so there the operands are
+    cast to float32 first."""
+    if a.device.type == "cpu" and a.dtype in (torch.bfloat16, torch.float16):
+        return fn(a.float(), b.float()).to(a.dtype)
+    return fn(a, b)
+
+
+def einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` summed as `product` sums."""
+    return product(lambda u, v: torch.einsum(eq, u, v), a, b)
+
+
 def dense(w, b, x, *, compute_dtype=torch.bfloat16):
     """x: (..., d_in) @ w: (d_in, *out) -> (..., *out), computed in
     ``compute_dtype`` (both operands cast, the result in that type)."""
     w = w.to(compute_dtype)
-    y = torch.tensordot(x.to(compute_dtype), w, dims=([x.dim() - 1], [0]))
+    y = product(lambda u, v: torch.tensordot(u, v, dims=([u.dim() - 1],
+                                                          [0])),
+                x.to(compute_dtype), w)
     if b is not None:
         y = y + b.to(compute_dtype)
     return y
@@ -123,8 +143,9 @@ def gelu(x):
     """``jax.nn.gelu``'s default tanh form, x * 0.5 (1 + tanh(sqrt(2/pi)
     (x + 0.044715 x^3))), op by op in x's type with both constants
     rounded to it first, as the reference rounds on the CPU: this equals
-    it bit for bit in bf16, where ``F.gelu`` (rounded once) differs in
-    the last bit for 43% of the inputs."""
+    it bit for bit in bf16 but for denormal inputs (which the reference's
+    CPU flushes to zero), where ``F.gelu`` (rounded once) differs in the
+    last bit for 43% of the inputs."""
     c = torch.tensor(np.sqrt(2 / np.pi)).to(x.dtype)
     k = torch.tensor(0.044715).to(x.dtype)
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))

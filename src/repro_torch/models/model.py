@@ -44,8 +44,10 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """The zeroed decode cache of ``batch`` sequences with capacity
     ``s_max``, as the reference's pytree (`cache_specs`):
 
-    - dense: {"layers": {"k", "v": (L, B, s_max, Hkv, D), "pos": [int] *
-      L}, "pos": int};
+    - dense and moe: {"layers": {"k", "v": (L, B, s_max, Hkv, D), "pos":
+      [int] * L}, "pos": int}; with MLA {"layers": {"c_kv": (L, B,
+      s_max, kv_lora), "k_pe": (L, B, s_max, qk_rope_dim), "pos": [int]
+      * L}, "pos": int};
     - ssm: {"layers": {"conv": (L, B, W-1, conv_dim), "ssm": (L, B, H, P,
       N) float32}, "pos": int};
     - hybrid: {"layers": {"mamba": the ssm family's layers, "attn":
@@ -65,7 +67,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
         return {"k": zeros(lead, shape, dtype), "v": zeros(lead, shape, dtype),
                 "pos": [0] * lead}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        if cfg.attn_kind == "mla":
+            n = cfg.n_layers
+            return {"layers": {
+                "c_kv": zeros(n, (batch, s_max, cfg.kv_lora), dtype),
+                "k_pe": zeros(n, (batch, s_max, cfg.qk_rope_dim), dtype),
+                "pos": [0] * n}, "pos": 0}
         return {"layers": kv(cfg.n_layers), "pos": 0}
     one = mamba2_cache_shapes(batch, d_model=cfg.d_model,
                               d_state=cfg.d_state, expand=cfg.ssm_expand,

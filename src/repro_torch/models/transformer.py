@@ -1,6 +1,6 @@
 """Unified transformer/SSM/hybrid stack, as the reference's
-``models/transformer.py``; the port runs the ``hybrid``, ``ssm`` and
-``dense`` families.
+``models/transformer.py``; the port runs the ``hybrid``, ``ssm``,
+``dense`` and ``moe`` families.
 
 Families:
 - ``dense``  — GQA attention + (gated) MLP (gemma3, starcoder2, glm4,
@@ -8,10 +8,15 @@ Families:
 - ``ssm``    — Mamba2 SSD blocks, attention-free (mamba2-2.7b): ported.
 - ``hybrid`` — Mamba2 backbone + one *shared* GQA block invoked every k
                layers (zamba2-1.2b): ported.
-- ``moe``, ``encdec``, MLA attention and vision inputs — not ported
-               yet; building or running them raises `NotImplementedError`.
+- ``moe``    — attention (GQA, or MLA for deepseek-v2-lite) + a routed
+               mixture-of-experts FFN (mixtral, deepseek-v2-lite):
+               ported, both dispatches of ``moe_impl``.
+- ``encdec`` and vision inputs — not ported yet; building or running
+               them raises `NotImplementedError`.
 
-The model is an `nn.Module` (`DenseModel`, `SSMModel`, `HybridModel`)
+The model is an `nn.Module` (`DenseModel`, `SSMModel`, `HybridModel`;
+the ``moe`` family is a `DenseModel` whose blocks hold `MLA` or `GQA`
+and a `MoE` FFN)
 whose parameter paths are the reference's pytree keys with the stacked
 layer axis split per layer (``layers.<i>.<rest>``).  PyTorch runs
 eagerly: the reference's ``lax.scan`` over stacked layers is a loop over
@@ -30,12 +35,13 @@ import torch
 from torch import nn
 
 from . import layers as L
-from .attention import GQA
+from .attention import GQA, MLA
+from .moe import MoE
 from .ssm import Mamba2Block
 
-_FAMILIES = ("dense", "ssm", "hybrid")
-_TODO = ("{what} is not ported yet (ROADMAP Queue 1, item 11: the moe, "
-         "MLA, encdec and vision families)")
+_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+_TODO = ("{what} is not ported yet (ROADMAP Queue 1, item 11: the encdec "
+         "and vision families)")
 
 
 # ---------------------------------------------------------------- config
@@ -116,8 +122,6 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             _TODO.format(what=f"the {cfg.family!r} family"))
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(_TODO.format(what="MLA attention"))
     if cfg.n_vision_tokens or cfg.mrope_sections is not None:
         raise NotImplementedError(
             _TODO.format(what="vision inputs and M-RoPE positions"))
@@ -125,18 +129,31 @@ def require_ported(cfg: ModelConfig) -> None:
 
 # --------------------------------------------------------------- modules
 class Block(nn.Module):
-    """Pre-norm transformer block: attention, then a (gated) MLP."""
+    """Pre-norm transformer block: attention (GQA, or MLA), then a
+    (gated) MLP or, in the ``moe`` family, a mixture of experts."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
         super().__init__()
         norm = cfg.norm_cls()
         kw = dict(device=device, generator=generator)
         self.ln1 = norm(cfg.d_model, device=device)
-        self.attn = GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw)
+        if cfg.attn_kind == "mla":
+            self.attn = MLA(cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora,
+                            qk_nope_dim=cfg.qk_nope_dim,
+                            qk_rope_dim=cfg.qk_rope_dim,
+                            v_dim=cfg.v_head_dim, **kw)
+        else:
+            self.attn = GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw)
         self.ln2 = norm(cfg.d_model, device=device)
-        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                         bias=cfg.norm == "layernorm", **kw)
+        if cfg.family == "moe":
+            self.ffn = MoE(cfg.d_model, n_experts=cfg.n_experts,
+                           moe_d_ff=cfg.moe_d_ff,
+                           n_shared=cfg.n_shared_experts,
+                           shared_d_ff=cfg.moe_d_ff, **kw)
+        else:
+            self.ffn = L.MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                             bias=cfg.norm == "layernorm", **kw)
 
 
 class MambaLayer(nn.Module):
@@ -163,7 +180,8 @@ class _LanguageModel(nn.Module):
 
 
 class DenseModel(_LanguageModel):
-    """gemma3, qwen1.5, glm4, starcoder2: ``n_layers`` `Block`s."""
+    """gemma3, qwen1.5, glm4, starcoder2, and the ``moe`` family's
+    mixtral and deepseek-v2-lite: ``n_layers`` `Block`s."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
         super().__init__(cfg, device=device, generator=generator)
@@ -191,7 +209,8 @@ class HybridModel(SSMModel):
         self.shared_attn = Block(cfg, device=device, generator=generator)
 
 
-_MODELS = {"dense": DenseModel, "ssm": SSMModel, "hybrid": HybridModel}
+_MODELS = {"dense": DenseModel, "ssm": SSMModel, "hybrid": HybridModel,
+           "moe": DenseModel}
 
 
 def build_model(cfg: ModelConfig, *, device, generator=None) -> nn.Module:
@@ -214,15 +233,29 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 # --------------------------------------------------------------- blocks
+def _attn_apply(cfg: ModelConfig, attn, x, positions, window, cache):
+    if cfg.attn_kind == "mla":
+        return attn(x, positions, n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
+                    qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                    v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+                    cache=cache, absorbed=cfg.mla_absorbed)
+    return attn(x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                window=window, mrope_sections=cfg.mrope_sections,
+                cache=cache)
+
+
 def _block_apply(cfg: ModelConfig, blk: Block, x, positions, window, cache):
     """Pre-norm transformer block.  Returns (x, new_cache, aux)."""
-    h, new_cache = blk.attn(
-        blk.ln1(x), positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window,
-        mrope_sections=cfg.mrope_sections, cache=cache)
+    h, new_cache = _attn_apply(cfg, blk.attn, blk.ln1(x), positions,
+                               window, cache)
     x = x + h
-    x = x + blk.ffn(blk.ln2(x), act=cfg.act_fn())
-    return x, new_cache, torch.zeros((), device=x.device)
+    if cfg.family == "moe":
+        h, aux = blk.ffn(blk.ln2(x), top_k=cfg.top_k, impl=cfg.moe_impl)
+    else:
+        h = blk.ffn(blk.ln2(x), act=cfg.act_fn())
+        aux = torch.zeros((), device=x.device)
+    return x + h, new_cache, aux
 
 
 def _mamba_apply(cfg: ModelConfig, layer: MambaLayer, x, cache):
@@ -237,11 +270,12 @@ def _scan_blocks(cfg: ModelConfig, blocks, x, positions, windows, caches):
     """The transformer blocks in order, each with its own window (an int,
     0 meaning plain causal; None for every layer without
     ``sliding_window``).  caches: {"k", "v": (L, B, S_max, Hkv, D),
-    "pos": [int] * L} or None; updated in place."""
+    "pos": [int] * L} (MLA: {"c_kv", "k_pe"} in place of k and v) or
+    None; updated in place."""
     aux = torch.zeros((), device=x.device)
     for li, blk in enumerate(blocks):
-        cache = ({"k": caches["k"][li], "v": caches["v"][li],
-                  "pos": caches["pos"][li]} if caches is not None else None)
+        cache = ({name: t[li] for name, t in caches.items()}
+                 if caches is not None else None)
         window = int(windows[li]) if windows is not None else None
         x, new_cache, a = _block_apply(cfg, blk, x, positions, window, cache)
         aux = aux + a
@@ -321,7 +355,7 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
 
     lc = caches["layers"] if caches is not None else None
     aux = torch.zeros((), device=dev)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         windows = layer_windows(cfg) if cfg.sliding_window is not None \
             else None
         x, aux, new_lc = _scan_blocks(cfg, model.layers, x, positions,

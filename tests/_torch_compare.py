@@ -66,3 +66,36 @@ def assert_same_comap(got, want) -> None:
     if got.arbiter is not None:
         assert vars(got.arbiter) == vars(want.arbiter)
     assert untimed(got.flight) == untimed(want.flight)
+
+
+# XLA's compile option that keeps every rounding the source writes: with
+# it off (the default), XLA may carry a chain of bf16 operations in fp32
+# and round once, so a jitted reference parts from its own ops run one by
+# one.  The port's bf16 tests compare against the reference compiled
+# with it.
+STRICT_OPTIONS = {"xla_allow_excess_precision": False}
+
+
+class strict_jit:
+    """``fn`` jitted and compiled with `STRICT_OPTIONS`: lowered and
+    compiled once for each structure, shape and dtype of its arguments,
+    and the executable cached.  It equals the reference's run under
+    ``jax.disable_jit()`` bit for bit on the smoke configs
+    (tests/test_torch_families.py)."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self._compiled: dict = {}
+
+    def __call__(self, *args):
+        import jax
+        import numpy as np
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((np.shape(a), str(np.asarray(a).dtype))
+                           for a in leaves))
+        exe = self._compiled.get(key)
+        if exe is None:
+            exe = jax.jit(self.fn).lower(*args).compile(
+                compiler_options=STRICT_OPTIONS)
+            self._compiled[key] = exe
+        return exe(*args)

@@ -1,8 +1,8 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels
 against their plain torch versions, the engine on the card against the
 engine on the CPU, the conflict build's CUDA route against the host
-build, and the zamba2, mamba2 and gemma3 smoke models on the card
-against the CPU.  They
+build, and the zamba2, mamba2, gemma3, mixtral and deepseek-v2-lite
+smoke models on the card against the CPU.  They
 skip without a GPU; on the card they run with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -16,7 +16,10 @@ ulp of y (both sides compute in fp32 and round y once).  Each call must
 take its dtype's kernel, counted in ``LAUNCHES["flash_attention_bf16"]``
 or ``LAUNCHES["flash_attention_fp32"]`` (``ssd_bf16``, ``ssd_fp32``):
 both dtypes run on the tensor cores, fp32 in split-TF32 products; flash
-takes head dims up to 256 on both.  `selection_counts` runs on the .b1 tensor
+takes head dims up to 256 on both.  `ragged_dot` (the MoE FFN's grouped
+product) is held to its plain version at one bf16 ulp (1e-4 + 2^-7 |y|:
+both sum in fp32 and round once), makes no host sync, and launches 3
+times a MoE layer a forward.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
 threads.
@@ -625,6 +628,155 @@ def test_family_smoke_models_on_the_card_equal_the_cpu(cuda, arch, kernel,
         sure = (top2[:, 0] - top2[:, 1]) > 0.3
         assert sure.any()
         assert (got[0].cpu().argmax(-1) == want[0].argmax(-1))[sure].all()
+    prompts = toks[0, :64].reshape(4, 16).numpy()
+    out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
+    assert out.shape == (4, 8)
+
+
+# ------------------------------------------------------------ ragged_dot
+def _ragged(m, k, n, sizes, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(torch.bfloat16)
+    w = (torch.randn((len(sizes), k, n), generator=g) * k ** -0.5) \
+        .to(torch.bfloat16)
+    offs = torch.tensor([0] + list(torch.tensor(sizes).cumsum(0)),
+                        dtype=torch.int32)
+    return x.to(device), w.to(device), offs.to(device)
+
+
+def _ragged_ok(got, want, ulps: int = 1) -> bool:
+    d = (got.float() - want.float()).abs()
+    return bool((d <= 1e-4 + ulps * 2.0 ** -7 * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("case", [
+    (8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
+    (257, 64, 96, [257]), (129, 64, 128, [0, 0, 129, 0]),
+    (300, 70, 198, [0, 100, 0, 150, 40]), (200, 64, 100, [50] * 4),
+    (1000, 256, 384, [100, 0, 300, 250, 0, 350]),
+    (24, 2048, 1408, [1] * 24 + [0] * 40)], ids=str)
+def test_ragged_dot_equals_plain_version(cuda, case):
+    """Empty groups, one group holding every row, M off the 128-row tile,
+    tiles that span groups, K or N off a multiple of 8 (plain loads),
+    deepseek's decode shape; one launch a call, on the dtype's route."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    x, w, offs = _ragged(*case, cuda)
+    before = dict(LAUNCHES)
+    got = ragged_dot(x, w, offs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_dot"] == before["ragged_dot"] + 1
+    assert LAUNCHES["ragged_dot_bf16"] == before["ragged_dot_bf16"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (case[0], case[2])
+    assert _ragged_ok(got, ragged_dot_ref(x, w, offs))
+    # The fp32 route (the fp32 compute mode's): the plain version's fp32
+    # sums within 1e-4 + 1e-5 |y|.
+    x, w = x.float(), w.float()
+    got = ragged_dot(x, w, offs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_dot_fp32"] == before["ragged_dot_fp32"] + 1
+    want = ragged_dot_ref(x, w, offs)
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all())
+
+
+def test_ragged_dot_edges_of_its_inputs(cuda):
+    """x off 16-byte alignment; rows outside the groups are zero; fp16
+    and int64 offsets are refused on the card; no host sync."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    x, w, offs = _ragged(300, 64, 96, [100, 100, 100], cuda)
+    shifted = torch.empty(x.numel() + 2, dtype=x.dtype,
+                          device=cuda)[2:].view(x.shape)
+    shifted.copy_(x)
+    assert _ragged_ok(ragged_dot(shifted, w, offs),
+                      ragged_dot_ref(x, w, offs))
+    inner = torch.tensor([20, 120, 120, 250], dtype=torch.int32,
+                         device=cuda)
+    got = ragged_dot(x, w, inner)
+    assert not got[:20].any() and not got[250:].any()
+    assert _ragged_ok(got, ragged_dot_ref(x, w, inner))
+    with pytest.raises(TypeError):
+        ragged_dot(x.half(), w.half(), offs)
+    with pytest.raises(TypeError):
+        ragged_dot(x, w, offs.long())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ragged_dot(x, w, offs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_moe_ffn_on_the_card_makes_no_host_sync(cuda):
+    """The ragged MoE FFN (routing, dispatch, three grouped products,
+    combine, aux loss) raises under the sync debug mode if any op reads
+    back to the host; its routing equals the CPU's and its output is
+    within two bf16 ulps of the CPU's (each grouped product within one;
+    an ulp in the gate or up product is carried through the down
+    product and the sum of k rows)."""
+    from repro_torch.models import moe as PM
+    m = PM.MoE(64, n_experts=16, moe_d_ff=48, n_shared=2, device=cuda,
+               generator=torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn(3, 40, 64, device=cuda).bfloat16()
+    torch.cuda.synchronize()
+    before = LAUNCHES["ragged_dot"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = m(x, top_k=6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["ragged_dot"] == before + 3
+    cpu = PM.MoE(64, n_experts=16, moe_d_ff=48, n_shared=2, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    _, _, gi = PM.route(m, x.reshape(-1, 64), 6)
+    _, _, gi_cpu = PM.route(cpu, x.cpu().reshape(-1, 64), 6)
+    assert torch.equal(gi.cpu(), gi_cpu)
+    want, want_aux = cpu(x.cpu(), top_k=6)
+    assert _ragged_ok(out.cpu(), want, ulps=2)
+    assert abs(float(aux) - float(want_aux)) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_moe_smoke_models_on_the_card_equal_the_cpu(cuda, arch):
+    """The moe family's smoke models: the no-cache forward on the card
+    (`ragged_dot` 3 times a layer; mixtral's GQA layers take flash with
+    window 8 at S = 4160, deepseek's MLA never) against the same weights
+    on the CPU, both dispatches, and a served wave.  The argmax agrees
+    on at least 99% of the rows where the CPU's top-2 margin exceeds
+    0.3: the card's sums round the router's inputs otherwise than the
+    CPU's, and a token whose top-k sits on a near tie takes another
+    expert there, which can move its logits past any margin."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import WaveServer
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config(arch)
+    on_card = M.init_params(cfg, 0, device=cuda)
+    on_cpu = M.init_params(cfg, 0, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 4160),
+                         generator=torch.Generator().manual_seed(0))
+    flash = cfg.n_layers if cfg.attn_kind == "gqa" else 0
+    for s, impl in ((4160, "ragged"), (32, "ragged"), (32, "capacity")):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        before = dict(LAUNCHES)
+        got, aux, _ = T.forward(c, on_card, {"tokens": toks[:, :s]})
+        torch.cuda.synchronize()
+        assert LAUNCHES["ragged_dot"] - before["ragged_dot"] == \
+            (3 * cfg.n_layers if impl == "ragged" else 0)
+        assert LAUNCHES["flash_attention_bf16"] - \
+            before["flash_attention_bf16"] == (flash if s == 4160 else 0)
+        want, want_aux, _ = T.forward(c, on_cpu, {"tokens": toks[:, :s]})
+        assert torch.isfinite(got).all() and float(aux) > 0
+        top2 = want[0].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 0.3
+        assert sure.any()
+        agree = got[0].cpu().argmax(-1) == want[0].argmax(-1)
+        assert agree[sure].float().mean() >= 0.99
     prompts = toks[0, :64].reshape(4, 16).numpy()
     out = WaveServer(cfg, on_card, slots=4, s_max=32).run_wave(prompts, 8)
     assert out.shape == (4, 8)
