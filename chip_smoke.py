@@ -111,29 +111,39 @@ each printed as one JSON line:
    at (1, 8192), flash twice at D = 128 (GQA 20:20, 32:2, 36:4), and a
    wave of 4 prompts of 1000 tokens with 4 decode steps, which launches
    no kernel.
-17. ragged-dot-vs-plain: `ragged_dot` (the MoE FFN's grouped product,
-   mma.sync) on the card against its plain version on the card
-   (`RAGGED_CASES`: empty groups, one group holding every row, M off
-   the 128-row tile, K and N at mixtral's and deepseek's widths, K or N
-   off a multiple of 8, x off 16-byte alignment, rows outside the
-   groups, which must be zero), each call one launch; tolerance 1e-4 +
-   2^-7 |y| (one bf16 ulp: both sum in fp32 and round once); the same
-   cases but the largest in fp32 on its fp32 route, 1e-4 + 1e-5 |y|; one
-   call under ``torch.cuda.set_sync_debug_mode("error")``: the kernel
-   reads the group offsets on the card, with no host sync.
+17. ragged-dot-vs-plain: `ragged_dot` (the MoE FFN's grouped product)
+   on the card against its plain version on the card (`RAGGED_CASES`:
+   empty groups, one group holding every row, M off the row tiles, K
+   and N at mixtral's and deepseek's widths, K or N off a multiple of
+   8, x off 16-byte alignment, rows outside the groups, which must be
+   zero), bf16 x with fp32 weights (the path's types: the TMA + wgmma
+   kernel rounds them on load, or the mma.sync kernel where TMA cannot
+   take the rows), each also on the weights cast to bf16 first (the
+   same bits on the same kernel) and on the mma.sync kernel by name;
+   each call one launch on its route (`ragged_dot_wgmma`,
+   `ragged_dot_mma`); tolerance 1e-4 + 2^-7 |y| (one bf16 ulp: both
+   sum in fp32 and round once); the same cases but the largest in fp32
+   on its fp32 route, 1e-4 + 1e-5 |y|; one call under
+   ``torch.cuda.set_sync_debug_mode("error")``: the kernel reads the
+   group offsets on the card, with no host sync.
 18-19. llm-serve and llm-forward-long for mixtral-8x7b (the moe family)
    at its published widths cut to 4 of 32 layers (``reduced``): served
-   as above, `ragged_dot` 3 times a layer a forward (gate, up, down):
-   768 over the two waves (bf16), 108 in each teacher-forced run, on
-   the run's route (the fp32 run computes the experts in fp32 too, on
-   the kernel's fp32 route), flash never;
+   as above, `ragged_dot` 3 times a layer a forward (gate, up, down) on
+   the fp32 expert stacks as stored: 768 over the two waves, all on the
+   TMA + wgmma kernel, 108 in each teacher-forced run, on the run's
+   route (the fp32 run computes the experts in fp32 too, on the
+   kernel's fp32 route), flash never;
    the long forward launches flash 4 times with the window 4096 at
    (1, 8192, 32, 128), GQA 32:8, and `ragged_dot` 12 times.  Then
    llm-moe-capacity (the capacity dispatch on the same model: no
    `ragged_dot`) and ragged-dot-path (the kernel at each grouped
-   product the path gave: prefill, decode and long, gate/up and down;
-   error, ms, plain, bound, and ``torch._grouped_mm`` and a per-expert
-   ``torch.matmul`` loop as yardsticks off the path).
+   product the path gave, on the fp32 stacks: prefill, decode and long,
+   gate/up and down; error, the same bits on the stacks cast first, ms
+   on fp32 and on bf16 weights, the earlier mma.sync kernel's ms with
+   and without the cast, plain, bounds with the weights at 4 and at 2
+   bytes, and ``torch._grouped_mm`` (on bf16 weights, and timed with
+   the cast) and a per-expert ``torch.matmul`` loop as yardsticks off
+   the path).
 20. the same for deepseek-v2-lite-16b uncut (27 layers, MLA, 64 routed
    experts top-6 and 2 shared; 64.9 GB of fp32 weights, every earlier
    model freed first; the peak printed): served, `ragged_dot` 81 a
@@ -364,8 +374,12 @@ SSD_PASSES_FP32 = {"scores": 3, "gate": 3, "state": 3, "inter": 3}
 # The route keys of the kernels with one per dtype (`LAUNCHES`).
 ROUTES = ("bf16", "fp32")
 ROUTE_OF = {"bfloat16": "bf16", "float32": "fp32"}
-LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention", "ragged_dot")
-                 for r in ("", "_bf16", "_fp32"))
+LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention")
+                 for r in ("", "_bf16", "_fp32")) + tuple(
+    f"ragged_dot{r}" for r in ("", "_wgmma", "_mma", "_fp32"))
+# ragged_dot's route for a compute dtype: bf16 x (the fp32 expert stacks
+# rounded on load) on the TMA + wgmma kernel, fp32 on the CUDA cores.
+RAGGED_ROUTE = {"bf16": "wgmma", "fp32": "fp32"}
 # The moe family: mixtral-8x7b at its published widths cut to 4 of its 32
 # layers (46.7e9 parameters, 187 GB in fp32, do not fit one card; 4
 # layers hold 6.07e9), and deepseek-v2-lite-16b uncut (16.2e9, 64.9 GB
@@ -1059,8 +1073,9 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, dict]:
     check(launches["flash_attention"] == 0,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in serving; the cached prefill takes sdpa")
-    # A wave is SERVE_NEW forwards: its prefill and SERVE_NEW - 1 steps.
-    for name in ("ragged_dot", "ragged_dot_bf16"):
+    # A wave is SERVE_NEW forwards: its prefill and SERVE_NEW - 1 steps;
+    # every grouped product on the TMA + wgmma kernel.
+    for name in ("ragged_dot", "ragged_dot_wgmma"):
         check(launches[name] == 2 * SERVE_NEW * n_rd,
               f"{name} launched {launches[name]} times in serving, "
               f"expected {2 * SERVE_NEW * n_rd} ({n_rd} a forward, bf16)")
@@ -1071,7 +1086,7 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, dict]:
         want = {k: 0 for k in LLM_KEYS}
         want.update({"ssd": 2 * n_ssd, f"ssd_{name}": 2 * n_ssd,
                      "ragged_dot": tf_forwards * n_rd,
-                     f"ragged_dot_{name}": tf_forwards * n_rd})
+                     f"ragged_dot_{RAGGED_ROUTE[name]}": tf_forwards * n_rd})
         check(counts == want,
               f"the {name} teacher-forced run launched {counts}, expected "
               f"{want} ({n_ssd} ssd in its forward, {n_ssd} in its "
@@ -1142,7 +1157,7 @@ def llm_forward_long(cfg, model, dev, extra: dict):
     for name in ("flash_attention", "flash_attention_bf16"):
         check(launches[name] == n_attn,
               f"{name} launched {launches[name]} times, expected {n_attn}")
-    for name in ("ragged_dot", "ragged_dot_bf16"):
+    for name in ("ragged_dot", "ragged_dot_wgmma"):
         check(launches[name] == ragged_calls(cfg),
               f"{name} launched {launches[name]} times, expected "
               f"{ragged_calls(cfg)}")
@@ -1254,10 +1269,10 @@ def ragged_err(got, want) -> tuple[float, bool]:
     return float(d.max()), ok
 
 
-def ragged_inputs(m, k, n, sizes, gen, dev, offset=False,
-                  dtype=None):
-    """x (m, k) and w (G, k, n) ~ N(0, 1) and N(0, 1/k) in ``dtype``
-    (bf16 unless given), and the int32 offsets of ``sizes`` (a list, or
+def ragged_inputs(m, k, n, sizes, gen, dev, offset=False, dtype=None):
+    """x (m, k) in ``dtype`` (bf16 unless given) and w (G, k, n) in fp32
+    (the expert stacks as the model stores them), ~ N(0, 1) and
+    N(0, 1/k), and the int32 offsets of ``sizes`` (a list, or
     ("random", G): m rows dealt to G groups at random, some of them
     empty)."""
     import numpy as np
@@ -1269,29 +1284,61 @@ def ragged_inputs(m, k, n, sizes, gen, dev, offset=False,
         sizes = np.random.default_rng(m).multinomial(m, p / p.sum())
     offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
                         dtype=torch.int32, device=dev)
-    dtype = dtype or torch.bfloat16
-    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    x = torch.randn((m, k), generator=gen, device=dev).to(
+        dtype or torch.bfloat16)
     if offset:
         x = _at_offset(x)
-    w = (torch.randn((len(sizes), k, n), generator=gen, device=dev)
-         * k ** -0.5).to(dtype)
+    w = torch.randn((len(sizes), k, n), generator=gen, device=dev) \
+        * k ** -0.5
     return x, w, offs
+
+
+def ragged_route(x, w, offset=False) -> str:
+    """The kernel `ragged_dot` must take: fp32 x the CUDA cores; bf16 x
+    the TMA + wgmma kernel where TMA takes the rows (K a multiple of 8,
+    N of 4 for fp32 weights or 8 for bf16, x on 16 bytes), else
+    mma.sync."""
+    import torch
+    if x.dtype == torch.float32:
+        return "fp32"
+    units = 4 if w.dtype == torch.float32 else 8
+    aligned = x.shape[1] % 8 == 0 and w.shape[2] % units == 0
+    return "wgmma" if aligned and not offset else "mma"
 
 
 def ragged_vs_plain(dev) -> dict:
     """`ragged_dot` on the card against its plain version on the card, on
-    `RAGGED_CASES` in bf16 (the path's) and, but for the largest, in fp32
-    (the fp32 compute mode's route), with x 2 elements into its storage
-    (the plain loads), and with offsets that leave rows before the first
-    group and past the last (written as zeros); and one call under
+    `RAGGED_CASES` with bf16 x and fp32 weights (the path's types; the
+    kernel rounds the weights on load), each also on the same weights
+    cast to bf16 first, which must give the same bits where both calls
+    take the same kernel, and on the mma.sync kernel by name; with x 2
+    elements into its storage (the mma.sync kernel's plain loads); but
+    for the largest, in fp32 (the fp32 compute mode's route); with
+    offsets that leave rows before the first group and past the last
+    (written as zeros); and one call under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
-    sync.  Every call must add one launch, on its dtype's route."""
+    sync.  Every call must add one launch, on the route it should take
+    (`ragged_route`)."""
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
+
+    def call(x, w, offs, route=None, offset=False):
+        want_route = route or ragged_route(x, w, offset)
+        before = dict(LAUNCHES)
+        got = ragged_dot(x, w, offs, route=route)
+        torch.cuda.synchronize()
+        launched = (LAUNCHES["ragged_dot"] - before["ragged_dot"],
+                    LAUNCHES[f"ragged_dot_{want_route}"] -
+                    before[f"ragged_dot_{want_route}"])
+        check(launched == (1, 1),
+              f"ragged_dot {tuple(x.shape)} x {tuple(w.shape)} "
+              f"{w.dtype}: launches {launched} on {want_route}")
+        return got, want_route
+
     runs = [(c, False, torch.bfloat16) for c in RAGGED_CASES] + \
         [(RAGGED_CASES[1], True, torch.bfloat16)] + \
         [(c, False, torch.float32) for c in RAGGED_CASES
@@ -1299,26 +1346,35 @@ def ragged_vs_plain(dev) -> dict:
     for (m, k, n, sizes), offset, dtype in runs:
         x, w, offs = ragged_inputs(m, k, n, sizes, gen, dev, offset, dtype)
         name = str(dtype).split(".")[1]
-        route = ROUTE_OF[name]
-        before = dict(LAUNCHES)
-        got = ragged_dot(x, w, offs)
-        torch.cuda.synchronize()
-        launched = (LAUNCHES["ragged_dot"] - before["ragged_dot"],
-                    LAUNCHES[f"ragged_dot_{route}"] -
-                    before[f"ragged_dot_{route}"])
+        got, route = call(x, w, offs, offset=offset)
         err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
-        cases.append(dict(m=m, k=k, n=n, groups=w.shape[0], dtype=name,
-                          empty_groups=int((offs.diff() == 0).sum()),
-                          x_at_offset_2=offset, max_abs_err=err))
-        check(ok and launched == (1, 1),
-              f"ragged_dot ({m}, {k}, {n}, {w.shape[0]} groups, {name}, "
-              f"offset {offset}): max |d| {err}, launches {launched}")
+        row = dict(m=m, k=k, n=n, groups=w.shape[0], dtype=name,
+                   route=route, empty_groups=int((offs.diff() == 0).sum()),
+                   x_at_offset_2=offset, max_abs_err=err)
+        if dtype == torch.bfloat16:
+            wb = w.to(torch.bfloat16)
+            got_b, route_b = call(x, wb, offs, offset=offset)
+            row["bf16_weights_route"] = route_b
+            row["bit_equal_bf16_weights"] = bool(torch.equal(got, got_b)) \
+                if route_b == route else None
+            check(row["bit_equal_bf16_weights"] is not False,
+                  f"ragged_dot ({m}, {k}, {n}) on {route}: fp32 weights "
+                  f"rounded on load differ from the same weights cast "
+                  f"first")
+            if route == "wgmma":
+                got_m, _ = call(x, w, offs, route="mma")
+                row["mma_max_abs_err"], ok_m = ragged_err(
+                    got_m, ragged_dot_ref(x, w, offs))
+                ok = ok and ok_m
+        cases.append(row)
+        check(ok, f"ragged_dot ({m}, {k}, {n}, {w.shape[0]} groups, {name}, "
+                  f"offset {offset}, {route}): max |d| {err}")
     x, w, _ = ragged_inputs(300, 64, 96, [100, 100, 100], gen, dev)
     offs = torch.tensor([20, 120, 120, 250], dtype=torch.int32, device=dev)
-    got = ragged_dot(x, w, offs)
+    got, route = call(x, w, offs)
     err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
     outside = bool((got[:20] == 0).all() and (got[250:] == 0).all())
-    cases.append(dict(m=300, k=64, n=96, offsets=offs.tolist(),
+    cases.append(dict(m=300, k=64, n=96, offsets=offs.tolist(), route=route,
                       max_abs_err=err, rows_outside_zero=outside))
     check(ok and outside, f"ragged_dot with rows outside the groups: "
                           f"max |d| {err}, zeros {outside}")
@@ -1336,12 +1392,14 @@ def ragged_vs_plain(dev) -> dict:
                                      if c.get("dtype") == "float32"))
 
 
-def ragged_bound(m, k, n, groups_used, groups) -> dict:
+def ragged_bound(m, k, n, groups_used, groups, w_bytes=4) -> dict:
     """The least time of the grouped product: 2 m k n FLOP at the bf16
     tensor-core rate, against x, the weights of the groups this input
-    uses, y and the offsets, each moved once."""
+    uses at ``w_bytes`` an element, y and the offsets, each moved
+    once."""
     flop = 2 * m * k * n
-    nbytes = 2 * (m * k + groups_used * k * n + m * n) + 4 * (groups + 1)
+    nbytes = 2 * (m * k + m * n) + w_bytes * groups_used * k * n + \
+        4 * (groups + 1)
     t_ops, t_bytes = flop / PEAK_BF16_S, nbytes / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1351,19 +1409,23 @@ def ragged_bound(m, k, n, groups_used, groups) -> dict:
 def ragged_path(arch: str, cfg, caps: dict) -> list:
     """`ragged_dot` at each grouped product the arch's path gave (the
     serving waves' prefill and decode, the long forward's; gate and up
-    share a shape, down has its own), while the model is on the card:
-    the error against the plain version (checked), ms (CUDA events,
-    after warm-up), the plain version's ms, the bound, and two library
+    share a shape, down has its own), on the model's fp32 expert stacks,
+    while the model is on the card: the error against the plain version
+    (checked), the same call on the stacks cast to bf16 first (the same
+    bits, checked), ms (CUDA events, after warm-up) on fp32 weights and
+    on bf16 ones, the earlier kernel's ms (mma.sync, by name) on bf16
+    weights and with the cast, the plain version's ms, two bounds
+    (weights at 4 bytes, the call's own inputs, and at 2), and library
     yardsticks on the same inputs, never used by the port:
-    ``torch._grouped_mm`` (it takes the offsets on the card) and a loop
-    of ``torch.matmul`` over the groups (which reads the offsets back
-    first, inside the timed call).  The launch count must equal the
-    kernel calls made here."""
+    ``torch._grouped_mm`` (it takes the offsets on the card) on the bf16
+    weights and timed with the cast, and a loop of ``torch.matmul`` over
+    the groups (which reads the offsets back first, inside the timed
+    call).  The launch counts by route must equal the calls made here."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
-    rows, calls = [], 0
+    rows, calls = [], {"wgmma": 0, "mma": 0}
     reset_launches()
     for source, cap in caps.items():
         for (m, k, n), (args, _) in cap.calls.items():
@@ -1371,30 +1433,49 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
             stage = source if source == "long" else \
                 ("decode" if m <= SERVE_SLOTS * cfg.top_k else "prefill")
             label = f"{stage} {'gate/up' if k == cfg.d_model else 'down'}"
-            err, ok = ragged_err(ragged_dot(x, w, offs),
-                                 ragged_dot_ref(x, w, offs))
+            got = ragged_dot(x, w, offs)
+            err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
             check(ok, f"ragged_dot at {arch}'s {label} ({m}, {k}, {n}): "
                       f"max |d| {err}")
+            wb = w.to(torch.bfloat16)
+            same = bool(torch.equal(got, ragged_dot(x, wb, offs)))
+            check(same, f"ragged_dot at {arch}'s {label}: fp32 stacks "
+                        f"rounded on load differ from the stacks cast first")
+            del got
             reps = 20 if m >= 1000 else 50
             row = dict(arch=arch, label=label, m=m, k=k, n=n,
-                       groups=w.shape[0], max_abs_err=err,
+                       groups=w.shape[0], weights=str(w.dtype),
+                       max_abs_err=err, bit_equal_bf16_weights=same,
                        calls_in_path=cap.counts[(m, k, n)],
                        ms=cuda_ms(lambda: ragged_dot(x, w, offs), reps),
+                       ms_bf16_weights=cuda_ms(
+                           lambda: ragged_dot(x, wb, offs), reps),
+                       earlier_ms=cuda_ms(
+                           lambda: ragged_dot(x, wb, offs, route="mma"),
+                           reps),
+                       earlier_with_cast_ms=cuda_ms(
+                           lambda: ragged_dot(x, w.to(torch.bfloat16), offs,
+                                              route="mma"), reps),
                        plain_ms=cuda_ms(lambda: ragged_dot_ref(x, w, offs),
                                         2))
-            calls += 2 + reps
+            calls["wgmma"] += 4 + 2 * reps
+            calls["mma"] += 2 + 2 * reps
             try:
-                lib = torch._grouped_mm(x, w, offs=offs[1:])
+                lib = torch._grouped_mm(x, wb, offs=offs[1:])
                 row.update(
                     library="torch._grouped_mm",
                     library_max_abs_err=ragged_err(
                         lib, ragged_dot_ref(x, w, offs))[0],
                     library_ms=cuda_ms(
-                        lambda: torch._grouped_mm(x, w, offs=offs[1:]),
-                        reps))
+                        lambda: torch._grouped_mm(x, wb, offs=offs[1:]),
+                        reps),
+                    library_cast_ms=cuda_ms(
+                        lambda: torch._grouped_mm(
+                            x, w.to(torch.bfloat16), offs=offs[1:]), reps))
+                del lib
             except (RuntimeError, TypeError) as e:
                 row.update(library="torch._grouped_mm", library_ms=None,
-                           library_error=str(e)[:200])
+                           library_cast_ms=None, library_error=str(e)[:200])
 
             def loop():
                 bounds = offs.tolist()
@@ -1402,17 +1483,22 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
                 for g in range(w.shape[0]):
                     lo, hi = bounds[g], bounds[g + 1]
                     if hi > lo:
-                        torch.matmul(x[lo:hi], w[g], out=out[lo:hi])
+                        torch.matmul(x[lo:hi], wb[g], out=out[lo:hi])
                 return out
 
             used = int((offs.diff() > 0).sum())
+            bf16_bound = ragged_bound(m, k, n, used, w.shape[0], w_bytes=2)
             row.update(library_loop_ms=cuda_ms(loop, reps),
                        groups_used=used,
-                       **ragged_bound(m, k, n, used, w.shape[0]))
+                       **ragged_bound(m, k, n, used, w.shape[0]),
+                       bound_bf16_weights_ms=bf16_bound["bound_ms"],
+                       bound_bf16_weights_by=bf16_bound["bound_by"])
+            del wb
             rows.append(row)
-    check(LAUNCHES["ragged_dot"] == calls,
-          f"{arch}: ragged_dot launched {LAUNCHES['ragged_dot']} times in "
-          f"{calls} calls")
+    launched = {r: LAUNCHES[f"ragged_dot_{r}"] for r in calls}
+    check(launched == calls and LAUNCHES["ragged_dot"] == sum(calls.values()),
+          f"{arch}: ragged_dot launched {LAUNCHES['ragged_dot']} times, "
+          f"{launched} by route, in {calls} calls")
     return rows
 
 
@@ -2563,11 +2649,14 @@ def main() -> int:
                if t["graph"] == "C4K8@16x16:bandmap" and t["k"] == 1024)
     rd_row = next(r for r in moe["ragged"] if r["arch"] == MOE_ARCHS[0]
                   and r["label"] == "prefill gate/up")
-    rd_keys = ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-               "library_loop_ms", "max_abs_err", "groups_used",
+    rd_keys = ("ms", "ms_bf16_weights", "earlier_ms", "earlier_with_cast_ms",
+               "bound_ms", "bound_by", "bound_bf16_weights_ms", "plain_ms",
+               "library_ms", "library_cast_ms", "library_loop_ms",
+               "max_abs_err", "bit_equal_bf16_weights", "groups_used",
                "calls_in_path")
     rd_launches = {arch: dict(
         serve=r["launches"]["ragged_dot"],
+        serve_wgmma=r["launches"]["ragged_dot_wgmma"],
         teacher_forced=r["teacher_forced_launches"]["bf16"]["ragged_dot"],
         forward_long=moe["long"][arch]["launches"]["ragged_dot"]
         if arch in moe["long"] else None)
@@ -2650,11 +2739,17 @@ def main() -> int:
              max_abs_err=max([rd_vs["max_abs_err"]] +
                              [r["max_abs_err"] for r in moe["ragged"]]),
              ms=rd_row["ms"], plain_ms=rd_row["plain_ms"],
+             earlier_ms=rd_row["earlier_ms"],
+             earlier_with_cast_ms=rd_row["earlier_with_cast_ms"],
              bound_ms=rd_row["bound_ms"], bound_by=rd_row["bound_by"],
-             library_ms=rd_row["library_ms"], library="torch._grouped_mm",
+             bound_bf16_weights_ms=rd_row["bound_bf16_weights_ms"],
+             library_ms=rd_row["library_ms"],
+             library="torch._grouped_mm on the weights cast to bf16",
+             library_cast_ms=rd_row["library_cast_ms"],
              library_loop_ms=rd_row["library_loop_ms"],
-             shape=f"({rd_row['m']}, {rd_row['k']}) x ({rd_row['groups']}, "
-                   f"{rd_row['k']}, {rd_row['n']}) bf16 ({MOE_ARCHS[0]} "
+             shape=f"({rd_row['m']}, {rd_row['k']}) bf16 x "
+                   f"({rd_row['groups']}, {rd_row['k']}, {rd_row['n']}) "
+                   f"fp32 ({MOE_ARCHS[0]} "
                    f"prefill gate/up)",
              path_shapes=[dict({k: r[k] for k in rd_keys}, arch=r["arch"],
                                label=r["label"],

@@ -41,8 +41,10 @@ and ``ops.py`` (the checked wrapper):
 - ragged_dot/       ``ragged_dot``: the grouped matrix product of the
                     MoE FFN (rows sorted by expert, each expert's rows
                     times its own weights), with the group offsets read
-                    on the card: bf16 on mma.sync, fp32 on the CUDA
-                    cores — the port's counterpart of
+                    on the card: bf16 x on TMA and wgmma (fp32 or bf16
+                    weights, rounded to bf16 on load; mma.sync for
+                    shapes TMA cannot take), fp32 on the CUDA cores —
+                    the port's counterpart of
                     ``jax.lax.ragged_dot`` in
                     ``repro/models/moe.py::moe_ffn``, an XLA operation
                     with no Pallas kernel behind it
@@ -51,10 +53,11 @@ A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Each
 wrapper call that launches adds one to ``LAUNCHES[name]`` through
 `count_launch`, so a run can show which kernels its path went through;
-a kernel with a route per dtype also adds one to
-``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]``, the route
-it took.  The counts are exact when several threads launch: every
-update holds one lock.
+a kernel with more than one route also adds one to the route it took:
+``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]`` (flash
+attention, the SSD scan), ``LAUNCHES["ragged_dot_wgmma"]``,
+``["ragged_dot_mma"]`` or ``["ragged_dot_fp32"]``.  The counts are
+exact when several threads launch: every update holds one lock.
 """
 
 import threading
@@ -68,15 +71,16 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "flash_attention_bf16": 0,
                              "flash_attention_fp32": 0,
                              "ssd": 0, "ssd_bf16": 0, "ssd_fp32": 0,
-                             "ragged_dot": 0, "ragged_dot_bf16": 0,
-                             "ragged_dot_fp32": 0}
+                             "ragged_dot": 0, "ragged_dot_wgmma": 0,
+                             "ragged_dot_mma": 0, "ragged_dot_fp32": 0}
 
 
 def count_launch(name: str, route: str | None = None) -> None:
-    """Add one to ``LAUNCHES[name]`` and, with a ``route`` ("bf16" or
-    "fp32": the dtype whose kernel launched), to
-    ``LAUNCHES[f"{name}_{route}"]``, under one lock (a ``+=`` on a dict
-    entry is a read and a write that two threads can interleave)."""
+    """Add one to ``LAUNCHES[name]`` and, with a ``route`` (the kernel
+    that launched: "bf16" or "fp32", or ragged_dot's "wgmma", "mma" or
+    "fp32"), to ``LAUNCHES[f"{name}_{route}"]``, under one lock (a
+    ``+=`` on a dict entry is a read and a write that two threads can
+    interleave)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         if route is not None:

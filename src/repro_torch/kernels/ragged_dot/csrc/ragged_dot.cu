@@ -1,44 +1,98 @@
 // The grouped (ragged) matrix product of the mixture-of-experts FFN:
 // rows sorted by group, each group's rows times its own weight matrix.
-// bf16 inputs (the path's) on the tensor cores with fp32 accumulation and
-// one rounding to bf16; fp32 inputs (the port's fp32 compute mode) on the
-// CUDA cores in fp32.
 //
 // The port's counterpart of jax.lax.ragged_dot as repro/models/moe.py
-// (moe_ffn, :67-73) calls it.  ragged_dot is an XLA operation, not a
-// Pallas kernel: the JAX package has no TPU kernel for it to replace.
+// (moe_ffn, :67-73) calls it, on p["w_*"].astype(compute_dtype).
+// ragged_dot is an XLA operation, not a Pallas kernel: the JAX package
+// has no TPU kernel for it to replace.
 //
-//   x (M, K) bf16, rows sorted by group; w (G, K, N) bf16;
+//   x (M, K) bf16, rows sorted by group; w (G, K, N) bf16 or fp32;
 //   offsets (G + 1,) int32 on the device, group g the rows
 //   [offsets[g], offsets[g + 1]); rows outside [offsets[0], offsets[G])
 //   are zero
-//   -> y (M, N) bf16,  y[r] = bf16(sum_k x[r, k] w[g(r), k, :]) in fp32.
+//   -> y (M, N) bf16,  y[r] = bf16(sum_k x[r, k] bf16(w[g(r), k, :])),
+//   summed in fp32, where bf16(w) rounds fp32 weights to nearest even as
+//   w.to(torch.bfloat16) does.  The MoE FFN passes its fp32 expert
+//   stacks as they are stored, and the kernel rounds them as it loads
+//   them: no call casts a stack.  fp32 x with fp32 w (the port's fp32
+//   compute mode) takes the CUDA cores in fp32.
 //
 // The offsets are read on the card: the caller never needs a group's
 // size on the host, so a MoE layer makes no host sync (a loop of
 // torch.matmul over the groups would need every size there).
 //
-// Bound.  2 M K N FLOP at the bf16 tensor-core rate against the bytes
-// (x, every non-empty group's weights and y, each once).  mixtral's
-// prefill wave (8000 rows, K = 4096, N = 14336) is 9.4e11 FLOP, 0.95 ms
-// at 989e12 FLOP/s: operations bind.  A decode step (8 rows) reads the
-// active experts' weights, 117 MB each: bytes bind.
+// Bound.  2 M K N FLOP at the bf16 tensor-core rate against the bytes:
+// x, the weights of every non-empty group at their stored width, y, each
+// once.  mixtral's prefill gate/up (8000 rows, K = 4096, N = 14336, 8
+// groups) is 9.4e11 FLOP, 0.95 ms at 989e12 FLOP/s, against 2.2 GB
+// with fp32 weights, 0.65 ms at 3.35e12 B/s: operations bind.  A decode
+// step (8 rows in 5 groups) reads 5 fp32 weight matrices, 1.17 GB,
+// 0.35 ms: bytes bind.
 //
-// Design (simple first; wgmma, TMA and rounding fp32 weights on load
-// are later work).  The rows are cut into 128-row tiles aligned at 0; a
-// work item is one (group, row tile) pair whose rows meet, so a tile
-// that spans a group edge is computed once for each of its groups with
-// the other groups' rows zeroed on load and left out of the store.
+// Design of the bf16 route (ragged_dot_tc_kernel: TMA and wgmma), for
+// K a multiple of 8, N a multiple of 4 (fp32 w) or 8 (bf16 w), x and w
+// on 16 bytes and G <= 1024 (every model path's shape):
+// - Operands swapped: an item computes y^T = w^T x^T, so the weights are
+//   wgmma's A, taken from registers, and x's rows are wgmma's N.  The
+//   consumer threads read their A fragments of the weight tile from
+//   shared memory and round them there (cvt.rn.bf16x2.f32): the rounded
+//   weights never go back to shared memory, where a bf16 B tile would
+//   cost one more write and read of every weight element per item.  x,
+//   bf16 and K-major, is B, read by wgmma from shared memory as TMA lays
+//   it out (128-byte swizzle).  A bf16 weight is taken as it is, so the
+//   fp32 call is bit for bit the call on w.to(torch.bfloat16).  The swap
+//   also suits decode: x's few rows a group are wgmma's N, which can be
+//   small, where they would pad a 64-row M.
+// - Work items are (segment, row tile, 128-column tile), with row tiles
+//   of BX = 256 rows, or 64 when M <= 64 (decode: every group fits in
+//   one).  A row tile starts at its group's first row, so no tile is
+//   computed for two groups (rows of x past the group that a tile loads
+//   are computed and not stored).  Each block scans the offsets into the
+//   segments' rows and item counts with one warp (the rows before the
+//   first group and past the last are segments whose items write zeros).
+// - Persistent grid: one block an SM walks items blockIdx.x, +gridDim.x,
+//   ...; items are numbered group by group, column tile by column tile,
+//   row tile fastest, so the blocks that run together share one group's
+//   weight column panels and x rows in the 50 MB L2.
+// - A block is a producer warpgroup (40 registers a thread, setmaxnreg)
+//   and two consumer warpgroups (232).  One producer thread issues each
+//   64-deep K slice as TMA loads: x's BX x 64 box (a 2-D map) and the
+//   weights' 64 x 128 as boxes of 128 bytes a row (a 3-D map over
+//   (G, K, N): 4 boxes of 32 fp32 columns or 2 of 64 bf16), into a ring
+//   of as many stages as 220 KB holds (3 of 64 KB for fp32 weights at
+//   BX = 256), with full and empty mbarriers; it runs on into the next
+//   item while the consumers store the last one.  Each consumer
+//   warpgroup owns 64 of the 128 columns: per stage it reads its A
+//   fragments (8 loads a thread per 16-deep step, free of bank conflicts
+//   under the swizzle), issues four wgmma.m64nBXk16 (bf16 in, fp32
+//   sums), and releases the stage when they are done.
+// - Epilogue: each sum rounded once to bf16; lanes g and g ^ 1 swap one
+//   value so each stores two adjacent columns of a row of y; rows past
+//   the item's group and columns past N are not stored.
+// - The tensor maps are encoded on the host for each call with
+//   cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (the
+//   library does not link libcuda), and passed as __grid_constant__
+//   parameters.
+// - What holds it back at mixtral's prefill (twice its bound): a 16-deep
+//   step of a block moves 40 KB through shared memory (x read by both
+//   warpgroups' wgmma, the fp32 weights read into A, the TMA writes)
+//   against 246 cycles of tensor work at the peak rate, and three 64 KB
+//   stages are all the ring holds: with two it runs far slower, and
+//   32-deep stages (six of them) were slower still.
+//
+// Other bf16 inputs (ragged_dot_kernel, mma.sync): 128-row tiles aligned
+// at 0; a work item is one (group, row tile) pair whose rows meet, so a
+// tile that spans a group edge is computed once for each of its groups
+// with the other groups' rows zeroed on load and left out of the store.
 // There are at most ceil(M / 128) + G such items, plus two that write
 // zeros before offsets[0] and past offsets[G]; grid.y counts that many
-// and each block finds its own item by walking the offsets (G is a few
-// dozen at most).  A block of 8
-// warps computes a 128 x 128 tile of y on mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate), each warp 32 x 64, from a two-stage cp.async ring
-// of 32-deep K slices: x's rows as A (ldmatrix), w's rows [k][n] as B
-// (ldmatrix .trans).  Rows and columns past the edges load as zeros.
-// Inputs whose rows are not whole 16-byte chunks (K or N not a multiple
-// of 8, or a base off 16 bytes) take plain loads instead of cp.async.
+// and each block finds its own item by walking the offsets.  A block of
+// 8 warps computes a 128 x 128 tile of y on mma.sync m16n8k16, each warp
+// 32 x 64, from a two-stage ring of 32-deep K slices: x's rows as A
+// (ldmatrix), w's rows [k][n] as B (ldmatrix .trans).  Rows and columns
+// past the edges load as zeros.  Rows that are not whole 16-byte chunks
+// (K or N not a multiple of 8, or a base off 16 bytes) and fp32 weights
+// (rounded on load) take plain loads; the rest cp.async.
 //
 // fp32 (ragged_dot_f32_kernel): the same work items on 64-row tiles; a
 // block of 256 threads computes 64 x 64 outputs, 4 x 4 a thread, with
@@ -46,14 +100,25 @@
 // loads).  It is what the fp32 compute mode needs to hold the plain
 // version's fp32 sums, not a fast path (about 67e12 FLOP/s at best).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "../../csrc/sm90.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bf16 to_bf16(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+
+// ------------------------------------------------- the mma.sync route
 constexpr int BM = 128;            // rows of y a block computes
 constexpr int BN = 128;            // columns of y a block computes
 constexpr int BK = 32;             // the K slice of one ring stage
@@ -127,11 +192,11 @@ __device__ __forceinline__ bool find_item(const int* __restrict__ offsets,
 
 // One K slice [kb, kb + BK) into a ring stage: A is rows [m0, m0 + BM)
 // of x, zero outside [lo, hi); B is rows [kb, kb + BK) of the group's
-// weights, columns [n0, n0 + BN).
-template <bool VEC>
+// weights, columns [n0, n0 + BN), rounded to bf16 if they are fp32.
+template <bool VEC, typename TW>
 __device__ __forceinline__ void load_stage(Stage& st,
                                            const __nv_bfloat16* __restrict__ x,
-                                           const __nv_bfloat16* __restrict__ wg,
+                                           const TW* __restrict__ wg,
                                            int m0, int lo, int hi, int n0,
                                            int kb, int k, int n) {
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
@@ -155,7 +220,7 @@ __device__ __forceinline__ void load_stage(Stage& st,
     const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     const int kk = kb + r, col = n0 + nc;
     __nv_bfloat16* dst = &st.b[r * B_LD + nc];
-    if (VEC) {
+    if (VEC && sizeof(TW) == 2) {
       const bool v = kk < k && col < n;
       cp_async16(smem_u32(dst),
                  v ? wg + static_cast<size_t>(kk) * n + col : wg, v);
@@ -163,16 +228,16 @@ __device__ __forceinline__ void load_stage(Stage& st,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         dst[j] = kk < k && col + j < n
-                     ? wg[static_cast<size_t>(kk) * n + col + j]
+                     ? to_bf16(wg[static_cast<size_t>(kk) * n + col + j])
                      : zero;
     }
   }
 }
 
-template <bool VEC>
+template <bool VEC, typename TW>
 __global__ void __launch_bounds__(THREADS)
     ragged_dot_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
+                      const TW* __restrict__ w,
                       const int* __restrict__ offsets,
                       __nv_bfloat16* __restrict__ y, int m, int k, int n,
                       int groups) {
@@ -194,14 +259,15 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
   if (seg >= 1 && seg <= groups) {
-    const __nv_bfloat16* wg = w + static_cast<size_t>(seg - 1) * k * n;
+    const TW* wg = w + static_cast<size_t>(seg - 1) * k * n;
     const int ktiles = (k + BK - 1) / BK;
-    if (ktiles > 0) load_stage<VEC>(ring[0], x, wg, m0, lo, hi, n0, 0, k, n);
+    if (ktiles > 0)
+      load_stage<VEC, TW>(ring[0], x, wg, m0, lo, hi, n0, 0, k, n);
     cp_async_commit();
     for (int kt = 0; kt < ktiles; ++kt) {
       if (kt + 1 < ktiles)
-        load_stage<VEC>(ring[(kt + 1) & 1], x, wg, m0, lo, hi, n0,
-                        (kt + 1) * BK, k, n);
+        load_stage<VEC, TW>(ring[(kt + 1) & 1], x, wg, m0, lo, hi, n0,
+                            (kt + 1) * BK, k, n);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
@@ -259,6 +325,402 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 }
+
+// ------------------------------------------ the TMA + wgmma route
+namespace tc {
+
+constexpr int kBW = 128;             // w columns of an item: 64 a warpgroup
+constexpr int kBK = 64;              // K of a ring stage (128 bytes of x)
+constexpr int kSteps = kBK / 16;     // wgmma k-steps a stage
+constexpr int kConsumers = 256;      // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kMaxGroups = 1024;
+constexpr int kPanelBytes = kBK * 128;      // one weight box, 8 KB
+constexpr int kRingBudget = 220 * 1024;     // of the 227 KB a block may use
+
+// BX x rows an item (wgmma's N: 256, or 64 when every group fits in 64
+// rows), weights of type TW.
+template <typename TW, int BX>
+struct Cfg {
+  static constexpr int kXBytes = BX * kBK * 2;
+  static constexpr int kPanelCols = 128 / static_cast<int>(sizeof(TW));
+  static constexpr int kPanels = kBW / kPanelCols;
+  static constexpr int kStageBytes = kXBytes + kPanels * kPanelBytes;
+  static constexpr int kStages =
+      kRingBudget / kStageBytes < 8 ? kRingBudget / kStageBytes : 8;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+};
+
+// d (64 x N, fp32) += A (64 x 16 bf16, registers) * B (16 x N bf16,
+// shared memory, K-major, 128-byte swizzle), N = 256 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Orders the compiler's accesses of the accumulator around wgmma.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Ties A fragments to this point: computed before it, so that no
+// instruction defining a wgmma's input falls between the wgmma of a
+// stage (ptxas would serialise them).
+template <int S>
+__device__ __forceinline__ void pin(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int i = 0; i < 4 * S; ++i)
+    asm volatile("" : "+r"(a[i >> 2][i & 3])::"memory");
+}
+
+// Two weights of a stage's tile (lower k first) as one register of bf16
+// pairs; fp32 rounds to nearest even.
+__device__ __forceinline__ uint32_t pack2(const float* p0, const float* p1) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(*p0, *p1);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(const bf16* p0, const bf16* p1) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p0)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p1))
+          << 16);
+}
+
+struct Item {
+  int seg, r0, r_end, n0;   // segment, rows [r0, r_end), columns n0..+127
+};
+
+// Item i: the segment s with cum[s] <= i < cum[s + 1] (binary search;
+// segment s is the rows [start(s), end(s)) below), then the column tile
+// and the row tile of BX rows, row tile fastest.
+template <int BX>
+__device__ __forceinline__ Item item_at(int i, const int* cum,
+                                        const int* edge, int groups, int m) {
+  int lo = 0, hi = groups + 2;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (cum[mid] <= i) lo = mid;
+    else hi = mid;
+  }
+  const int start = lo == 0 ? 0 : edge[lo - 1];
+  const int end = lo <= groups ? edge[lo] : m;
+  const int row_tiles = (end - start + BX - 1) / BX;
+  const int local = i - cum[lo];
+  const int ct = local / row_tiles, rt = local - ct * row_tiles;
+  Item it;
+  it.seg = lo;
+  it.r0 = start + rt * BX;
+  it.r_end = min(it.r0 + BX, end);
+  it.n0 = ct * kBW;
+  return it;
+}
+
+template <typename TW, int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    ragged_dot_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmw,
+                         const int* __restrict__ offsets,
+                         bf16* __restrict__ y, int m, int k, int n,
+                         int groups) {
+  using C = Cfg<TW, BX>;
+  constexpr int kAcc = BX / 2;   // accumulator registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[2 * C::kStages];   // full, then empty
+  // edge[j] = min(max(0, offsets[0..j]), m): group g is the rows
+  // [edge[g], edge[g + 1]), as the plain version clamps them; segment 0
+  // is [0, edge[0]) and segment groups + 1 is [edge[groups], m).
+  __shared__ int edge[kMaxGroups + 1];
+  __shared__ int cum[kMaxGroups + 3];         // items before segment s
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int col_tiles = (n + kBW - 1) / kBW;
+  const int ktiles = (k + kBK - 1) / kBK;
+
+  for (int j = tid; j <= groups; j += kThreads) edge[j] = offsets[j];
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[C::kStages + s]), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) {   // scans of 32 at a time: the running max, then cum
+    int carry = 0;
+    for (int base = 0; base <= groups; base += 32) {
+      const int j = base + lane;
+      int v = j <= groups ? edge[j] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v = max(v, u);
+      }
+      v = max(v, carry);
+      if (j <= groups) edge[j] = min(v, m);
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+    __syncwarp();
+    int total = 0;
+    for (int base = 0; base < groups + 2; base += 32) {
+      const int s = base + lane;
+      int c = 0;
+      if (s < groups + 2) {
+        const int lo = s == 0 ? 0 : edge[s - 1];
+        const int hi = s <= groups ? edge[s] : m;
+        c = (hi - lo + BX - 1) / BX * col_tiles;
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, c, o);
+        if (lane >= o) c += u;
+      }
+      if (s < groups + 2) cum[s + 1] = total + c;
+      total += __shfl_sync(0xffffffffu, c, 31);
+    }
+    if (lane == 0) cum[0] = 0;
+  }
+  __syncthreads();
+  const int items = cum[groups + 2];
+
+  if (tid >= kConsumers) {   // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const Item it = item_at<BX>(i, cum, edge, groups, m);
+        if (it.seg == 0 || it.seg > groups) continue;   // zeros: no loads
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(smem_u32(&bars[C::kStages + stage]), phase ^ 1);
+          const uint32_t full = smem_u32(&bars[stage]);
+          const uint32_t st = smem_u32(smem + stage * C::kStageBytes);
+          mbar_expect_tx(full, C::kStageBytes);
+          tma_load_2d(st, &tmx, full, kt * kBK, it.r0);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p)
+            tma_load_3d(st + C::kXBytes + p * kPanelBytes, &tmw, full,
+                        it.n0 + p * C::kPanelCols, kt * kBK, it.seg - 1);
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  // A consumer: warpgroup wg owns columns [64 wg, 64 wg + 64) of an
+  // item's 128, warp w of it 16 of them; the thread's A rows are the
+  // columns c0 and c0 + 8, its k the rows 2 t, 2 t + 1, 2 t + 8 and
+  // 2 t + 9 of each 16-deep step (wgmma's A fragment).
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int c0 = wg * 64 + warp * 16 + g;
+  // Byte offsets in a stage of (column c0 + 8 ci, k row 2 t + kb + 8 kh)
+  // of step 0: the weights' panel, the row, the swizzled chunk.
+  uint32_t off[2][2][2];
+#pragma unroll
+  for (int ci = 0; ci < 2; ++ci)
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        const int c = c0 + 8 * ci, kr = 2 * t + kb + 8 * kh;
+        const int byte = (c % C::kPanelCols) * static_cast<int>(sizeof(TW));
+        off[ci][kb][kh] = C::kXBytes + (c / C::kPanelCols) * kPanelBytes +
+                          kr * 128 + (((byte >> 4) ^ (kr & 7)) << 4) +
+                          (byte & 15);
+      }
+  const uint64_t x_desc = desc(smem_u32(smem), 16, 1024);
+
+  float acc[kAcc];
+  uint32_t a[kSteps][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  // One K slice: the stage's A fragments, its kSteps wgmma, and the
+  // stage released once they are done.  A warpgroup's next A fragments wait
+  // for its products: ptxas serialises wgmma whose register inputs are
+  // written while earlier ones are in flight, and the other warpgroup's
+  // products fill the tensor cores meanwhile.
+  auto step = [&]() {
+    mbar_wait(smem_u32(&bars[stage]), phase);
+    const uint8_t* st = smem + stage * C::kStageBytes;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = e & 1, kh = e >> 1;
+        a[s][e] = pack2(
+            reinterpret_cast<const TW*>(st + s * 2048 + off[ci][0][kh]),
+            reinterpret_cast<const TW*>(st + s * 2048 + off[ci][1][kh]));
+      }
+    uint64_t db[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      db[s] = x_desc + ((stage * C::kStageBytes + s * 32) >> 4);
+      asm volatile("" : "+l"(db[s])::"memory");
+    }
+    pin(a);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) wgmma_rs<BX>(acc, a[s], db[s]);
+    wg_commit();
+
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(smem_u32(&bars[C::kStages + stage]));
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_at<BX>(i, cum, edge, groups, m);
+    if (it.seg == 0 || it.seg > groups) {   // rows outside the groups
+      const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+      for (int e = tid; e < BX * (kBW / 2); e += kConsumers) {
+        const int row = it.r0 + e / (kBW / 2);
+        const int col = it.n0 + 2 * (e % (kBW / 2));
+        if (row < it.r_end && col < n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + static_cast<int64_t>(row) * n + col) = z;
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) step();
+
+    // acc[4 j + 2 h + e] is (column c0 + 8 h, x row 8 j + 2 t + e) of
+    // the item.  Lane g ^ 1 holds the neighbouring column: an even g
+    // stores row 2 t, columns (c, c + 1), an odd g row 2 t + 1, columns
+    // (c - 1, c).
+    const bool odd = g & 1;
+    const int col_base = it.n0 + c0 - (odd ? 1 : 0);
+#pragma unroll
+    for (int j = 0; j < BX / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const int row = it.r0 + 8 * j + 2 * t + (odd ? 1 : 0);
+        const int col = col_base + 8 * h;
+        if (row < it.r_end && col < n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + static_cast<int64_t>(row) * n + col) =
+              odd ? __floats2bfloat162_rn(other, v1)
+                  : __floats2bfloat162_rn(v0, other);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+template <typename TW, int BX>
+int launch(const CUtensorMap& tmx, const CUtensorMap& tmw,
+           const int* offsets, bf16* y, int m, int k, int n, int groups,
+           int sms, cudaStream_t s) {
+  const long long items =
+      ((m + BX - 1LL) / BX + groups + 2) * ((n + kBW - 1) / kBW);
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ragged_dot_tc_kernel<TW, BX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<TW, BX>::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ragged_dot_tc_kernel<TW, BX><<<blocks, kThreads, Cfg<TW, BX>::kSmem, s>>>(
+      tmx, tmw, offsets, y, m, k, n, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 constexpr int F_TILE = 64;         // fp32: rows and columns a block computes
 constexpr int F_BK = 16;           // fp32: the K slice in shared memory
@@ -321,14 +783,90 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// x (m, k), w (groups, k, n), offsets (groups + 1,) int32 and y (m, n),
-// all on the device, bf16 (fp32 != 0: float32); vec != 0 when k and n
-// are multiples of 8 and x, w and y start on 16 bytes (bf16 only).
-// Returns the launch's CUDA error (0 on success).
+// The TMA + wgmma route: x (m, k) bf16, w (groups, k, n) fp32
+// (w_fp32 != 0) or bf16, offsets (groups + 1,) int32 and y (m, n) bf16,
+// all on the current device; k a multiple of 8, n of 4 (fp32) or 8
+// (bf16), x and w on 16 bytes, groups <= 1024 (ops.TC_MAX_GROUPS).
+// Returns the launch's CUDA error (0 on success), or 100000 plus the
+// CUresult of a tensor map that could not be encoded.
+extern "C" int ragged_dot_tc_launch(const void* x, const void* w,
+                                    const void* offsets, void* y, int m,
+                                    int k, int n, int groups, int w_fp32,
+                                    void* stream) {
+  using namespace tc;
+  if (m <= 0 || n <= 0) return 0;
+  const int esz = w_fp32 ? 4 : 2;
+  if (k < 0 || groups < 0 || groups > kMaxGroups || k % 8 != 0 ||
+      n % (16 / esz) != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) %
+              16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 64-row items when every group fits in one (decode), else 256.
+  const int bx = m <= 64 ? 64 : 256;
+  CUtensorMap tmx, tmw;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmw, 0, sizeof(tmw));
+  if (k > 0) {   // with k == 0 no item loads: every row is zero
+    const EncodeTiled enc = encoder();
+    if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+    const cuuint32_t ones[3] = {1, 1, 1};
+    const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(k) * 2};
+    const cuuint32_t xbox[2] = {kBK, static_cast<cuuint32_t>(bx)};
+    CUresult r = enc(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     const_cast<void*>(x), xdim, xstride, xbox, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+    if (groups > 0) {
+      const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(n),
+                                  static_cast<cuuint64_t>(k),
+                                  static_cast<cuuint64_t>(groups)};
+      const cuuint64_t wstride[2] = {
+          static_cast<cuuint64_t>(n) * esz,
+          static_cast<cuuint64_t>(k) * n * esz};
+      const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(128 / esz), kBK,
+                                  1};
+      r = enc(&tmw,
+              w_fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              3, const_cast<void*>(w), wdim, wstride, wbox, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+    }
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<const int*>(offsets);
+  auto* yp = static_cast<bf16*>(y);
+  if (bx == 64)
+    return w_fp32
+               ? launch<float, 64>(tmx, tmw, op, yp, m, k, n, groups, sms, s)
+               : launch<bf16, 64>(tmx, tmw, op, yp, m, k, n, groups, sms, s);
+  return w_fp32
+             ? launch<float, 256>(tmx, tmw, op, yp, m, k, n, groups, sms, s)
+             : launch<bf16, 256>(tmx, tmw, op, yp, m, k, n, groups, sms, s);
+}
+
+// The other routes: x (m, k), w (groups, k, n), offsets (groups + 1,)
+// int32 and y (m, n), all on the device; fp32 != 0: x, w and y float32
+// (the CUDA cores); else x and y bf16 and w bf16, or float32 with
+// w_fp32 != 0 (mma.sync, weights rounded on load); vec != 0 when k and
+// n are multiples of 8 and x, w and y start on 16 bytes.  Returns the
+// launch's CUDA error (0 on success).
 extern "C" int ragged_dot_launch(const void* x, const void* w,
                                  const void* offsets, void* y, int m, int k,
                                  int n, int groups, int vec, int fp32,
-                                 void* stream) {
+                                 int w_fp32, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (k < 0 || groups < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tile = fp32 ? F_TILE : BM;
@@ -346,14 +884,24 @@ extern "C" int ragged_dot_launch(const void* x, const void* w,
         static_cast<float*>(y), m, k, n, groups);
     return static_cast<int>(cudaGetLastError());
   }
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* wp = static_cast<const __nv_bfloat16*>(w);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
-  if (vec)
-    ragged_dot_kernel<true><<<grid, THREADS, 0, s>>>(xp, wp, op, yp, m, k, n,
-                                                     groups);
-  else
-    ragged_dot_kernel<false><<<grid, THREADS, 0, s>>>(xp, wp, op, yp, m, k, n,
-                                                      groups);
+  auto* xp = static_cast<const bf16*>(x);
+  auto* yp = static_cast<bf16*>(y);
+  if (w_fp32) {
+    auto* wp = static_cast<const float*>(w);
+    if (vec)
+      ragged_dot_kernel<true, float><<<grid, THREADS, 0, s>>>(
+          xp, wp, op, yp, m, k, n, groups);
+    else
+      ragged_dot_kernel<false, float><<<grid, THREADS, 0, s>>>(
+          xp, wp, op, yp, m, k, n, groups);
+  } else {
+    auto* wp = static_cast<const bf16*>(w);
+    if (vec)
+      ragged_dot_kernel<true, bf16><<<grid, THREADS, 0, s>>>(
+          xp, wp, op, yp, m, k, n, groups);
+    else
+      ragged_dot_kernel<false, bf16><<<grid, THREADS, 0, s>>>(
+          xp, wp, op, yp, m, k, n, groups);
+  }
   return static_cast<int>(cudaGetLastError());
 }

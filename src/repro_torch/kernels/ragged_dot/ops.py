@@ -3,14 +3,24 @@
 `ragged_dot(x, w, group_offsets)` takes x (M, K) with rows sorted by
 group, w (G, K, N) and group_offsets (G + 1,) int32 (group g the rows
 ``[offsets[g], offsets[g + 1])``) and returns (M, N) in x's type, as
-`ref.ragged_dot_ref`.  Tensors on the CPU go to that plain version.
-CUDA tensors go to ``csrc/ragged_dot.cu``, built at first use, or the
-call raises: bfloat16 to the tensor-core kernel (mma.sync bf16 -> fp32,
-one rounding to bf16), float32 to the CUDA-core fp32 kernel (the fp32
-compute mode's).  The kernels read the offsets on the card, so a call
-makes no host sync.  Every launch adds one to ``LAUNCHES["ragged_dot"]``
-and one to the route it took, ``LAUNCHES["ragged_dot_bf16"]`` or
-``LAUNCHES["ragged_dot_fp32"]``.
+`ref.ragged_dot_ref`.  w is of x's type, or float32 with bfloat16 x:
+the weights are then rounded to bfloat16 (to nearest even, as
+``w.to(torch.bfloat16)``) as they are loaded, so the MoE FFN passes its
+fp32 expert stacks as they are stored.  Any other pair of types raises.
+Tensors on the CPU go to the plain version.  CUDA tensors go to
+``csrc/ragged_dot.cu``, built at first use, or the call raises:
+
+- bfloat16 x to the TMA + wgmma kernel (``ragged_dot_tc_kernel``), for
+  K a multiple of 8, N a multiple of 4 (fp32 w) or 8 (bf16 w), x and w
+  on 16 bytes and G <= 1024 (the model paths' shapes);
+- other bfloat16 inputs to the mma.sync kernel (``ragged_dot_kernel``);
+- float32 x and w to the CUDA-core fp32 kernel (the fp32 compute
+  mode's).
+
+The kernels read the offsets on the card, so a call makes no host sync.
+Every launch adds one to ``LAUNCHES["ragged_dot"]`` and one to the
+route it took: ``LAUNCHES["ragged_dot_wgmma"]``,
+``LAUNCHES["ragged_dot_mma"]`` or ``LAUNCHES["ragged_dot_fp32"]``.
 """
 
 from __future__ import annotations
@@ -24,7 +34,11 @@ from .._build import load
 from .ref import ragged_dot_ref
 
 _NAME = "ragged_dot"
-_DTYPES = (torch.float32, torch.bfloat16)
+#: (x's type, w's types) the wrapper takes.
+_PAIRS = {torch.float32: (torch.float32,),
+          torch.bfloat16: (torch.bfloat16, torch.float32)}
+#: The most groups the TMA route takes (``tc::kMaxGroups``).
+TC_MAX_GROUPS = 1024
 
 
 def _check(x, w, group_offsets) -> None:
@@ -40,8 +54,9 @@ def _check(x, w, group_offsets) -> None:
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and "
                          f"group_offsets {tuple(group_offsets.shape)} "
                          f"disagree")
-    if w.dtype != x.dtype:
-        raise TypeError(f"x is {x.dtype}, w is {w.dtype}")
+    if w.dtype != x.dtype and w.dtype not in _PAIRS.get(x.dtype, ()):
+        raise TypeError(f"x is {x.dtype}, w is {w.dtype}: w must be of "
+                        f"x's type, or float32 with bfloat16 x")
     if group_offsets.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"group_offsets must be int32 or int64, not "
                         f"{group_offsets.dtype}")
@@ -49,20 +64,36 @@ def _check(x, w, group_offsets) -> None:
         raise ValueError(f"{_NAME} runs on cpu or cuda, not {x.device}")
 
 
-def _launcher():
-    fn = load(_NAME).ragged_dot_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+def _launcher(symbol: str, n_ints: int):
+    fn = getattr(load(_NAME), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def ragged_dot(x, w, group_offsets):
-    """The grouped product (see the module docstring)."""
+def tc_route(x, w) -> bool:
+    """Whether a bfloat16 call takes the TMA + wgmma kernel: TMA copies
+    rows of whole 16-byte units from 16-byte bases."""
+    k, n = x.shape[1], w.shape[2]
+    w_units = 16 // w.element_size()
+    return (k % 8 == 0 and n % w_units == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and w.shape[0] <= TC_MAX_GROUPS)
+
+
+def ragged_dot(x, w, group_offsets, *, route: str | None = None):
+    """The grouped product (see the module docstring).  ``route``
+    ("wgmma" or "mma") names the bf16 kernel a CUDA call must take, for
+    comparing the two; a shape the named kernel cannot take raises.  By
+    default the TMA kernel takes every shape it can."""
     _check(x, w, group_offsets)
+    if route not in (None, "wgmma", "mma"):
+        raise ValueError(f"route must be None, 'wgmma' or 'mma', not "
+                         f"{route!r}")
     if x.device.type == "cpu":
         return ragged_dot_ref(x, w, group_offsets)
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _PAIRS:
         raise TypeError(f"{_NAME} takes float32 or bfloat16, not {x.dtype}")
     if group_offsets.dtype != torch.int32:
         raise TypeError("the kernel takes int32 group_offsets")
@@ -76,18 +107,35 @@ def ragged_dot(x, w, group_offsets):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
-    # cp.async moves 16 bytes: whole rows of 8 bf16 from 16-byte bases.
-    vec = int(k % 8 == 0 and n % 8 == 0 and all(p % 16 == 0 for p in ptrs))
-    fp32 = x.dtype == torch.float32
+    w_fp32 = int(w.dtype == torch.float32)
+    if x.dtype == torch.float32:
+        if route is not None:
+            raise ValueError(f"{_NAME}: float32 inputs take the fp32 "
+                             f"kernel, not {route!r}")
+        route = "fp32"
+    elif route is None:
+        route = "wgmma" if tc_route(x, w) else "mma"
+    elif route == "wgmma" and not tc_route(x, w):
+        raise ValueError(f"{_NAME}: the TMA kernel cannot take x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"{w.dtype} at these addresses")
+    ptrs = (x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
+            y.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(x.data_ptr(), w.data_ptr(),
-                          group_offsets.data_ptr(), y.data_ptr(), m, k, n,
-                          groups, vec, int(fp32), stream)
-    route = "fp32" if fp32 else "bf16"
+        if route == "wgmma":
+            err = _launcher("ragged_dot_tc_launch", 5)(
+                *ptrs, m, k, n, groups, w_fp32, stream)
+        else:
+            # cp.async moves 16 bytes: whole rows of 8 bf16 from 16-byte
+            # bases.
+            vec = int(k % 8 == 0 and n % 8 == 0 and
+                      all(p % 16 == 0 for p in (ptrs[0], ptrs[1], ptrs[3])))
+            err = _launcher("ragged_dot_launch", 7)(
+                *ptrs, m, k, n, groups, vec, int(route == "fp32"), w_fp32,
+                stream)
     if err != 0:
         raise RuntimeError(f"{_NAME} ({route}) launch failed: "
-                           f"CUDA error {err}")
+                           f"error {err}")
     count_launch(_NAME, route)
     return y

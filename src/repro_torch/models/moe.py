@@ -5,7 +5,9 @@ Dispatch is sort-based: tokens are flattened, sorted by assigned expert,
 pushed through the experts' weights as ragged groups, and combined with
 the router weights.  The grouped products are `kernels.ragged_dot`: the
 CUDA kernel for tensors on the card (it reads the group offsets there,
-so a layer makes no host sync), its plain torch version on the CPU.
+so a layer makes no host sync, and it takes the fp32 expert stacks as
+they are stored, rounding them to bf16 as it loads them), its plain
+torch version on the CPU.
 The capacity path (``ModelConfig.moe_impl == "capacity"``) packs the
 tokens into an (E, cap, D) buffer and takes batched products, as the
 reference computes it outside any kernel.
@@ -118,10 +120,12 @@ def moe_ffn(p: MoE, x, *, top_k: int, compute_dtype=torch.bfloat16):
     sorted_w = gate_w.reshape(-1)[order]
 
     xd = xf.to(compute_dtype)[sorted_tok]                   # (T*k, D)
-    gate = rd_ops.ragged_dot(xd, p.w_gate.to(compute_dtype), offsets)
-    up = rd_ops.ragged_dot(xd, p.w_up.to(compute_dtype), offsets)
+    # The stacks go as they are stored: the grouped product rounds fp32
+    # weights to bf16 as it loads them (the reference's astype).
+    gate = rd_ops.ragged_dot(xd, p.w_gate, offsets)
+    up = rd_ops.ragged_dot(xd, p.w_up, offsets)
     h = L.silu(gate) * up                                   # (T*k, F)
-    y = rd_ops.ragged_dot(h, p.w_down.to(compute_dtype), offsets)
+    y = rd_ops.ragged_dot(h, p.w_down, offsets)
 
     y = y * sorted_w[:, None].to(y.dtype)
     out = combine(y, order, t, top_k)

@@ -18,8 +18,10 @@ or ``LAUNCHES["flash_attention_fp32"]`` (``ssd_bf16``, ``ssd_fp32``):
 both dtypes run on the tensor cores, fp32 in split-TF32 products; flash
 takes head dims up to 256 on both.  `ragged_dot` (the MoE FFN's grouped
 product) is held to its plain version at one bf16 ulp (1e-4 + 2^-7 |y|:
-both sum in fp32 and round once), makes no host sync, and launches 3
-times a MoE layer a forward.  `selection_counts` runs on the .b1 tensor
+both sum in fp32 and round once) on both bf16 kernels (TMA + wgmma,
+mma.sync), on fp32 weights rounded as they are loaded bit for bit as on
+the weights cast first, makes no host sync, and launches 3 times a MoE
+layer a forward, on the TMA kernel.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
 threads.
@@ -635,10 +637,11 @@ def test_family_smoke_models_on_the_card_equal_the_cpu(cuda, arch, kernel,
 
 # ------------------------------------------------------------ ragged_dot
 def _ragged(m, k, n, sizes, device, seed=0):
+    """bf16 x, fp32 weights (the stacks as the model stores them) and
+    the int32 offsets of ``sizes``."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((m, k), generator=g).to(torch.bfloat16)
-    w = (torch.randn((len(sizes), k, n), generator=g) * k ** -0.5) \
-        .to(torch.bfloat16)
+    w = torch.randn((len(sizes), k, n), generator=g) * k ** -0.5
     offs = torch.tensor([0] + list(torch.tensor(sizes).cumsum(0)),
                         dtype=torch.int32)
     return x.to(device), w.to(device), offs.to(device)
@@ -649,40 +652,99 @@ def _ragged_ok(got, want, ulps: int = 1) -> bool:
     return bool((d <= 1e-4 + ulps * 2.0 ** -7 * want.float().abs()).all())
 
 
+def _tma_aligned(k, n, w_dtype) -> bool:
+    """The shapes the TMA + wgmma kernel takes (from 16-byte bases)."""
+    return k % 8 == 0 and n % (4 if w_dtype == torch.float32 else 8) == 0
+
+
+def _launched(before, route):
+    return (LAUNCHES["ragged_dot"] - before["ragged_dot"],
+            LAUNCHES[f"ragged_dot_{route}"] - before[f"ragged_dot_{route}"])
+
+
 @pytest.mark.parametrize("case", [
     (8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
     (257, 64, 96, [257]), (129, 64, 128, [0, 0, 129, 0]),
     (300, 70, 198, [0, 100, 0, 150, 40]), (200, 64, 100, [50] * 4),
     (1000, 256, 384, [100, 0, 300, 250, 0, 350]),
-    (24, 2048, 1408, [1] * 24 + [0] * 40)], ids=str)
+    (24, 2048, 1408, [1] * 24 + [0] * 40),
+    (600, 4104, 520, [0, 300, 300]), (40, 256, 4360, [10, 0, 30]),
+    (520, 128, 4104, [300, 0, 220])], ids=str)
 def test_ragged_dot_equals_plain_version(cuda, case):
-    """Empty groups, one group holding every row, M off the 128-row tile,
-    tiles that span groups, K or N off a multiple of 8 (plain loads),
-    deepseek's decode shape; one launch a call, on the dtype's route."""
+    """Empty groups, one group holding every row, M off the row tiles,
+    groups across a tile edge, K or N off a multiple of 8 (the mma.sync
+    kernel), deepseek's decode shape, K or N past 4096; bf16 x with
+    fp32 weights (rounded on load) and with the same weights cast to
+    bf16 first, one launch a call on its route; then the fp32 route."""
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    m, k, n, _ = case
     x, w, offs = _ragged(*case, cuda)
+    for weights in (w, w.bfloat16()):
+        route = "wgmma" if _tma_aligned(k, n, weights.dtype) else "mma"
+        before = dict(LAUNCHES)
+        got = ragged_dot(x, weights, offs)
+        torch.cuda.synchronize()
+        assert _launched(before, route) == (1, 1)
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert _ragged_ok(got, ragged_dot_ref(x, w, offs))
+    # The fp32 route (the fp32 compute mode's): the plain version's fp32
+    # sums within 1e-4 + 1e-5 |y|.
+    x = x.float()
     before = dict(LAUNCHES)
     got = ragged_dot(x, w, offs)
     torch.cuda.synchronize()
-    assert LAUNCHES["ragged_dot"] == before["ragged_dot"] + 1
-    assert LAUNCHES["ragged_dot_bf16"] == before["ragged_dot_bf16"] + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (case[0], case[2])
-    assert _ragged_ok(got, ragged_dot_ref(x, w, offs))
-    # The fp32 route (the fp32 compute mode's): the plain version's fp32
-    # sums within 1e-4 + 1e-5 |y|.
-    x, w = x.float(), w.float()
-    got = ragged_dot(x, w, offs)
-    torch.cuda.synchronize()
-    assert LAUNCHES["ragged_dot_fp32"] == before["ragged_dot_fp32"] + 1
+    assert _launched(before, "fp32") == (1, 1)
     want = ragged_dot_ref(x, w, offs)
     assert got.dtype == torch.float32
     assert bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all())
 
 
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("case", [
+    (300, 72, 200, [0, 100, 0, 150, 50]), (8, 4096, 1024, [2, 0, 6]),
+    (1000, 256, 384, [100, 0, 300, 250, 0, 350])], ids=str)
+def test_ragged_dot_fp32_weights_equal_the_cast_weights(cuda, case, route):
+    """Each bf16 kernel on fp32 weights, rounded as it loads them, gives
+    the bits it gives on the weights cast to bf16 first; either kernel
+    is within one bf16 ulp of the plain version."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    x, w, offs = _ragged(*case, cuda, seed=1)
+    before = dict(LAUNCHES)
+    got = ragged_dot(x, w, offs, route=route)
+    cast = ragged_dot(x, w.bfloat16(), offs, route=route)
+    torch.cuda.synchronize()
+    assert _launched(before, route) == (2, 2)
+    assert torch.equal(got, cast)
+    assert _ragged_ok(got, ragged_dot_ref(x, w, offs))
+
+
+def test_ragged_dot_unaligned_shapes_take_the_mma_kernel(cuda):
+    """K off a multiple of 8, N off 4 (fp32) or 8 (bf16 weights) and x
+    off 16 bytes take the mma.sync kernel, counted as its route; naming
+    the TMA kernel for them raises."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
+    x, w, offs = _ragged(300, 64, 100, [100, 100, 100], cuda)
+    shifted = torch.empty(x.numel() + 2, dtype=x.dtype,
+                          device=cuda)[2:].view(x.shape)
+    shifted.copy_(x)
+    for xx, ww in ((shifted, w), (x, w.bfloat16()), (x[:, :60].contiguous(),
+                                                    w[:, :60].contiguous())):
+        before = dict(LAUNCHES)
+        got = ragged_dot(xx, ww, offs)
+        torch.cuda.synchronize()
+        assert _launched(before, "mma") == (1, 1)
+        assert _ragged_ok(got, ragged_dot_ref(xx, ww, offs))
+        with pytest.raises(ValueError, match="TMA"):
+            ragged_dot(xx, ww, offs, route="wgmma")
+
+
 def test_ragged_dot_edges_of_its_inputs(cuda):
-    """x off 16-byte alignment; rows outside the groups are zero; fp16
-    and int64 offsets are refused on the card; no host sync."""
+    """x off 16-byte alignment; rows outside the groups are zero on both
+    bf16 kernels; fp16, fp32 x with bf16 weights and int64 offsets are
+    refused on the card; no host sync."""
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
     x, w, offs = _ragged(300, 64, 96, [100, 100, 100], cuda)
@@ -693,11 +755,14 @@ def test_ragged_dot_edges_of_its_inputs(cuda):
                       ragged_dot_ref(x, w, offs))
     inner = torch.tensor([20, 120, 120, 250], dtype=torch.int32,
                          device=cuda)
-    got = ragged_dot(x, w, inner)
-    assert not got[:20].any() and not got[250:].any()
-    assert _ragged_ok(got, ragged_dot_ref(x, w, inner))
+    for route in ("wgmma", "mma"):
+        got = ragged_dot(x, w, inner, route=route)
+        assert not got[:20].any() and not got[250:].any()
+        assert _ragged_ok(got, ragged_dot_ref(x, w, inner))
     with pytest.raises(TypeError):
         ragged_dot(x.half(), w.half(), offs)
+    with pytest.raises(TypeError):
+        ragged_dot(x.float(), w.bfloat16(), offs)
     with pytest.raises(TypeError):
         ragged_dot(x, w, offs.long())
     torch.cuda.synchronize()
@@ -720,13 +785,14 @@ def test_moe_ffn_on_the_card_makes_no_host_sync(cuda):
                generator=torch.Generator(device=cuda).manual_seed(0))
     x = torch.randn(3, 40, 64, device=cuda).bfloat16()
     torch.cuda.synchronize()
-    before = LAUNCHES["ragged_dot"]
+    before = dict(LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, aux = m(x, top_k=6)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert LAUNCHES["ragged_dot"] == before + 3
+    # The fp32 stacks go uncast, each product on the TMA + wgmma kernel.
+    assert _launched(before, "wgmma") == (3, 3)
     cpu = PM.MoE(64, n_experts=16, moe_d_ff=48, n_shared=2, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
     _, _, gi = PM.route(m, x.reshape(-1, 64), 6)

@@ -6,6 +6,11 @@ the JAX package, on seeded numpy inputs.
   reference (each group's product in fp32, rounded once; the two sum in
   other orders, so a result next to a rounding edge can take the other
   side: 3 of 57,600 entries at the first case's shape).
+- fp32 weights with bf16 x (the expert stacks as the FFN passes them):
+  the plain version rounds them to bf16 first, bit for bit a cast, and
+  stays within one bf16 ulp of the reference on its cast weights; other
+  mixed pairs raise; `ops.tc_route` sends exactly the aligned shapes to
+  the TMA kernel; the FFN on fp32 stacks equals the FFN on cast ones.
 - `moe_ffn` and `moe_ffn_capacity` against the reference's functions
   compiled without XLA's excess precision (the reference's own bf16
   roundings, equal to its run under ``jax.disable_jit()``): the routing
@@ -107,10 +112,105 @@ def test_ragged_dot_wrapper_runs_the_plain_version_on_the_cpu():
         ragged_dot(x, w, _offsets([4, 8]))
     with pytest.raises(ValueError, match="disagree"):
         ragged_dot(x, torch.randn(3, 15, 8).bfloat16(), offs)
+    # bf16 x takes fp32 weights (rounded as they are read); fp32 x with
+    # bf16 weights is a mixed pair it refuses.
+    assert torch.equal(ragged_dot(x, w.float(), offs),
+                       ragged_dot(x, w, offs))
     with pytest.raises(TypeError):
-        ragged_dot(x, w.float(), offs)
+        ragged_dot(x.float(), w, offs)
     with pytest.raises(TypeError):
         ragged_dot(x, w, offs.float())
+
+
+# fp32 weights with bf16 x: the plain version rounds them to bf16 first, as
+# the kernel does on load and the reference's ``astype`` before its call.
+# (M, K, N, group sizes): empty groups, a group across the 256-row tile
+# edge (300 rows), groups of one row.
+FP32_WEIGHT_CASES = [
+    (300, 64, 96, [0, 300, 0]),
+    (520, 72, 40, [100, 0, 300, 120]),
+    (9, 16, 24, [1, 0, 1, 1, 0, 6]),
+    (64, 128, 256, [64]),
+]
+
+
+@pytest.mark.parametrize("case", FP32_WEIGHT_CASES, ids=str)
+def test_plain_ragged_dot_rounds_fp32_weights_like_a_cast(case):
+    m, k, n, sizes = case
+    rng = np.random.default_rng(m * k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((len(sizes), k, n)) * k ** -0.5) \
+        .astype(np.float32)
+    xt, wt = torch.from_numpy(x).bfloat16(), torch.from_numpy(w)
+    got = ragged_dot_ref(xt, wt, _offsets(sizes))
+    assert torch.equal(got, ragged_dot_ref(xt, wt.bfloat16(),
+                                           _offsets(sizes)))
+    assert torch.equal(got, ragged_dot(xt, wt, _offsets(sizes)))
+    want = jax.lax.ragged_dot(jnp.asarray(x, jnp.bfloat16),
+                              jnp.asarray(w).astype(jnp.bfloat16),
+                              jnp.asarray(sizes, jnp.int32))
+    assert within_one_ulp(got.float().numpy(), want).all()
+
+
+@pytest.mark.parametrize("offs", [[3, 5, 5, 9], [0, 4, 2, 7], [-2, 4, 6, 20]],
+                         ids=str)
+def test_plain_ragged_dot_fp32_weights_rows_outside_the_groups(offs):
+    """Rows outside the clamped groups are zero with fp32 weights too, and
+    the rest equals the call on the weights cast first."""
+    x = torch.randn(10, 8, generator=torch.Generator().manual_seed(0)) \
+        .bfloat16()
+    w = torch.randn(3, 8, 4, generator=torch.Generator().manual_seed(1))
+    o = torch.tensor(offs, dtype=torch.int32)
+    got = ragged_dot_ref(x, w, o)
+    assert torch.equal(got, ragged_dot_ref(x, w.bfloat16(), o))
+    lo, hi = min(max(offs[0], 0), 10), min(max(max(offs), 0), 10)
+    assert not got[:lo].any() and not got[hi:].any()
+
+
+@pytest.mark.parametrize("pair", [
+    (torch.float32, torch.bfloat16), (torch.float16, torch.float32),
+    (torch.bfloat16, torch.float16), (torch.float32, torch.float16),
+    (torch.float16, torch.bfloat16)], ids=str)
+def test_ragged_dot_refuses_other_mixed_pairs(pair):
+    x = torch.randn(6, 8).to(pair[0])
+    w = torch.randn(2, 8, 4).to(pair[1])
+    with pytest.raises(TypeError, match="float32 with bfloat16 x"):
+        ragged_dot(x, w, _offsets([2, 4]))
+
+
+def test_ragged_dot_route_names_are_checked():
+    x, w = torch.randn(6, 8).bfloat16(), torch.randn(2, 8, 4)
+    with pytest.raises(ValueError, match="route"):
+        ragged_dot(x, w, _offsets([2, 4]), route="tma")
+    # On the CPU a named bf16 route still runs the plain version.
+    assert torch.equal(ragged_dot(x, w, _offsets([2, 4]), route="mma"),
+                       ragged_dot_ref(x, w, _offsets([2, 4])))
+
+
+# (K, N, weights' type, x at an offset of 2 elements, groups) -> whether a
+# CUDA call would take the TMA + wgmma kernel: K a multiple of 8, N of 4
+# (fp32) or 8 (bf16), x and w on 16 bytes, at most 1024 groups.
+TC_ROUTE_CASES = [
+    ((64, 96, torch.float32, False, 4), True),
+    ((64, 100, torch.float32, False, 4), True),
+    ((64, 100, torch.bfloat16, False, 4), False),
+    ((70, 96, torch.float32, False, 4), False),
+    ((64, 98, torch.float32, False, 4), False),
+    ((64, 96, torch.float32, True, 4), False),
+    ((64, 96, torch.bfloat16, False, 1025), False),
+    ((4096, 14336, torch.float32, False, 8), True),
+]
+
+
+@pytest.mark.parametrize("case,want", TC_ROUTE_CASES, ids=str)
+def test_ragged_dot_tma_route_takes_the_aligned_shapes(case, want):
+    k, n, w_dtype, offset, groups = case
+    x = torch.zeros(4 * k + 8, dtype=torch.bfloat16)
+    x = (x[2:2 + 4 * k] if offset else x[:4 * k]).view(4, k)
+    # The rule reads shapes, element sizes and addresses: a view of 16
+    # elements stands in for the stack.
+    w = torch.zeros(16, dtype=w_dtype).as_strided((groups, k, n), (0, 0, 0))
+    assert rd_ops.tc_route(x, w) is want
 
 
 # -------------------------------------------------------------- MoE FFN
@@ -200,6 +300,22 @@ def test_moe_ffn_matches_reference(case, impl):
     assert abs(float(aux) - float(want_aux)) <= 1e-6
 
 
+@pytest.mark.parametrize("case", MOE_CASES, ids=str)
+def test_moe_ffn_on_fp32_stacks_equals_the_cast_stacks(case):
+    """The FFN passes its fp32 expert stacks uncast: its output is bit
+    for bit what it gives with the stacks cast to bf16 first (the
+    earlier per-call cast)."""
+    d, e, f, sh, top_k, (b, s) = case
+    _, m = _moe_pair(d, e, f, sh)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, s, d)).astype(np.float32)).bfloat16()
+    got, aux = PM.moe_ffn(m, x, top_k=top_k)
+    for name in ("w_gate", "w_up", "w_down"):
+        setattr(m, name, torch.nn.Parameter(getattr(m, name).bfloat16()))
+    want, want_aux = PM.moe_ffn(m, x, top_k=top_k)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+
+
 def test_combine_adds_in_the_sorted_order():
     """The combine rounds after each add in the sorted (expert-ascending)
     order, as the reference's scatter-add does; adding the same rows in
@@ -236,7 +352,9 @@ def test_moe_path_reads_nothing_back_to_the_host(monkeypatch):
     def on_device(x, w, offs):
         rows = torch.arange(x.shape[0])[:, None]
         member = (rows >= offs[:-1]) & (rows < offs[1:])          # (M, G)
-        y = torch.einsum("mk,gkn->mgn", x.float(), w.float())
+        # The weights rounded to x's type first, as `ragged_dot` rounds
+        # the fp32 stacks the FFN passes.
+        y = torch.einsum("mk,gkn->mgn", x.float(), w.to(x.dtype).float())
         return (y * member[..., None]).sum(1).to(x.dtype)
 
     x = torch.randn(2, 20, 64).bfloat16()
