@@ -149,21 +149,40 @@ each printed as one JSON line:
    model freed first; the peak printed): served, `ragged_dot` 81 a
    forward, and ragged-dot-path; its long forward is left out (MLA
    takes the plain masked product at any length: no kernel).
-21. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
+21. llm-encdec-vision: whisper-tiny uncut (4 + 4 layers, d 384, 1500
+   stub frames of seeded bf16 embeddings times 0.1): a no-cache forward
+   of 4 sequences of 384 tokens, also in fp32 compute for one sequence
+   against the same weights on the host (the family tolerance, atol =
+   rtol = 3e-2), and a `WaveServer` wave of 4 prompts of 384 tokens with
+   32 new ones (424 positions); nothing launches (1500^2 and 384^2 are
+   under flash's 4096^2 threshold), and no teacher-forced decode runs:
+   the served cache's ``cross_kv`` is zeros, so the cached path never
+   runs the encoder (a reference quirk the port keeps).  Then
+   qwen2-vl-72b at its published widths cut to 4 of 80 layers
+   (``reduced``): the no-cache forward over 256 stub patches and 7936
+   tokens, which launches bf16 flash 4 times at (1, 8192, 64, 128), GQA
+   64:8, plain causal, its inputs captured for phases 22-23; a wave of 4
+   slots of 256 patches and 1000 tokens with 32 new ones, which launches
+   nothing; and the cached prefill's last logits against the no-cache
+   forward's in bf16 and in fp32 compute, at the dense tolerance (only
+   the prefill: a decode step's M-RoPE positions jump to the absolute
+   position, another reference quirk).  Walls and peak device memory
+   for each run.
+22. llm-kernels-vs-plain: `flash_attention` and `ssd` on the card against
    their plain versions on the card: the reference's kernel cases
    (tests/test_kernels.py) in fp32 and bf16, cases across the
    kernels' tile edges and their plain loads (`FA_CASES`, `SSD_CASES`;
    one case each in both dtypes with its first input at an offset of 2
    elements), and the inputs each path really gave (captured during
-   phases 10-19: each arch's first SSD call in serving and in the long
+   phases 10-21: each arch's first SSD call in serving and in the long
    forward, its first flash call for each window); each case records
    the route it took (the bf16 or the fp32 kernel) and fails on the
    other.  Tolerances: flash 2e-6 (fp32) and 2e-2 (bf16), the
    reference's; SSD 1e-4 in fp32, the reference's, and in bf16 one
    bf16 ulp of y (1e-4 + 2^-7 |y|: both sides compute in fp32 and round
    y once) with the fp32 state at 1e-4 + 1e-5 |state|.
-22. llm-times: both kernels at the path shapes of zamba2, mamba2,
-   gemma3 and mixtral (gemma3's local and global flash calls apart; CUDA events,
+23. llm-times: both kernels at the path shapes of zamba2, mamba2,
+   gemma3, mixtral and qwen2-vl (gemma3's local and global flash calls apart; CUDA events,
    after warm-up), in bf16 and then on the same inputs cast to fp32,
    each dtype on its own kernels, with the launch counts reset just
    before each dtype's run and read just after (the fp32 route's
@@ -185,26 +204,26 @@ each printed as one JSON line:
    is what lets the flash bound count all its products at the bf16
    tensor-core rate.
 
-23. race: `map_dfg(backend="race")` with the portfolio side on the card,
+24. race: `map_dfg(backend="race")` with the portfolio side on the card,
    on C5K5 bandmap (its (II, routing PEs) must be the golden pair) and
    on the forced loser of tests/test_exact_race.py (busmap, max_ii 2,
    certify off, seed 7: the exact side must win, and the cancelled
    portfolio may run at most one chunk of iterations past the cancel).
    Every "race-side" span must carry its ``ok`` (a side that raised
    lacks it: the race would have degraded around it).
-24. comap: `co_map` on the card on the tier-1 cases of
+25. comap: `co_map` on the card on the tier-1 cases of
    tests/test_comap.py and on `COMAP_PORTFOLIO_PAIR`; every ok merged
    binding must pass the port's validator, the 2x2 case must fail
    cleanly.
-25. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
+26. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
    point) on the card, `SERVICE_TRACE` requests at 8x8 with
    `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
    outcome, no serve-crash event, every ok result valid.  Requests/s,
    p50/p95/p99 latency, sources, hit rates, the slowest requests.
-26. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
+27. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
    with their span walls by name (`obs.export.to_json`) and
    `MappingResult.explain()`'s report.
-Each of phases 23-26 resets the launch counts just before it and reads
+Each of phases 24-27 resets the launch counts just before it and reads
 them just after: `selection_counts` must have launched.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
@@ -391,6 +410,18 @@ RAGGED_ROUTE = {"bf16": "wgmma", "fp32": "fp32"}
 MOE_ARCHS = ("mixtral-8x7b", "deepseek-v2-lite-16b")
 MOE_REDUCED = {"mixtral-8x7b": {"n_layers": 4}, "deepseek-v2-lite-16b": {}}
 MOE_LONG = ("mixtral-8x7b",)
+# The encdec and vision archs, the last two serving families: whisper-
+# tiny uncut (4 + 4 layers at d 384, 39e6 parameters; 1500 stub frames)
+# with 4 sequences of 384 text tokens (a wave adds 32 new ones: 424
+# positions, inside Whisper's 448-token text context), and qwen2-vl-72b
+# at its published widths cut to 4 of its 80 layers (6.00e9 parameters,
+# 24.0 GB in fp32): a no-cache forward over its 256 stub patches and
+# 7936 tokens (S = 8192: flash once a layer at (1, 8192, 64, 128), GQA
+# 64:8, M-RoPE applied before it) and a wave of 4 slots of 256 patches
+# and 1000 tokens with 32 new ones.
+ENCDEC_ARCH, VISION_ARCH = "whisper-tiny", "qwen2-vl-72b"
+VISION_REDUCED = {"n_layers": 4}
+WHISPER_SLOTS, WHISPER_TEXT = 4, 384
 # ragged_dot against its plain version: both sum each row's products in
 # fp32 and round once to bf16, in other orders, so a result next to a
 # rounding edge may land one bf16 ulp away: 1e-4 + 2^-7 |y|; on fp32
@@ -1540,7 +1571,7 @@ def llm_moe(dev, card: str, captured: dict) -> dict:
     and through the capacity dispatch (`moe_capacity`), then
     `ragged_dot` at every path shape (`ragged_path`) while the model is
     on the card; each model is freed before the next.  Emits each
-    phase's line; the flash inputs join ``captured`` for phases 21-22."""
+    phase's line; the flash inputs join ``captured`` for phases 22-23."""
     import dataclasses
 
     import torch
@@ -1578,6 +1609,217 @@ def llm_moe(dev, card: str, captured: dict) -> dict:
         del model, caps
         free_model()
     return out
+
+
+def _run(fn, dev) -> tuple:
+    """``fn()`` under inference mode with the launch counts reset just
+    before and read just after: (its result, wall s, launches, peak
+    device memory bytes)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS}
+    return out, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def _prefill_vs_forward(cfg, model, dev, batch, s_max) -> dict:
+    """The cached prefill's last-position logits against the no-cache
+    forward's, in bf16 and in fp32 compute (an fp32 cache for fp32):
+    max |d| and its ratio to atol = rtol = the family's tolerance, with
+    the launch counts read around each pair."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    tol = FAMILY_TOL[cfg.family]
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        def pair():
+            full = T.forward(cfg, model, batch)[0][:, -1].clone()
+            cache = M.init_cache(cfg, batch["tokens"].shape[0], s_max,
+                                 dtype=dtype, device=dev)
+            return full, M.prefill_step(cfg, model, batch, cache)[0][:, -1]
+
+        with compute_dtype(dtype):
+            (want, got), wall, launches, _ = _run(pair, dev)
+        diff = (got - want).abs()
+        out[name] = dict(max_abs_err=float(diff.max()),
+                         tol_ratio=float((diff / (tol + tol * want.abs()))
+                                         .max()),
+                         max_abs_logit=float(want.abs().max()),
+                         wall_s=wall, launches=launches)
+    return out
+
+
+def llm_encdec_vision(dev, card: str) -> tuple[dict, dict]:
+    """The encdec and vision families at their published widths: whisper-
+    tiny uncut (a no-cache forward and a wave), then qwen2-vl-72b cut as
+    `VISION_REDUCED` says (the long no-cache forward, whose flash inputs
+    are captured, and a wave); each model is freed after its runs.
+    Emits the phase's line before its checks; returns the line and the
+    flash capture."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import WaveServer, stub_embeddings
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    row = dict(card=card)
+
+    # whisper-tiny: no kernel on its path (1500^2 and 384^2 are under
+    # the flash threshold of 4096^2).
+    cfg = get_config(ENCDEC_ARCH)
+    model = M.init_params(cfg, 0, device=dev)
+    audio = stub_embeddings(cfg, WHISPER_SLOTS, seed=1)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (WHISPER_SLOTS, WHISPER_TEXT), dtype=np.int32)).to(dev)
+    logits, wall, launches, peak = _run(
+        lambda: T.forward(cfg, model, {"tokens": toks, **audio})[0], dev)
+    fwd = dict(batch=WHISPER_SLOTS, enc_seq=cfg.enc_seq, text=WHISPER_TEXT,
+               wall_s=wall, launches=launches, peak_mem_bytes=peak,
+               logits_shape=list(logits.shape),
+               finite=bool(torch.isfinite(logits).all()))
+    # The same weights on the host, one sequence, fp32 compute on both.
+    on_cpu = M.init_params(cfg, 0, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            model.state_dict().items()})
+    one = {"tokens": toks[:1], "audio_embeds": audio["audio_embeds"][:1]}
+    with compute_dtype(torch.float32), torch.inference_mode():
+        card_logits = T.forward(cfg, model, one)[0].cpu()
+        cpu_logits = T.forward(cfg, on_cpu, {
+            k: v.cpu() for k, v in one.items()})[0]
+    tol = FAMILY_TOL["dense"]
+    diff = (card_logits - cpu_logits).abs()
+    fwd["fp32_vs_cpu"] = dict(max_abs_err=float(diff.max()), tol_ratio=float(
+        (diff / (tol + tol * cpu_logits.abs())).max()))
+    del logits, on_cpu, card_logits, cpu_logits
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (WHISPER_SLOTS, WHISPER_TEXT), dtype=np.int32)
+    server = WaveServer(cfg, model, slots=WHISPER_SLOTS,
+                        s_max=WHISPER_TEXT + SERVE_NEW + 8)
+    tokens, wall, launches, peak = _run(
+        lambda: server.run_wave(prompts, SERVE_NEW, audio), dev)
+    row[ENCDEC_ARCH] = dict(
+        reduced={}, params=sum(p.numel() for p in model.parameters()),
+        forward=fwd,
+        wave=dict(slots=WHISPER_SLOTS, prompt=WHISPER_TEXT, new=SERVE_NEW,
+                  s_max=server.s_max, wall_s=wall,
+                  decode_tokens_per_s=WHISPER_SLOTS * SERVE_NEW / wall,
+                  launches=launches, peak_mem_bytes=peak,
+                  tokens_in_range=bool(((tokens >= 0) &
+                                        (tokens < cfg.vocab)).all()),
+                  shape=list(tokens.shape)),
+        teacher_forced="not run: the served cache's cross_kv is zeros, "
+                       "so the cached path never runs the encoder and "
+                       "parts from the no-cache forward by design (a "
+                       "reference quirk the port keeps)")
+    del model, server
+    free_model()
+
+    # qwen2-vl-72b at 4 layers.
+    cfg = dataclasses.replace(get_config(VISION_ARCH), **VISION_REDUCED)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tv = cfg.n_vision_tokens
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LONG_SEQ - tv), dtype=np.int32)).to(dev)
+    long_batch = {"tokens": toks, **stub_embeddings(cfg, 1, seed=1)}
+    with Capture(fa_ops, "flash_attention") as cap:
+        logits, wall, launches, peak = _run(
+            lambda: T.forward(cfg, model, long_batch)[0], dev)
+    long = dict(seq=LONG_SEQ, vision=tv, text=LONG_SEQ - tv, wall_s=wall,
+                launches=launches, peak_mem_bytes=peak,
+                logits_shape=list(logits.shape),
+                finite=bool(torch.isfinite(logits).all()),
+                flash_calls=cap.counts.get(None, 0),
+                flash_shapes=dict(q=list(cap.args[0].shape),
+                                  k=list(cap.args[1].shape),
+                                  window=cap.kwargs.get("window"),
+                                  q_offset=cap.kwargs.get("q_offset", 0))
+                if cap.args else None)
+    del logits
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)
+    vision = stub_embeddings(cfg, SERVE_SLOTS, seed=0)
+    server = WaveServer(cfg, model, slots=SERVE_SLOTS,
+                        s_max=tv + SERVE_PROMPT + SERVE_NEW + 8)
+    tokens, wall, launches, peak = _run(
+        lambda: server.run_wave(prompts, SERVE_NEW, vision), dev)
+    wave = dict(slots=SERVE_SLOTS, vision=tv, prompt=SERVE_PROMPT,
+                new=SERVE_NEW, s_max=server.s_max, wall_s=wall,
+                decode_tokens_per_s=SERVE_SLOTS * SERVE_NEW / wall,
+                launches=launches, peak_mem_bytes=peak,
+                tokens_in_range=bool(((tokens >= 0) &
+                                      (tokens < cfg.vocab)).all()),
+                shape=list(tokens.shape))
+    prefill_batch = {"tokens": torch.from_numpy(prompts).to(dev), **vision}
+    row[VISION_ARCH] = dict(
+        reduced=VISION_REDUCED, init_s=init_s,
+        params=sum(p.numel() for p in model.parameters()), long=long,
+        wave=wave,
+        teacher_forced_prefill=_prefill_vs_forward(
+            cfg, model, dev, prefill_batch, server.s_max),
+        teacher_forced_decode="not run: a decode step's M-RoPE positions "
+                              "jump from the prefill's grid-based ones to "
+                              "the absolute position, so decode parts from "
+                              "the no-cache forward by design (a reference "
+                              "quirk the port keeps)",
+        tolerance=dict(atol=FAMILY_TOL["dense"], rtol=FAMILY_TOL["dense"]))
+    del model, server, long_batch, prefill_batch
+    free_model()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="llm-encdec-vision", **row))
+
+    w, q = row[ENCDEC_ARCH], row[VISION_ARCH]
+    for label, r in (("forward", w["forward"]), ("wave", w["wave"]),
+                     ("wave", q["wave"])):
+        check(all(c == 0 for c in r["launches"].values()),
+              f"{label} launched {r['launches']}; it takes sdpa only")
+    check(w["forward"]["finite"] and w["forward"]["logits_shape"] == [
+        WHISPER_SLOTS, WHISPER_TEXT, get_config(ENCDEC_ARCH).vocab],
+          f"whisper's forward: {w['forward']['logits_shape']}, finite "
+          f"{w['forward']['finite']}")
+    check(w["forward"]["fp32_vs_cpu"]["tol_ratio"] <= 1.0,
+          f"whisper on the card differs from the CPU by "
+          f"{w['forward']['fp32_vs_cpu']['max_abs_err']}")
+    for r, want in ((w["wave"], [WHISPER_SLOTS, SERVE_NEW]),
+                    (q["wave"], [SERVE_SLOTS, SERVE_NEW])):
+        check(r["tokens_in_range"] and r["shape"] == want,
+              f"a wave's tokens: {r['shape']}, in range "
+              f"{r['tokens_in_range']}")
+    n = VISION_REDUCED["n_layers"]
+    for name in ("flash_attention", "flash_attention_bf16"):
+        check(q["long"]["launches"][name] == n,
+              f"qwen2-vl's long forward: {name} launched "
+              f"{q['long']['launches'][name]} times, expected {n}")
+    check(q["long"]["flash_calls"] == n and q["long"]["flash_shapes"] == dict(
+        q=[1, LONG_SEQ, 64, 128], k=[1, LONG_SEQ, 8, 128], window=None,
+        q_offset=0), f"qwen2-vl's flash calls: {q['long']['flash_calls']} "
+                     f"at {q['long']['flash_shapes']}")
+    check(q["long"]["finite"] and q["long"]["logits_shape"] == [
+        1, LONG_SEQ, cfg.vocab], f"qwen2-vl's long forward: "
+                                 f"{q['long']['logits_shape']}")
+    tf = q["teacher_forced_prefill"]
+    for name in ("bf16", "fp32"):
+        check(tf[name]["tol_ratio"] <= 1.0,
+              f"qwen2-vl's {name} prefill differs from the no-cache "
+              f"forward by {tf[name]['max_abs_err']}")
+        check(all(c == 0 for c in tf[name]["launches"].values()),
+              f"qwen2-vl's {name} prefill check launched "
+              f"{tf[name]['launches']}")
+    return row, {"flash_long": cap}
 
 
 def _route(name: str, before: dict) -> str:
@@ -1838,10 +2080,11 @@ def ssd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
 def time_specs(captured: dict) -> tuple[list, list]:
     """The path shapes `llm_times` times: (arch, label, args, kwargs) of
     flash (one row for each window an arch's long forward took: gemma3's
-    local and global layers) and of SSD (the long forward's and the
-    serving prefill's), zamba2's first, under their earlier labels."""
+    local and global layers; then mixtral's and qwen2-vl's) and of SSD
+    (the long forward's and the serving prefill's), zamba2's first,
+    under their earlier labels."""
     flash, ssd_rows = [], []
-    for arch in (LLM_ARCH,) + FAMILY_ARCHS + MOE_LONG:
+    for arch in (LLM_ARCH,) + FAMILY_ARCHS + MOE_LONG + (VISION_ARCH,):
         caps = captured[arch]
         calls = caps["flash_long"].calls
         for key, (args, kwargs) in calls.items():
@@ -2597,7 +2840,11 @@ def main() -> int:
     serve_rows.update(moe["serve"])
     long_rows.update(moe["long"])
 
-    # ---- 21-22. the kernels against their plain versions and their
+    # ---- 21. the encdec and vision families: whisper-tiny uncut, then
+    # qwen2-vl-72b at 4 layers
+    encdec_vision, captured[VISION_ARCH] = llm_encdec_vision(dev, card)
+
+    # ---- 22-23. the kernels against their plain versions and their
     # times, at every path's captured inputs
     llm_vs = llm_kernels_vs_plain(dev, captured)
     emit(dict(phase="llm-kernels-vs-plain",
@@ -2619,7 +2866,7 @@ def main() -> int:
     fa_err = max(max(c["max_abs_err"] for c in llm_vs["flash_attention"]),
                  path_err["flash"])
 
-    # ---- 23-26. the service tier: race, co-mapping, the serve tier
+    # ---- 24-27. the service tier: race, co-mapping, the serve tier
     # behind --map-trace, and traced maps with their explain reports
     service = {}
     for run in (service_race, service_comap, service_trace,
@@ -2639,6 +2886,14 @@ def main() -> int:
         forward_long=r["long"]["launches"]["flash_attention_bf16"],
         wave=r["wave"]["launches"]["flash_attention"], reduced=r["reduced"])
         for r in dense_rows})
+    vision_row = encdec_vision[VISION_ARCH]
+    flash_launches[VISION_ARCH] = dict(
+        forward_long=vision_row["long"]["launches"]["flash_attention_bf16"],
+        wave=vision_row["wave"]["launches"]["flash_attention"],
+        reduced=vision_row["reduced"])
+    flash_launches[ENCDEC_ARCH] = {
+        run: encdec_vision[ENCDEC_ARCH][run]["launches"]["flash_attention"]
+        for run in ("forward", "wave")}
     ssd_launches = {arch: dict(
         forward_long=long_rows[arch]["launches"]["ssd_bf16"],
         serve=serve_rows[arch]["launches"]["ssd_bf16"],

@@ -2,12 +2,12 @@
 
 Every assigned architecture is a module ``configs/<id>.py`` exposing
 ``CONFIG`` (the exact published configuration) and ``SMOKE_CONFIG`` (a
-reduced same-family config for CPU smoke tests).  The port holds only
-the configurations of the families it runs (`hybrid`: zamba2-1.2b;
-`ssm`: mamba2-2.7b; `dense`: gemma3-4b, qwen1.5-4b, glm4-9b,
-starcoder2-7b; `moe`: mixtral-8x7b, deepseek-v2-lite-16b); asking for
-another (the `encdec` and vision archs) raises `NotImplementedError`.  ``input_specs`` (the dry-run's
-stand-ins) waits for the dry-run item.
+reduced same-family config for CPU smoke tests).  The port holds every
+arch's configuration (`hybrid`: zamba2-1.2b; `ssm`: mamba2-2.7b;
+`dense`: gemma3-4b, qwen1.5-4b, glm4-9b, starcoder2-7b and the vision
+arch qwen2-vl-72b; `moe`: mixtral-8x7b, deepseek-v2-lite-16b; `encdec`:
+whisper-tiny).  ``input_specs`` (the dry-run's stand-ins) waits for the
+dry-run item.
 """
 
 from __future__ import annotations
@@ -29,11 +29,6 @@ ARCHS: tuple[str, ...] = (
 LONG_OK: frozenset = frozenset(
     {"mixtral-8x7b", "gemma3-4b", "mamba2-2.7b", "zamba2-1.2b"})
 
-#: the architectures whose config module the port holds.
-PORTED: frozenset = frozenset(
-    {"zamba2-1.2b", "mamba2-2.7b", "gemma3-4b", "qwen1.5-4b", "glm4-9b",
-     "starcoder2-7b", "mixtral-8x7b", "deepseek-v2-lite-16b"})
-
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
@@ -54,10 +49,6 @@ SHAPES: dict[str, ShapeCell] = {
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch}'s configuration is not ported yet (ROADMAP Queue 1, "
-            f"item 11: the encdec and vision families)")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
 

@@ -5,13 +5,15 @@ next wave starts when the wave completes.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --requests 8 --gen 32
 
-``--arch`` takes the ported archs: zamba2-1.2b (`hybrid`), mamba2-2.7b
-(`ssm`), gemma3-4b, qwen1.5-4b, glm4-9b and starcoder2-7b (`dense`),
-mixtral-8x7b and deepseek-v2-lite-16b (`moe`).  The prefill of a wave
-fills the decode cache (the Mamba2 layers' SSD scan and the MoE layers'
-grouped products run as CUDA kernels on the card; attention takes the
-plain masked product with a cache, as in the reference) and each decode
-tick is one
+``--arch`` takes every arch of the registry: zamba2-1.2b (`hybrid`),
+mamba2-2.7b (`ssm`), gemma3-4b, qwen1.5-4b, glm4-9b, starcoder2-7b and
+qwen2-vl-72b (`dense`; its 256 stub patch embeddings go before each
+prompt), mixtral-8x7b and deepseek-v2-lite-16b (`moe`), and whisper-tiny
+(`encdec`; 1500 stub frame embeddings a slot).  `main` draws those
+embeddings from a seed.  The prefill of a wave fills the decode cache
+(the Mamba2 layers' SSD scan and the MoE layers' grouped products run as
+CUDA kernels on the card; attention takes the plain masked product with
+a cache, as in the reference) and each decode tick is one
 `model.serve_step`.  PyTorch runs eagerly: there is no compiled step, and
 the cache is updated in place with the reference's ``pos`` semantics.
 
@@ -40,6 +42,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as M
 
+
 class WaveServer:
     """Admit `slots` requests at a time; one prefill + N decode ticks, on
     the device the model lives on."""
@@ -54,30 +57,56 @@ class WaveServer:
     def run_wave(self, prompts: np.ndarray, max_new: int,
                  extra_inputs: dict | None = None) -> np.ndarray:
         """prompts: (B<=slots, S) int32 (padded to equal length).
-        Returns generated tokens (B, max_new)."""
-        if extra_inputs:
-            raise NotImplementedError("vision and audio inputs are not "
-                                      "ported yet (ROADMAP Queue 1, "
-                                      "item 11)")
+        extra_inputs: the arch's stub embeddings, ``vision_embeds``
+        (slots, Tv, D) or ``audio_embeds`` (slots, S_enc, D), tensors or
+        numpy arrays; the prefill takes them, and each decode step takes
+        ``audio_embeds`` again, as the reference's does (the step
+        ignores them: its cache holds ``cross_kv``).  The cache must
+        hold the vision prefix, the prompt and the new tokens, or this
+        raises `ValueError`.  Returns generated tokens (B, max_new)."""
         b, s = prompts.shape
-        if b > self.slots or s + max_new > self.s_max:
-            raise ValueError(f"a wave of {b} prompts of {s} tokens and "
-                             f"{max_new} new ones does not fit {self.slots}"
-                             f" slots of {self.s_max} positions")
+        if b > self.slots or self.cfg.n_vision_tokens + s + max_new > \
+                self.s_max:
+            raise ValueError(
+                f"a wave of {b} prompts of {s} tokens "
+                f"({self.cfg.n_vision_tokens} vision tokens before each) "
+                f"and {max_new} new ones does not fit {self.slots} slots "
+                f"of {self.s_max} positions")
         toks = np.pad(prompts, ((0, self.slots - b), (0, 0)))
         cache = M.init_cache(self.cfg, self.slots, self.s_max,
                              device=self.device)
+        extra = {name: torch.as_tensor(t, device=self.device)
+                 for name, t in (extra_inputs or {}).items()}
         batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32,
-                                           device=self.device)}
+                                           device=self.device), **extra}
         logits, cache = M.prefill_step(self.cfg, self.model, batch, cache)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         out = [nxt]
+        step_extra = extra if self.cfg.family == "encdec" else {}
         for _ in range(max_new - 1):
-            nxt2, _, cache = M.serve_step(self.cfg, self.model,
-                                          {"tokens": nxt[:, None]}, cache)
+            nxt2, _, cache = M.serve_step(
+                self.cfg, self.model, {"tokens": nxt[:, None], **step_extra},
+                cache)
             nxt = nxt2[:, 0]
             out.append(nxt)
         return torch.stack(out, dim=1)[:b].cpu().numpy()
+
+
+def stub_embeddings(cfg, slots: int, seed: int = 0) -> dict:
+    """The arch's stub frontend outputs for a wave of ``slots``: seeded
+    standard normals times 0.1 (as the reference's ``make_batch`` scales
+    them), rounded to bf16: ``audio_embeds`` (slots, enc_seq, d_model)
+    for encdec, ``vision_embeds`` (slots, n_vision_tokens, d_model) for
+    a vision arch, none otherwise."""
+    if cfg.family == "encdec":
+        name, n = "audio_embeds", cfg.enc_seq
+    elif cfg.n_vision_tokens:
+        name, n = "vision_embeds", cfg.n_vision_tokens
+    else:
+        return {}
+    x = np.random.default_rng(seed).standard_normal(
+        (slots, n, cfg.d_model), dtype=np.float32) * np.float32(0.1)
+    return {name: torch.from_numpy(x).to(torch.bfloat16)}
 
 
 def serving_transfer_rounds(cfg, *, batch: int, seq: int,
@@ -165,16 +194,19 @@ def main(argv=None):
     print(rounds_text)
     model = M.init_params(cfg, 0, device=args.device)
     server = WaveServer(cfg, model, slots=args.slots,
-                        s_max=args.prompt_len + args.gen + 8)
+                        s_max=cfg.n_vision_tokens + args.prompt_len
+                        + args.gen + 8)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab,
                            size=(args.requests, args.prompt_len),
                            dtype=np.int32)
+    extra = stub_embeddings(cfg, args.slots)
     t0 = time.time()
     outs = []
     for lo in range(0, args.requests, args.slots):
-        outs.append(server.run_wave(prompts[lo:lo + args.slots], args.gen))
+        outs.append(server.run_wave(prompts[lo:lo + args.slots], args.gen,
+                                    extra))
     dt = time.time() - t0
     total = args.requests * args.gen
     print(f"served {args.requests} requests × {args.gen} tokens in "

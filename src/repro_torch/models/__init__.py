@@ -1,6 +1,7 @@
 """The LLM half of the port: layers, attention, the Mamba2 block, the
 unified stack (`transformer.forward`), the model entry points (`model`)
 and the weight carry-over from the JAX package's parameter tree
-(`convert`).  The ``hybrid`` (zamba2), ``ssm`` (mamba2) and ``dense``
-(gemma3, qwen1.5, glm4, starcoder2) families are ported, for serving;
-the others, and training, raise `NotImplementedError`."""
+(`convert`).  Every family is ported for serving: ``hybrid`` (zamba2),
+``ssm`` (mamba2), ``dense`` (gemma3, qwen1.5, glm4, starcoder2, and
+qwen2-vl with its vision prefix), ``moe`` (mixtral, deepseek-v2-lite)
+and ``encdec`` (whisper); training raises `NotImplementedError`."""

@@ -5,15 +5,17 @@
   and moe families' layers (mixtral: a 4096 window on every layer);
 - MLA (multi-head latent attention, DeepSeek-V2): a low-rank compressed
   KV cache (c_kv, k_pe), with both the naive decode path (materialise K
-  and V) and the *absorbed* one (attention in the latent space).
+  and V) and the *absorbed* one (attention in the latent space);
+- cross-attention (whisper's decoder) over the encoder's keys and values,
+  computed once per layer (`CrossAttention.encode`).
 
 GQA's long sequences go to the flash-attention kernel
 (`repro_torch.kernels.flash_attention`: the CUDA kernel for tensors on
 the card, its plain torch version on the CPU), at the reference's
 thresholds; short ones and every cached step take the plain masked
 product `sdpa`, as the reference does.  MLA always takes `sdpa`, as the
-reference does (V's width is not Q's and K's).  Cross-attention is not
-ported (it raises).
+reference does (V's width is not Q's and K's), and so does
+cross-attention, unmasked, at any length.
 
 Shapes follow (B, S, H, D); KV caches are (B, S_max, H_kv, D).
 """
@@ -26,9 +28,6 @@ from torch import nn
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 from .layers import Dense, apply_rope, einsum
-
-_CROSS_TODO = ("cross-attention is not ported yet: it comes with the "
-               "encdec family (ROADMAP Queue 1, item 11)")
 
 
 # ------------------------------------------------------------------ masking
@@ -218,9 +217,31 @@ class MLA(nn.Module):
         return sdpa(q_full, k_full, val, mask, scale=scale)
 
 
-def cross_attention_init(*args, **kwargs):
-    raise NotImplementedError(_CROSS_TODO)
+# ------------------------------------------------------------- cross-attn
+class CrossAttention(nn.Module):
+    """The reference's ``cross_attention_init``: q, v and o with biases,
+    k without."""
 
+    def __init__(self, d_model: int, n_heads: int, head_dim: int, *,
+                 device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.q = Dense(d_model, (n_heads, head_dim), bias=True, **kw)
+        self.k = Dense(d_model, (n_heads, head_dim), **kw)
+        self.v = Dense(d_model, (n_heads, head_dim), bias=True, **kw)
+        self.o = Dense(n_heads * head_dim, d_model, bias=True, **kw)
 
-def cross_attention(*args, **kwargs):
-    raise NotImplementedError(_CROSS_TODO)
+    def encode(self, enc_out):
+        """The reference's ``encode_cross_kv``: {"k", "v": (B, S_enc, H,
+        D)}, computed once and reused by every decode step."""
+        return {"k": self.k(enc_out), "v": self.v(enc_out)}
+
+    def forward(self, x, enc_kv, *, n_heads: int, head_dim: int):
+        """x: (B, S, d_model) attends to every position of ``enc_kv``
+        (the all-True mask of the reference's ``cross_attention``)."""
+        b, s, _ = x.shape
+        q = self.q(x)
+        mask = torch.ones((1, 1, s, enc_kv["k"].shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = sdpa(q, enc_kv["k"], enc_kv["v"], mask)
+        return self.o(out.reshape(b, s, n_heads * head_dim))

@@ -14,7 +14,10 @@ by every invocation.  The moe family's leaves need nothing special:
 the stacked expert weights ``["layers"]["ffn"]["w_gate"]`` (L, E, D,
 F) are ``layers.<i>.ffn.w_gate`` (E, D, F), the router and the shared
 MLP are ``ffn.router`` and ``ffn.shared``, and MLA's projections
-``attn.q``, ``dkv``, ``kpe``, ``uk``, ``uv`` and ``o``.
+``attn.q``, ``dkv``, ``kpe``, ``uk``, ``uv`` and ``o``.  The encdec
+family stacks its encoder as ``["enc_layers"]`` (``enc_layers.<i>.``)
+beside ``["enc_norm"]``, and its decoder layers add ``ln_x`` and the
+cross-attention ``xattn``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from . import transformer as T
 from .layers import resolve_device
 from .transformer import ModelConfig
 
-_STACKED = ("layers",)
+_STACKED = ("layers", "enc_layers")
 
 
 def _leaf(tree: dict, path: str) -> np.ndarray:

@@ -52,11 +52,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
       N) float32}, "pos": int};
     - hybrid: {"layers": {"mamba": the ssm family's layers, "attn":
       {"k", "v": (n_inv, B, s_max, Hkv, D), "pos": [int] * n_inv}},
-      "pos": int}.
+      "pos": int};
+    - encdec: {"layers": the dense family's, "cross_kv": {"k", "v": (L,
+      B, enc_seq, H, D)}, "pos": int}.  The cross keys and values are
+      zeros, as the reference's are, and a forward with this cache uses
+      them as they are: the served decoder never runs the encoder
+      (`transformer._encdec_apply`).
 
     Positions are Python ints (the loop is eager), where the reference
     holds int32 arrays of the same shapes."""
-    T.require_ported(cfg)
     dev = resolve_device(device)
 
     def zeros(lead, shape, dt):
@@ -75,6 +79,14 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                 "k_pe": zeros(n, (batch, s_max, cfg.qk_rope_dim), dtype),
                 "pos": [0] * n}, "pos": 0}
         return {"layers": kv(cfg.n_layers), "pos": 0}
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_seq, cfg.n_heads, cfg.head_dim)
+        return {"layers": kv(cfg.n_layers),
+                "cross_kv": {"k": zeros(cfg.n_layers, shape, dtype),
+                             "v": zeros(cfg.n_layers, shape, dtype)},
+                "pos": 0}
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     one = mamba2_cache_shapes(batch, d_model=cfg.d_model,
                               d_state=cfg.d_state, expand=cfg.ssm_expand,
                               n_groups=cfg.ssm_groups,

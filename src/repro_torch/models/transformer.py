@@ -1,28 +1,33 @@
-"""Unified transformer/SSM/hybrid stack, as the reference's
-``models/transformer.py``; the port runs the ``hybrid``, ``ssm``,
-``dense`` and ``moe`` families.
+"""Unified transformer/SSM/hybrid/encoder-decoder stack, as the
+reference's ``models/transformer.py``; the port runs all five families.
 
 Families:
 - ``dense``  — GQA attention + (gated) MLP (gemma3, starcoder2, glm4,
-               qwen1.5): ported; qwen2-vl's vision inputs are not.
-- ``ssm``    — Mamba2 SSD blocks, attention-free (mamba2-2.7b): ported.
+               qwen1.5, and qwen2-vl's backbone: its stub patch
+               embeddings ``vision_embeds`` go before the tokens, with
+               M-RoPE positions, `_mrope_positions`).
+- ``ssm``    — Mamba2 SSD blocks, attention-free (mamba2-2.7b).
 - ``hybrid`` — Mamba2 backbone + one *shared* GQA block invoked every k
-               layers (zamba2-1.2b): ported.
+               layers (zamba2-1.2b).
 - ``moe``    — attention (GQA, or MLA for deepseek-v2-lite) + a routed
-               mixture-of-experts FFN (mixtral, deepseek-v2-lite):
-               ported, both dispatches of ``moe_impl``.
-- ``encdec`` and vision inputs — not ported yet; building or running
-               them raises `NotImplementedError`.
+               mixture-of-experts FFN (mixtral, deepseek-v2-lite), both
+               dispatches of ``moe_impl``.
+- ``encdec`` — an encoder of ordinary blocks over the stub frame
+               embeddings ``audio_embeds``, and a decoder of causal self
+               + cross-attention blocks (whisper-tiny).  As in the
+               reference, the encoder is causal with RoPE on the frame
+               index, and runs only when the cache holds no ``cross_kv``:
+               the served cache's is zeros (`model.init_cache`).
 
-The model is an `nn.Module` (`DenseModel`, `SSMModel`, `HybridModel`;
-the ``moe`` family is a `DenseModel` whose blocks hold `MLA` or `GQA`
-and a `MoE` FFN)
-whose parameter paths are the reference's pytree keys with the stacked
-layer axis split per layer (``layers.<i>.<rest>``).  PyTorch runs
-eagerly: the reference's ``lax.scan`` over stacked layers is a loop over
-the layer modules, each layer taking its own window (gemma3's 5 local :
-1 global) as a Python int, and its activation remat (``cfg.remat``) has
-no counterpart in this inference-only port.  The one-device sharding
+The model is an `nn.Module` (`DenseModel`, `SSMModel`, `HybridModel`,
+`EncDecModel`; the ``moe`` family is a `DenseModel` whose blocks hold
+`MLA` or `GQA` and a `MoE` FFN) whose parameter paths are the
+reference's pytree keys with the stacked layer axes split per layer
+(``layers.<i>.<rest>``, ``enc_layers.<i>.<rest>``).  PyTorch runs
+eagerly: the reference's ``lax.scan`` over stacked layers is a loop
+over the layer modules, each layer taking its own window (gemma3's 5
+local : 1 global) as a Python int, and its activation remat
+(``cfg.remat``) has no counterpart in this inference-only port.  The one-device sharding
 constraint (``launch/sharding.constrain``) is a no-op and is not copied.
 """
 
@@ -35,13 +40,9 @@ import torch
 from torch import nn
 
 from . import layers as L
-from .attention import GQA, MLA
+from .attention import GQA, MLA, CrossAttention
 from .moe import MoE
 from .ssm import Mamba2Block
-
-_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-_TODO = ("{what} is not ported yet (ROADMAP Queue 1, item 11: the encdec "
-         "and vision families)")
 
 
 # ---------------------------------------------------------------- config
@@ -117,20 +118,11 @@ class ModelConfig:
         return L.silu if self.act == "silu" else L.gelu
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for what the port does not run yet."""
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            _TODO.format(what=f"the {cfg.family!r} family"))
-    if cfg.n_vision_tokens or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            _TODO.format(what="vision inputs and M-RoPE positions"))
-
-
 # --------------------------------------------------------------- modules
 class Block(nn.Module):
     """Pre-norm transformer block: attention (GQA, or MLA), then a
-    (gated) MLP or, in the ``moe`` family, a mixture of experts."""
+    (gated) MLP or, in the ``moe`` family, a mixture of experts.  The
+    ``encdec`` family's encoder layers are these blocks too."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
         super().__init__()
@@ -154,6 +146,26 @@ class Block(nn.Module):
         else:
             self.ffn = L.MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
                              bias=cfg.norm == "layernorm", **kw)
+
+
+class DecoderBlock(nn.Module):
+    """The ``encdec`` family's decoder layer: causal GQA self-attention,
+    cross-attention to the encoder (``xattn``, after its own norm
+    ``ln_x``), then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
+        super().__init__()
+        norm = cfg.norm_cls()
+        kw = dict(device=device, generator=generator)
+        self.ln1 = norm(cfg.d_model, device=device)
+        self.attn = GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw)
+        self.ln_x = norm(cfg.d_model, device=device)
+        self.xattn = CrossAttention(cfg.d_model, cfg.n_heads, cfg.head_dim,
+                                    **kw)
+        self.ln2 = norm(cfg.d_model, device=device)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                         bias=cfg.norm == "layernorm", **kw)
 
 
 class MambaLayer(nn.Module):
@@ -209,14 +221,28 @@ class HybridModel(SSMModel):
         self.shared_attn = Block(cfg, device=device, generator=generator)
 
 
+class EncDecModel(_LanguageModel):
+    """whisper: ``n_enc_layers`` encoder `Block`s and their final norm
+    ``enc_norm``, then ``n_layers`` `DecoderBlock`s."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        kw = dict(device=device, generator=generator)
+        self.enc_layers = nn.ModuleList(
+            Block(cfg, **kw) for _ in range(cfg.n_enc_layers))
+        self.enc_norm = cfg.norm_cls()(cfg.d_model, device=device)
+        self.layers = nn.ModuleList(
+            DecoderBlock(cfg, **kw) for _ in range(cfg.n_layers))
+
+
 _MODELS = {"dense": DenseModel, "ssm": SSMModel, "hybrid": HybridModel,
-           "moe": DenseModel}
+           "moe": DenseModel, "encdec": EncDecModel}
 
 
 def build_model(cfg: ModelConfig, *, device, generator=None) -> nn.Module:
-    """``cfg``'s model (the one way to build one: it refuses what is not
-    ported)."""
-    require_ported(cfg)
+    """``cfg``'s model (the one way to build one)."""
+    if cfg.family not in _MODELS:
+        raise ValueError(f"unknown family {cfg.family!r}")
     return _MODELS[cfg.family](cfg, device=device, generator=generator)
 
 
@@ -335,12 +361,13 @@ def n_hybrid_attn_invocations(cfg: ModelConfig) -> int:
 def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
     """Unified forward on the device the model's parameters live on.
 
-    batch: {"tokens": (B, S_text) int (a tensor or a numpy array)}.
-    caches: None (the no-cache forward) or the decode cache of
+    batch: {"tokens": (B, S_text) int, optional "vision_embeds" (B, Tv,
+    D) and "audio_embeds" (B, S_enc, D)}, each a tensor or a numpy
+    array.  caches: None (the no-cache forward) or the decode cache of
     `model.init_cache`, updated in place (its ``pos`` advanced).
-    Returns (logits (B, S, vocab), aux_loss, caches).
+    Returns (logits (B, S, vocab), aux_loss, caches); S counts the
+    vision prefix.
     """
-    require_ported(cfg)
     dev = model.embed.table.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = model.embed(tokens)
@@ -348,10 +375,15 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
         # The scale rounded to x's type first, as the reference does:
         # gemma3's sqrt(2560) = 50.596 enters as 50.5 in bf16.
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        ve = torch.as_tensor(batch["vision_embeds"], device=dev)
+        x = torch.cat([ve.to(x.dtype), x], dim=1)
 
     b, s = x.shape[:2]
     pos0 = int(caches["pos"]) if caches is not None else 0
     positions = (pos0 + torch.arange(s, device=dev))[None, :].expand(b, s)
+    if cfg.mrope_sections is not None:
+        positions = _mrope_positions(cfg, b, s, positions)
 
     lc = caches["layers"] if caches is not None else None
     aux = torch.zeros((), device=dev)
@@ -362,8 +394,10 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
                                       windows, lc)
     elif cfg.family == "ssm":
         x, new_lc = _scan_mamba(cfg, model.layers, x, lc)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         x, aux, new_lc = _hybrid_apply(cfg, model, x, positions, lc)
+    else:  # encdec
+        x, new_lc = _encdec_apply(cfg, model, batch, x, positions, caches)
     new_caches = _bump(caches, new_lc, s)
 
     x = model.final_norm(x)
@@ -381,3 +415,67 @@ def _bump(caches, new_layer_caches, s):
     caches["layers"] = new_layer_caches
     caches["pos"] = int(caches["pos"]) + s
     return caches
+
+
+def _mrope_positions(cfg: ModelConfig, b, s, positions):
+    """Qwen2-VL M-RoPE position streams (temporal, height, width), (3, B,
+    S), as the reference computes them.
+
+    A forward over more than the Tv = g*g stub patches (the no-cache
+    forward and a cached prefill): the patch grid sits at t = 0 with
+    (h, w) grid coordinates, and the text continues all three streams
+    from g.  Otherwise (a decode step) all three streams are the
+    absolute position in ``positions``, which counts the Tv patches:
+    the reference's decode positions jump from the prefill's g + S_text
+    to Tv + S_text, and the port keeps the jump."""
+    tv = cfg.n_vision_tokens
+    g = int(np.sqrt(tv)) if tv else 0
+    if tv and g * g == tv and s > tv:
+        dev = positions.device
+        grid = torch.arange(g, device=dev)
+        text = torch.arange(s - tv, device=dev) + g
+        pos3 = torch.stack([
+            torch.cat([torch.zeros(tv, dtype=torch.long, device=dev), text]),
+            torch.cat([grid.repeat_interleave(g), text]),
+            torch.cat([grid.repeat(g), text])])                   # (3, S)
+        return pos3[:, None, :].expand(3, b, s)
+    return positions[None].expand(3, b, s)
+
+
+def _encdec_apply(cfg: ModelConfig, model: EncDecModel, batch, x,
+                  positions, caches):
+    """whisper's decoder over ``x``.  The encoder runs over
+    ``batch["audio_embeds"]`` only when there is no cache or the cache
+    holds no ``cross_kv`` (the reference's rule: the served cache's
+    zeros are used as they are); its output gives each decoder layer's
+    cross keys and values once.  Returns (x, the self-attention caches);
+    a cache gets the computed ``cross_kv``."""
+    if caches is None or caches.get("cross_kv") is None:
+        dev = x.device
+        enc = torch.as_tensor(batch["audio_embeds"], device=dev).to(x.dtype)
+        enc_pos = torch.arange(enc.shape[1], device=dev)[None].expand(
+            enc.shape[:2])
+        for blk in model.enc_layers:
+            enc, _, _ = _block_apply(cfg, blk, enc, enc_pos, None, None)
+        enc = model.enc_norm(enc)
+        kvs = [blk.xattn.encode(enc) for blk in model.layers]
+        cross_kv = {name: torch.stack([kv[name] for kv in kvs])
+                    for name in ("k", "v")}
+        if caches is not None:
+            caches["cross_kv"] = cross_kv
+    else:
+        cross_kv = caches["cross_kv"]
+    lc = caches["layers"] if caches is not None else None
+    for li, blk in enumerate(model.layers):
+        cache = ({"k": lc["k"][li], "v": lc["v"][li], "pos": lc["pos"][li]}
+                 if lc is not None else None)
+        h, new_cache = _attn_apply(cfg, blk.attn, blk.ln1(x), positions,
+                                   None, cache)
+        x = x + h
+        x = x + blk.xattn(blk.ln_x(x), {name: t[li] for name, t in
+                                         cross_kv.items()},
+                          n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+        x = x + blk.ffn(blk.ln2(x), act=cfg.act_fn())
+        if new_cache is not None:
+            lc["pos"][li] = new_cache["pos"]
+    return x, lc

@@ -321,9 +321,11 @@ def test_kv_cache_overflow_raises(ref_cfg, cfg, ref_params, model, where):
 
 
 def test_unported_parts_raise_not_implemented(cfg):
-    """The `dense`, `ssm` and `moe` families (MLA attention included)
-    run; `encdec`, vision inputs, their archs' configs and training
-    raise, naming the ROADMAP item."""
+    """Every family builds and runs, the `encdec` family and vision
+    inputs with M-RoPE included, and every arch's config is ported;
+    training (`loss_fn`, `make_train_step`) and the dry run's
+    `input_specs` raise, naming the ROADMAP item."""
+    from repro_torch.configs import ARCHS, input_specs
     dense = T.ModelConfig(name="d", family="dense", n_layers=2, d_model=32,
                           n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
                           vocab=64)
@@ -331,27 +333,30 @@ def test_unported_parts_raise_not_implemented(cfg):
                         vocab=64, d_state=8, ssm_head_dim=16, ssm_chunk=8)
     moe = dataclasses.replace(dense, family="moe", n_experts=4, top_k=2,
                               moe_d_ff=32)
-    for ok in (dense, ssm, moe, dataclasses.replace(moe, kv_lora=16)):
-        M.init_params(ok, device="cpu")
-        M.init_cache(ok, 1, 8, device="cpu")
-    unported = [dataclasses.replace(dense, family="encdec", n_enc_layers=1,
-                                    enc_seq=8),
-                dataclasses.replace(dense, n_vision_tokens=4,
-                                    mrope_sections=(2, 3, 3))]
-    for bad in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_cache(bad, 1, 8, device="cpu")
-    for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b"):
-        assert get_config(arch).family == "moe"
-    for arch in ("whisper-tiny", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    encdec = dataclasses.replace(dense, family="encdec", n_enc_layers=1,
+                                 enc_seq=8)
+    vision = dataclasses.replace(dense, n_vision_tokens=4,
+                                 mrope_sections=(2, 3, 3))
+    extras = {encdec: {"audio_embeds": torch.zeros(1, 8, 32)},
+              vision: {"vision_embeds": torch.zeros(1, 4, 32)}}
+    for ok in (dense, ssm, moe, dataclasses.replace(moe, kv_lora=16),
+               encdec, vision):
+        model = M.init_params(ok, device="cpu")
+        cache = M.init_cache(ok, 1, 16, device="cpu")
+        batch = {"tokens": np.zeros((1, 6), np.int32), **extras.get(ok, {})}
+        logits, _, cache = T.forward(ok, model, batch, cache)
+        assert logits.shape == (1, ok.n_vision_tokens + 6, 64)
+        assert cache["pos"] == ok.n_vision_tokens + 6
+    with pytest.raises(ValueError, match="unknown family"):
+        M.init_params(dataclasses.replace(dense, family="rnn"), device="cpu")
+    assert {get_config(arch).name for arch in ARCHS} >= {
+        "whisper-tiny", "qwen2-vl-72b"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.loss_fn(cfg, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.cross_attention()
+        M.make_train_step(cfg, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        input_specs(cfg, "train_4k")
 
 
 def _summary_lines(text: str) -> list[str]:
