@@ -204,26 +204,54 @@ each printed as one JSON line:
    is what lets the flash bound count all its products at the bf16
    tensor-core rate.
 
-24. race: `map_dfg(backend="race")` with the portfolio side on the card,
+24. train: `repro_torch.launch.train.main` (the entry point a user
+   calls) on lm100m (12 x 768, GQA 12:4, tied; uncut) for 20 steps at
+   (8, 256) with a checkpoint every 5 steps and a failure injected at
+   step 7: one restart from the step-5 checkpoint, 22 steps run, finite
+   losses, the last below the first; then on zamba2-1.2b uncut at
+   (2, 2048) for 6 steps writing no checkpoint: finite falling losses,
+   `ssd_bwd` 38 times a step (228, all bf16) and `ssd` twice as often
+   (each Mamba2 layer's forward and its recomputation under the
+   per-block activation checkpoint), flash never.  Each run: tokens/s,
+   the step wall, peak device memory, the card's `nvidia-smi` name and
+   power limit.  Then a train step at S = 8192 on lm100m cut to 2
+   layers must raise `NotImplementedError` at flash attention (no
+   backward kernel yet) with nothing launched.  The first `ssd_bwd`
+   call of zamba2's run is captured for phase 25.
+25. ssd-bwd-vs-plain: the SSD backward kernel (`ssd_bwd`) against
+   autograd through the plain scan on the card (`ref.ssd_chunked_bwd`
+   on fp32 copies of the inputs) at `SSD_BWD_CASES` (zamba2's captured
+   training shape (2, 2048, 64, 64), N = 64, chunk 256, with no d_final
+   and with one; mamba2's (2, 2048, 80, 64), N = 128; S off the chunk;
+   P = 130 and N = 12; chunk 1024), each in bf16 and fp32, within
+   `SSD_BWD_TOL`; two calls give the same bits.  At zamba2's and
+   mamba2's shapes the kernel's ms, the plain version's and the bound
+   (`ssd_bwd_bound`).
+26. train-card-vs-cpu: zamba2 at published widths cut to 6 layers (one
+   shared-attention invocation), fp32 compute, one `train_step` at
+   (1, 512) on the card and on the host from the same weights: loss,
+   grad norm and every updated parameter within `TRAIN_TOL` (see its
+   comment); `ssd_bwd` launched 6 times on the card, on its fp32 route.
+27. race: `map_dfg(backend="race")` with the portfolio side on the card,
    on C5K5 bandmap (its (II, routing PEs) must be the golden pair) and
    on the forced loser of tests/test_exact_race.py (busmap, max_ii 2,
    certify off, seed 7: the exact side must win, and the cancelled
    portfolio may run at most one chunk of iterations past the cancel).
    Every "race-side" span must carry its ``ok`` (a side that raised
    lacks it: the race would have degraded around it).
-25. comap: `co_map` on the card on the tier-1 cases of
+28. comap: `co_map` on the card on the tier-1 cases of
    tests/test_comap.py and on `COMAP_PORTFOLIO_PAIR`; every ok merged
    binding must pass the port's validator, the 2x2 case must fail
    cleanly.
-26. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
+29. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
    point) on the card, `SERVICE_TRACE` requests at 8x8 with
    `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
    outcome, no serve-crash event, every ok result valid.  Requests/s,
    p50/p95/p99 latency, sources, hit rates, the slowest requests.
-27. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
+30. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
    with their span walls by name (`obs.export.to_json`) and
    `MappingResult.explain()`'s report.
-Each of phases 24-27 resets the launch counts just before it and reads
+Each of phases 27-30 resets the launch counts just before it and reads
 them just after: `selection_counts` must have launched.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
@@ -232,6 +260,7 @@ reports it, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -444,6 +473,60 @@ RAGGED_CASES = [(8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
                 (8000, 14336, 4096, ("random", 8)),
                 (24000, 2048, 1408, ("random", 64)),
                 (24, 1408, 2048, ("random", 64))]
+
+# The training phases.  train: `repro_torch.launch.train.main` on
+# lm100m (12 x 768, GQA 12:4, tied; launch.train's default) with a
+# checkpoint every 5 steps and a failure injected at step 7, then on
+# zamba2-1.2b uncut at (2, 2048) for 6 steps writing no checkpoint
+# (every 1000 steps): 38 SSD backward launches a step.  Then one train
+# step at S = 8192 on lm100m cut to 2 layers, which reaches flash
+# attention under autograd and must raise.
+TRAIN_RUNS = {
+    "lm100m": ["--steps", "20", "--batch", "8", "--seq", "256",
+               "--ckpt-every", "5", "--inject-failure-at", "7"],
+    "zamba2-1.2b": ["--arch", "zamba2-1.2b", "--steps", "6", "--batch",
+                    "2", "--seq", "2048", "--ckpt-every", "1000"]}
+TRAIN_FLASH_SEQ = 8192
+# train-card-vs-cpu: zamba2 at its published widths cut to 6 layers
+# (one shared-attention invocation), fp32 compute, one step at (1, 512)
+# from the same weights on the card and on the host.  Loss and grad norm
+# within 1e-4 (relative, + 1e-6); every updated parameter within 1e-4
+# max |p| + 1e-6 of the host's where the clipped gradient is at least
+# 100 eps (the optimizer's first-step slope g / (|g| + eps) is up to
+# 1 / eps below that: tests/test_torch_train.py), and within the most
+# the step can move it, lr (1 + wd |p|) each way, elsewhere.
+TRAIN_CHECK_REDUCED = {"n_layers": 6}
+TRAIN_CHECK_SHAPE = (1, 512)
+TRAIN_TOL = 1e-4
+# ssd-bwd-vs-plain: the backward kernel against autograd through the
+# plain scan on the card (`ref.ssd_chunked_bwd`), on zamba2's training
+# shape captured from the train phase's first backward (with no
+# d_final, as the step gives it, and with a random one), mamba2's (2,
+# 2048, 80, 64) at N = 128, S off the chunk (1000, 300), P = 130 and N
+# = 12, and chunk 1024; each in bf16 and fp32.  (B, S, H, P, N, chunk,
+# d_final): a tuple of random inputs, or "captured".
+SSD_BWD_CASES = [("zamba2 train step", "captured", False),
+                 ("zamba2 train step, d_final", "captured", True),
+                 ("mamba2 (2, 2048, 80, 64) N=128",
+                  (2, 2048, 80, 64, 128, 256), True),
+                 ("S=1000 off the chunk", (1, 1000, 4, 64, 64, 256), True),
+                 ("S=300 P=40 N=24", (2, 300, 3, 40, 24, 128), False),
+                 ("P=130 N=12", (1, 130, 2, 130, 12, 100), True),
+                 ("chunk 1024", (1, 2100, 2, 64, 64, 1024), False)]
+# Tolerances, both against the plain version on fp32 copies of the same
+# inputs (it rounds nothing but the result): fp32 dx, ddt, db, dc within
+# 1e-5 max |ref| (the orders of fp32 sums); bf16 within half a bf16 ulp
+# of each value (the kernel rounds once, to nearest) + 1e-5 max |ref|;
+# d_a_log (fp32 for both) within 1e-3 max |ref|: each head's sums dt A
+# rev over every step, rev being a reverse sum of dcum, itself row sums
+# less column sums of the gate's terms, so its fp32 error follows terms
+# far larger than the result; the plain version itself parts from a
+# float64 evaluation by ~1e-4 max |ref| there, 10x the other gradients
+# (tests/test_torch_ssd.py::test_plain_backward_fp32_error_against_float64).
+SSD_BWD_TOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+SSD_BWD_ATOL = 1e-5
+SSD_BWD_DA_TOL = 1e-3
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -840,8 +923,9 @@ class Capture:
     def _call(self, *args, **kwargs):
         key = self.key(args, kwargs)
         if key not in self.calls:
-            self.calls[key] = (tuple(a.clone() if self.clone else a
-                                     for a in args), dict(kwargs))
+            self.calls[key] = (tuple(
+                a.clone() if self.clone and a is not None else a
+                for a in args), dict(kwargs))
         self.counts[key] = self.counts.get(key, 0) + 1
         return self.orig(*args, **kwargs)
 
@@ -2260,6 +2344,314 @@ def path_shapes(rows: list, kernel: str) -> list:
 
 
 # ------------------------------------------------ the service tier
+def llm_train(dev, card: str) -> tuple[dict, object]:
+    """`launch.train.main` on each of `TRAIN_RUNS` (its printed lines
+    kept), then one train step that reaches flash under autograd.
+    Returns (the phase's row, the zamba2 run's first `ssd_bwd` call, a
+    `Capture`)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    runs = {}
+    capture = None
+    make_step = M.make_train_step
+    step_s: list[float] = []
+
+    def timed_make_step(cfg, optimizer):
+        """`make_train_step`'s step, with the device-synced wall of each
+        call kept in ``step_s``."""
+        step = make_step(cfg, optimizer)
+
+        def run(state, batch):
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for arch, argv in TRAIN_RUNS.items():
+        ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt", arch)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        out = io.StringIO()
+        free_model()
+        torch.cuda.reset_peak_memory_stats()
+        cap = Capture(ssd_ops, "ssd_bwd")
+        step_s.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        M.make_train_step = timed_make_step
+        try:
+            with cap, contextlib.redirect_stdout(out):
+                history = train.main(argv + ["--ckpt", ckpt])
+        finally:
+            M.make_train_step = make_step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS + (
+            "ssd_bwd", "ssd_bwd_bf16", "ssd_bwd_fp32")}
+        lines = out.getvalue().splitlines()
+        done = next(ln for ln in lines if ln.startswith("done:"))
+        restarts = int(re.search(r"restarts=(\d+)", done).group(1))
+        loop_s = float(re.search(r" in ([\d.]+)s", done).group(1))
+        kept = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        shutil.rmtree(ckpt, ignore_errors=True)
+        steps = int(argv[argv.index("--steps") + 1])
+        batch = int(argv[argv.index("--batch") + 1])
+        seq = int(argv[argv.index("--seq") + 1])
+        losses = [h["loss"] for h in history]
+        # The step's own wall (after the first step, which warms up),
+        # and the loop's, which adds the data, the host reads of the
+        # metrics and the checkpoints.
+        step_wall = float(np.median(step_s[1:] if len(step_s) > 1
+                                    else step_s))
+        runs[arch] = dict(
+            argv=argv, card=card, wall_s=wall, loop_s=loop_s,
+            steps_run=len(history), restarts=restarts,
+            step_s=list(step_s), step_wall_s=step_wall,
+            tokens_per_s=batch * seq / step_wall,
+            loop_tokens_per_s=batch * seq * len(history) / loop_s,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            first_loss=losses[0], last_loss=losses[-1],
+            losses=losses, checkpoints_kept=kept, launches=launches,
+            lines=[ln for ln in lines if ln.startswith(("training", "step",
+                                                        "done"))])
+        check(all(map(np.isfinite, losses)), f"{arch}: a loss is not finite")
+        check(losses[-1] < losses[0],
+              f"{arch}: the last loss {losses[-1]} is not below the first "
+              f"{losses[0]}")
+        if arch == "lm100m":
+            check(restarts == 1, f"lm100m: {restarts} restarts, not 1")
+            check(len(history) == steps + 2,
+                  f"lm100m: {len(history)} steps run, not {steps} + the 2 "
+                  f"replayed from the step-5 checkpoint")
+        else:
+            capture = cap
+            want = 38 * steps
+            check(launches["ssd_bwd"] == want and
+                  launches["ssd_bwd_bf16"] == want,
+                  f"zamba2: ssd_bwd launched {launches['ssd_bwd']} times "
+                  f"({launches['ssd_bwd_bf16']} bf16), not {want}")
+            check(launches["ssd"] == 2 * want,
+                  f"zamba2: ssd launched {launches['ssd']} times, not "
+                  f"{2 * want} (a forward and its recomputation a layer)")
+            check(launches["flash_attention"] == 0,
+                  "zamba2 at S = 2048 launched flash attention")
+        free_model()
+    # Flash under autograd on the card: a step at S past 4096 raises.
+    cfg = dataclasses.replace(train.LM100M, n_layers=2)
+    state, step, data, _ = train.build(cfg, batch=1, seq=TRAIN_FLASH_SEQ,
+                                       lr=3e-4, steps=1, device=dev)
+    reset_launches()
+    message = None
+    try:
+        step(state, data.batch(0))
+    except NotImplementedError as e:
+        message = str(e)
+    del state, step
+    free_model()
+    check(message is not None and "ROADMAP" in message,
+          f"a train step at S = {TRAIN_FLASH_SEQ} did not raise on flash "
+          f"attention: {message}")
+    check(LAUNCHES["flash_attention"] == 0, "flash launched under grad")
+    return dict(phase="train", runs=runs, flash_under_grad=dict(
+        seq=TRAIN_FLASH_SEQ, n_layers=2, raised=message),
+        seconds=time.perf_counter() - t_phase), capture
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """One train step of zamba2 cut to 6 layers in fp32 compute on the
+    card and on the host from the same weights and batch; loss, grad
+    norm and every updated parameter compared (`TRAIN_TOL`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_ARCH), **TRAIN_CHECK_REDUCED)
+    b, s = TRAIN_CHECK_SHAPE
+    with compute_dtype(torch.float32):
+        host, host_step, data, _ = train.build(cfg, batch=b, seq=s, lr=3e-4,
+                                               steps=1, device="cpu")
+        card, card_step, _, _ = train.build(cfg, batch=b, seq=s, lr=3e-4,
+                                            steps=1, device=dev)
+        with torch.no_grad():
+            for p_card, p_host in zip(card[0].parameters(),
+                                      host[0].parameters()):
+                p_card.copy_(p_host)
+        batch = data.batch(0)
+        reset_launches()
+        t0 = time.perf_counter()
+        (card_model, card_opt, _), card_m = card_step(card, batch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in LLM_KEYS + (
+            "ssd_bwd", "ssd_bwd_bf16", "ssd_bwd_fp32")}
+        t0 = time.perf_counter()
+        (host_model, host_opt, _), host_m = host_step(host, batch)
+        host_s = time.perf_counter() - t0
+    opt = AdamW()
+    lr = 3e-4
+    metrics = {}
+    for key in ("loss", "ce", "zloss", "grad_norm"):
+        got, want = float(card_m[key]), float(host_m[key])
+        metrics[key] = dict(card=got, host=want)
+        check(abs(got - want) <= TRAIN_TOL * abs(want) + 1e-6,
+              f"train-card-vs-cpu: {key} {got} on the card, {want} on the "
+              f"host")
+    worst, ill, worst_ill = 0.0, 0, 0.0
+    host_params = dict(host_model.named_parameters())
+    for name, p in card_model.named_parameters():
+        got, want = p.detach().cpu(), host_params[name].detach()
+        # The clipped gradient: mu after the first step is (1 - b1) g.
+        g = host_opt["mu"][name] / (1 - opt.b1)
+        well = g.abs() >= 100 * opt.eps
+        ill += int((~well).sum())
+        err = (got - want).abs()
+        bound = TRAIN_TOL * float(want.abs().max()) + 1e-6
+        if well.any():
+            ratio = float(err[well].max()) / bound
+            worst = max(worst, ratio)
+            check(ratio <= 1.0, f"train-card-vs-cpu: {name} parts by "
+                                f"{float(err[well].max())} (bound {bound})")
+        if (~well).any():
+            move = 2 * lr * (1 + opt.weight_decay * want[~well].abs())
+            worst_ill = max(worst_ill, float((err[~well] / move).max()))
+            check(bool((err[~well] <= move).all()),
+                  f"train-card-vs-cpu: {name} moved past the first step's "
+                  f"reach where its gradient is under 100 eps")
+    check(launches["ssd_bwd"] == cfg.n_layers and
+          launches["ssd_bwd_fp32"] == cfg.n_layers,
+          f"train-card-vs-cpu: ssd_bwd launched {launches['ssd_bwd']} "
+          f"times ({launches['ssd_bwd_fp32']} fp32), not {cfg.n_layers}")
+    check(launches["flash_attention"] == 0, "flash launched at S = 512")
+    del card, host, card_model, host_model, card_opt, host_opt
+    free_model()
+    return dict(phase="train-card-vs-cpu", reduced=TRAIN_CHECK_REDUCED,
+                shape=TRAIN_CHECK_SHAPE, compute="float32",
+                metrics=metrics, worst_param_ratio=worst,
+                entries_under_100_eps=ill, worst_under_100_eps_ratio=worst_ill,
+                launches=launches, card_step_s=card_s, host_step_s=host_s,
+                tolerance=TRAIN_TOL, seconds=time.perf_counter() - t_phase)
+
+
+def ssd_bwd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
+    """The least time of the backward.  Per chunk of l real steps: the
+    scores C B^T (l (l + 1) N, shared by the heads of the one group),
+    and per head dy x^T and the gate's product with dy (l (l + 1) P
+    each), its products with B and C (l (l + 1) N each), and five
+    (P x l)(l x N) products (the chunk states S and R, and the state
+    terms of dx, dB and dC: 2 l P N each), each once.  bf16 inputs at
+    the bf16 tensor-core rate; fp32 at the TF32 rate three times (the
+    split-TF32 passes the forward's fp32 tolerances need), with the CUDA
+    cores' rate as `fp32_rate_bound_ms` beside it.  The larger of that
+    time and the bytes' binds."""
+    flop = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        flop += b * (ln * (ln + 1) * n + h * (
+            2 * ln * (ln + 1) * (p + n) + 10 * ln * p * n))
+    t_bytes = nbytes / PEAK_BYTES_S
+    extra = {}
+    if fp32:
+        t_ops = 3 * flop / PEAK_TF32_S
+        extra = dict(fp32_rate_bound_ms=1e3 * max(flop / PEAK_OPS_S,
+                                                   t_bytes))
+    else:
+        t_ops = flop / PEAK_BF16_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop, bytes=nbytes, **extra)
+
+
+def ssd_bwd_vs_plain(dev, capture) -> dict:
+    """`ssd_bwd` on the card against the plain version on the card, at
+    `SSD_BWD_CASES` in both dtypes; two calls must give the same bits;
+    the kernel's ms, the plain version's and the bound at each shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    check(capture is not None and capture.calls,
+          "the zamba2 train run gave no ssd_bwd call to capture")
+    cap_args, cap_kw = capture.args, capture.kwargs
+    rows = []
+    for label, spec, with_final in SSD_BWD_CASES:
+        if spec == "captured":
+            x, dt, a_log, b, c, dy, _ = cap_args
+            chunk = cap_kw["chunk"]
+        else:
+            bsz, s, h, p, n, chunk = spec
+            def r(*shape):
+                return torch.randn(*shape, device=dev, generator=gen)
+            x, dt, a_log = r(bsz, s, h, p), F.softplus(r(bsz, s, h)), \
+                r(h) * 0.5
+            b, c, dy = r(bsz, s, 1, n), r(bsz, s, 1, n), r(bsz, s, h, p)
+        bsz, s, h, p = x.shape
+        n = b.shape[3]
+        d_final = torch.randn(bsz, h, p, n, device=dev, generator=gen) \
+            if with_final else None
+        for dtype in (torch.bfloat16, torch.float32):
+            args = [t.to(dtype) for t in (x, dt)] + [a_log] + [
+                t.to(dtype) for t in (b, c, dy)]
+            got = ssd_ops.ssd_bwd(*args, d_final, chunk=chunk)
+            again = ssd_ops.ssd_bwd(*args, d_final, chunk=chunk)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(got, again))
+            want = ssd_chunked_bwd(*(t.float() for t in args), d_final,
+                                   chunk=chunk)
+            name = str(dtype).split(".")[1]
+            errs, ok = {}, same
+            for key, g, w in zip(("dx", "ddt", "d_a_log", "db", "dc"), got,
+                                 want):
+                err = (g.float() - w).abs()
+                errs[key] = float(err.max())
+                if key == "d_a_log":
+                    ok &= bool((err <= SSD_BWD_DA_TOL * w.abs().max()).all())
+                else:
+                    ok &= bool((err <= SSD_BWD_TOL[name] * w.abs() +
+                                SSD_BWD_ATOL * w.abs().max()).all())
+            row = dict(case=label, dtype=name, shape=[bsz, s, h, p], n=n,
+                       chunk=chunk, d_final=with_final, max_abs_err=errs,
+                       max_abs_ref={key: float(w.abs().max()) for key, w in
+                                    zip(("dx", "ddt", "d_a_log", "db", "dc"),
+                                        want)},
+                       bit_identical=same, within=ok)
+            if spec == "captured" or label.startswith("mamba2"):
+                nbytes = sum(t.numel() * t.element_size() for t in args) + \
+                    sum(t.numel() * t.element_size() for t in got) + (
+                        d_final.numel() * 4 if with_final else 0)
+                row.update(
+                    ms=cuda_ms(lambda: ssd_ops.ssd_bwd(
+                        *args, d_final, chunk=chunk), 10),
+                    plain_ms=cuda_ms(lambda: ssd_chunked_bwd(
+                        *args, d_final, chunk=chunk), 3),
+                    library_ms=None,
+                    **ssd_bwd_bound(bsz, s, h, p, n, chunk, nbytes,
+                                    fp32=dtype == torch.float32))
+            rows.append(row)
+            check(same, f"ssd_bwd {label} {name}: two calls differ")
+            check(ok, f"ssd_bwd {label} {name}: outside the tolerance "
+                      f"({errs})")
+            del got, again, want
+    return dict(phase="ssd-bwd-vs-plain", cases=rows,
+                tolerance=dict(rtol=SSD_BWD_TOL, atol_of_max=SSD_BWD_ATOL,
+                               d_a_log_of_max=SSD_BWD_DA_TOL),
+                seconds=time.perf_counter() - t_phase)
+
+
 def span_walls(tracer) -> dict:
     """Wall seconds and count by span name, from the ported
     `obs.export.to_json`, largest first."""
@@ -2866,7 +3258,26 @@ def main() -> int:
     fa_err = max(max(c["max_abs_err"] for c in llm_vs["flash_attention"]),
                  path_err["flash"])
 
-    # ---- 24-27. the service tier: race, co-mapping, the serve tier
+    # ---- 24-26. training: launch.train.main on lm100m (a failure and a
+    # restart) and zamba2-1.2b uncut; the SSD backward kernel against its
+    # plain version; one fp32 step on the card against the host
+    train_row, bwd_capture = llm_train(dev, card)
+    emit(train_row)
+    bwd_row = ssd_bwd_vs_plain(dev, bwd_capture)
+    emit(bwd_row)
+    del bwd_capture
+    free_model()
+    check_row = train_card_vs_cpu(dev)
+    emit(check_row)
+    zamba_train = train_row["runs"][LLM_ARCH]
+    bwd_main = next(r for r in bwd_row["cases"]
+                    if r["case"] == SSD_BWD_CASES[0][0]
+                    and r["dtype"] == "bfloat16")
+    bwd32 = next(r for r in bwd_row["cases"]
+                 if r["case"] == SSD_BWD_CASES[0][0]
+                 and r["dtype"] == "float32")
+
+    # ---- 27-30. the service tier: race, co-mapping, the serve tier
     # behind --map-trace, and traced maps with their explain reports
     service = {}
     for run in (service_race, service_comap, service_trace,
@@ -3009,7 +3420,30 @@ def main() -> int:
              path_shapes=[dict({k: r[k] for k in rd_keys}, arch=r["arch"],
                                label=r["label"],
                                shape=[r["m"], r["k"], r["n"], r["groups"]])
-                          for r in moe["ragged"]])],
+                          for r in moe["ragged"]]),
+        dict(name="ssd_bwd", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+             replaces="src/repro/kernels/ssd/kernel.py:80 (ssd_pallas has "
+                      "no custom_vjp: the reference's jax.grad "
+                      "differentiates ref.py:35 ssd_chunked)",
+             launches=zamba_train["launches"]["ssd_bwd"],
+             launches_from=f"train, {LLM_ARCH} uncut, "
+                           f"{zamba_train['steps_run']} steps",
+             launches_card_vs_cpu=check_row["launches"]["ssd_bwd"],
+             max_abs_err=max(bwd_main["max_abs_err"].values()),
+             ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
+             bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
+             library_ms=None,
+             shape=f"{tuple(bwd_main['shape'])} N={bwd_main['n']} "
+                   f"chunk={bwd_main['chunk']} bf16 ({LLM_ARCH} train "
+                   f"step)",
+             fp32={key: bwd32[key] for key in (
+                 "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                 "fp32_rate_bound_ms")},
+             path_shapes=[{k: r[k] for k in (
+                 "case", "dtype", "shape", "n", "chunk", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "max_abs_err")}
+                 for r in bwd_row["cases"] if "ms" in r])],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

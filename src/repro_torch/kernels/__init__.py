@@ -37,7 +37,11 @@ and ``ops.py`` (the checked wrapper):
                     the tensor cores: bf16 to ``ssd_tc.cu`` (mma.sync,
                     split-bf16 operands), fp32 to ``ssd.cu`` (split-TF32
                     operands, 3xTF32; mma.sync, and wgmma for the last
-                    stage up to N = 64)
+                    stage up to N = 64); and ``ssd_bwd``, its backward
+                    (``ssd_bwd.cu``, fp32 on the CUDA cores), behind
+                    ``ssd``'s autograd on the card — the training path's
+                    (no TPU kernel: the reference differentiates the
+                    plain scan)
 - ragged_dot/       ``ragged_dot``: the grouped matrix product of the
                     MoE FFN (rows sorted by expert, each expert's rows
                     times its own weights), with the group offsets read
@@ -50,12 +54,15 @@ and ``ops.py`` (the checked wrapper):
                     with no Pallas kernel behind it
 
 A wrapper runs the plain version for tensors on the CPU and launches
-its kernel for CUDA tensors, or raises; it never falls back.  Each
+its kernel for CUDA tensors, or raises; it never falls back.  Under
+autograd on the card, ``ssd`` runs its backward kernel; ``flash_attention``
+and ``ragged_dot`` have no backward kernel yet (ROADMAP Queue 2) and
+raise rather than hand back results that carry no gradient.  Each
 wrapper call that launches adds one to ``LAUNCHES[name]`` through
 `count_launch`, so a run can show which kernels its path went through;
 a kernel with more than one route also adds one to the route it took:
 ``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]`` (flash
-attention, the SSD scan), ``LAUNCHES["ragged_dot_wgmma"]``,
+attention, the SSD scan and its backward), ``LAUNCHES["ragged_dot_wgmma"]``,
 ``["ragged_dot_mma"]`` or ``["ragged_dot_fp32"]``.  The counts are
 exact when several threads launch: every update holds one lock.
 """
@@ -71,6 +78,8 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "flash_attention_bf16": 0,
                              "flash_attention_fp32": 0,
                              "ssd": 0, "ssd_bf16": 0, "ssd_fp32": 0,
+                             "ssd_bwd": 0, "ssd_bwd_bf16": 0,
+                             "ssd_bwd_fp32": 0,
                              "ragged_dot": 0, "ragged_dot_wgmma": 0,
                              "ragged_dot_mma": 0, "ragged_dot_fp32": 0}
 

@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention_tc": ("flash_attention/csrc/flash_attention_tc.cu",),
     "ssd": ("ssd/csrc/ssd.cu",),
     "ssd_tc": ("ssd/csrc/ssd_tc.cu",),
+    "ssd_bwd": ("ssd/csrc/ssd_bwd.cu",),
     "ragged_dot": ("ragged_dot/csrc/ragged_dot.cu",),
 }
 

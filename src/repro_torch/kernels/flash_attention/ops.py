@@ -13,7 +13,9 @@ fp32 on the CUDA cores, in the plain version's order).  Both take head
 dims D up to 256, the largest of the repository's configs; a wider head
 raises.  Every launch adds one to ``LAUNCHES["flash_attention"]`` and
 one to the route it took, ``LAUNCHES["flash_attention_bf16"]`` or
-``LAUNCHES["flash_attention_fp32"]``.
+``LAUNCHES["flash_attention_fp32"]``.  There is no backward kernel yet
+(ROADMAP Queue 2): a CUDA call under autograd (grad enabled and an input
+requiring it) raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -75,6 +77,11 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset,
                                    window=window, block_k=block_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"{_NAME} has no backward kernel yet (ROADMAP Queue 2: flash "
+            f"attention's backward); training on the card takes attention "
+            f"over at most 4096^2 (query, key) pairs, the plain product")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{_NAME} takes float32 or bfloat16, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -21,6 +21,9 @@ The kernels read the offsets on the card, so a call makes no host sync.
 Every launch adds one to ``LAUNCHES["ragged_dot"]`` and one to the
 route it took: ``LAUNCHES["ragged_dot_wgmma"]``,
 ``LAUNCHES["ragged_dot_mma"]`` or ``LAUNCHES["ragged_dot_fp32"]``.
+There is no backward kernel yet (ROADMAP Queue 2): a CUDA call under
+autograd (grad enabled and x or w requiring it) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -93,6 +96,11 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
                          f"{route!r}")
     if x.device.type == "cpu":
         return ragged_dot_ref(x, w, group_offsets)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            f"{_NAME} has no backward kernel yet (ROADMAP Queue 2: "
+            f"ragged_dot's backward), so the moe family does not train on "
+            f"the card")
     if x.dtype not in _PAIRS:
         raise TypeError(f"{_NAME} takes float32 or bfloat16, not {x.dtype}")
     if group_offsets.dtype != torch.int32:

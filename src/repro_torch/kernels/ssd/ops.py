@@ -13,6 +13,17 @@ two TF32 products miss).  Both take one group (G = 1), as the TPU kernel does,
 N <= 128 and chunks of up to 1024 steps; S need not be a multiple of
 the chunk.  Every call adds one to ``LAUNCHES["ssd"]`` and one to the
 route it took, ``LAUNCHES["ssd_bf16"]`` or ``LAUNCHES["ssd_fp32"]``.
+
+Under autograd (grad enabled and an input requiring it) a CUDA call is
+a `torch.autograd.Function`: the forward kernels above, and for the
+backward `ssd_bwd`, the hand-written kernel of ``csrc/ssd_bwd.cu`` (fp32
+arithmetic on the CUDA cores for bf16 or fp32 inputs, one group, N <=
+128, chunks <= 1024, S off a multiple of the chunk).  `ssd_bwd` on CPU
+tensors is the plain version, `ref.ssd_chunked_bwd` (autograd through
+`ref.ssd_chunked`), which is also how a CPU call of `ssd` is
+differentiated.  Every backward launch adds one to
+``LAUNCHES["ssd_bwd"]`` and to ``LAUNCHES["ssd_bwd_bf16"]`` or
+``["ssd_bwd_fp32"]``.
 """
 
 from __future__ import annotations
@@ -23,10 +34,11 @@ import torch
 
 from .. import count_launch
 from .._build import load
-from .ref import ssd_chunked
+from .ref import ssd_chunked, ssd_chunked_bwd
 
 _NAME = "ssd"
 _TC = "ssd_tc"     # the bf16 stages' library
+_BWD = "ssd_bwd"   # the backward kernel's library
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -69,6 +81,14 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
         raise ValueError(f"chunk must be positive, not {chunk}")
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a_log, b, c, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_log, b, c)):
+        return _SSD.apply(x, dt, a_log, b, c, chunk)
+    return _forward(x, dt, a_log, b, c, chunk)
+
+
+def _check_cuda(x, dt, a_log, b, c, chunk: int) -> None:
+    """What the CUDA kernels (forward and backward) take."""
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype
                                      for t in (dt, b, c)):
         raise TypeError(f"{_NAME} takes x, dt, b and c of one type, "
@@ -90,6 +110,13 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
                     ("c", c)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _forward(x, dt, a_log, b, c, chunk: int):
+    """The forward kernels on CUDA tensors: (y, final state)."""
+    _check_cuda(x, dt, a_log, b, c, chunk)
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
     y = torch.empty_like(x)
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 and fin.numel() == 0:
@@ -121,3 +148,92 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
                            f"CUDA error {err}")
     count_launch(_NAME, route)
     return y, fin
+
+
+class _SSD(torch.autograd.Function):
+    """`ssd` on CUDA tensors under autograd: the forward kernels, then
+    the backward kernel on the saved inputs (`ssd_bwd`).  An output whose
+    gradient is not needed passes None: dy then is zeros, and a missing
+    d_final is zero in the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, b, c)
+        ctx.chunk = chunk
+        return _forward(x, dt, a_log, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a_log, b, c = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_bwd(x, dt, a_log, b, c, dy, d_final, chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _bwd_launcher():
+    fn = load(_BWD).ssd_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_bwd(x, dt, a_log, b, c, dy, d_final=None, *, chunk: int = 64):
+    """The gradients of `ssd`'s (y, final state) on x, dt, a_log, b and c
+    given ``dy`` (x's shape) and ``d_final`` ((B, H, P, N), or None for
+    zero): (dx, ddt, d_a_log, db, dc), each in its input's type.  CPU
+    tensors take `ref.ssd_chunked_bwd`; CUDA tensors the backward kernel,
+    or the call raises."""
+    _check(x, dt, a_log, b, c)
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, not {chunk}")
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} disagrees "
+                         f"with x {tuple(x.shape)} on {x.device}")
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    if d_final is not None and (
+            tuple(d_final.shape) != (bsz, h, p, n) or
+            d_final.device != x.device):
+        raise ValueError(f"d_final {tuple(d_final.shape)} disagrees with "
+                         f"the state {(bsz, h, p, n)}")
+    if x.device.type == "cpu":
+        return ssd_chunked_bwd(x, dt, a_log, b, c, dy, d_final, chunk=chunk)
+    _check_cuda(x, dt, a_log, b, c, chunk)
+    dy = dy.to(x.dtype).contiguous()
+    if d_final is not None:
+        d_final = d_final.float().contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty((h,), **f32)
+    if x.numel() == 0:
+        return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
+    nc = -(-s // chunk)
+    # Scratch: cum, the four per-position sums, the state before each
+    # chunk and dS (written over the two chunk products), the per-head
+    # dB and dC, and each chunk's part of d_a_log.
+    cum = torch.empty((bsz, nc, h, chunk), **f32)
+    sc = torch.empty((4, bsz, nc, h, chunk), **f32)
+    hst = torch.empty((bsz, nc, h, p, n), **f32)
+    dst = torch.empty_like(hst)
+    dbp = torch.empty((bsz, s, h, n), **f32)
+    dcp = torch.empty_like(dbp)
+    dap = torch.empty((bsz, nc, h), **f32)
+    bf16 = x.dtype == torch.bfloat16
+    ptrs = [t.data_ptr() for t in (x, dt, a_log, b, c, dy)] + [
+        0 if d_final is None else d_final.data_ptr()] + [
+        t.data_ptr() for t in (dx, ddt, da, db, dc, cum, hst, dst, dbp, dcp,
+                               sc, dap)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_launcher()(*ptrs, bsz, s, h, p, n, chunk, int(bf16),
+                              stream)
+    route = "bf16" if bf16 else "fp32"
+    if err != 0:
+        raise RuntimeError(f"{_BWD} ({route}) launch failed: CUDA error "
+                           f"{err}")
+    count_launch(_BWD, route)
+    return dx, ddt, da, db, dc

@@ -1,6 +1,8 @@
 """Plain torch Mamba2 SSD (state-space duality) chunked scan
 (arXiv:2405.21060, Algorithm "SSD"): the oracle for the CUDA kernel and
-the path tensors on the CPU take; and `ssd_step`, the decode step.
+the path tensors on the CPU take; `ssd_chunked_bwd`, its gradients by
+autograd (the oracle of the backward kernel); and `ssd_step`, the decode
+step.
 
 Selective state space recurrence, per head h with head dim P and state N:
 
@@ -106,6 +108,23 @@ def ssd_chunked(x, dt, a_log, b, c, *, chunk: int = 64,
 
     y = (y_intra + y_inter).reshape(bsz, s, h, p)[:, :s_orig]
     return y.to(x.dtype), carry
+
+
+def ssd_chunked_bwd(x, dt, a_log, b, c, dy, d_final=None, *,
+                    chunk: int = 64):
+    """The gradients of `ssd_chunked` by autograd through it: the plain
+    version of the backward kernel (``csrc/ssd_bwd.cu``).  ``dy`` is the
+    gradient of y (x's shape), ``d_final`` that of the final state (B, H,
+    P, N) or None (zero).  Returns (dx, ddt, d_a_log, db, dc), each in
+    its input's type."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+        y, fin = ssd_chunked(*ins, chunk=chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if d_final is not None:
+            outs.append(fin)
+            grads.append(d_final.float())
+        return torch.autograd.grad(outs, ins, grads)
 
 
 def ssd_step(state, x_t, dt_t, a_log, b_t, c_t):

@@ -8,7 +8,9 @@ port's module paths are the same keys with that axis split per layer
 ``layers.<i>.ln1.bias``).  `from_reference` takes the tree as
 nested dicts of numpy arrays (for instance ``jax.tree.map(np.asarray,
 params)``) and builds the port's model from it; `to_reference` gives
-the tree back.  A tied embedding has no ``unembed`` leaf on either side.
+the tree back (`to_reference_tree` does the same for any tensors keyed
+by parameter name, such as gradients or optimizer moments).  A tied
+embedding has no ``unembed`` leaf on either side.
 zamba2's shared attention block is one module, loaded once and reused
 by every invocation.  The moe family's leaves need nothing special:
 the stacked expert weights ``["layers"]["ffn"]["w_gate"]`` (L, E, D,
@@ -33,13 +35,19 @@ from .transformer import ModelConfig
 _STACKED = ("layers", "enc_layers")
 
 
+def reference_path(path: str) -> tuple[list[str], int | None]:
+    """(the reference tree's keys, the layer index or None) behind the
+    module path ``path``: ``layers.3.mamba.in_x.w`` is leaf
+    ``["layers"]["mamba"]["in_x"]["w"]``, layer 3 of its stack."""
+    parts = path.split(".")
+    if parts[0] in _STACKED:
+        return [parts[0]] + parts[2:], int(parts[1])
+    return parts, None
+
+
 def _leaf(tree: dict, path: str) -> np.ndarray:
     """The reference leaf behind the module path ``path``."""
-    parts = path.split(".")
-    index = None
-    if parts[0] in _STACKED:
-        index = int(parts[1])
-        parts = [parts[0]] + parts[2:]
+    parts, index = reference_path(path)
     node = tree
     for key in parts:
         if not isinstance(node, dict) or key not in node:
@@ -87,14 +95,21 @@ def from_reference(cfg: ModelConfig, params_np: dict, device=None) -> nn.Module:
 def to_reference(cfg: ModelConfig, model: nn.Module) -> dict:
     """The reference's parameter tree (nested dicts of float32 numpy
     arrays, layer axis stacked) of the port's ``model``."""
+    return to_reference_tree(model.named_parameters())
+
+
+def to_reference_tree(named) -> dict:
+    """The reference's tree (layer axis stacked) of ``named``, pairs of
+    (module path, tensor or array): a model's parameters, or its
+    gradients or optimizer moments keyed by parameter name."""
     tree: dict = {}
     stacked: dict[str, list] = {}
-    for path, p in model.named_parameters():
-        arr = p.detach().cpu().numpy()
-        parts = path.split(".")
-        if parts[0] in _STACKED:
-            key = ".".join(parts[:1] + parts[2:])
-            stacked.setdefault(key, []).append((int(parts[1]), arr))
+    for path, t in named:
+        arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+        parts, index = reference_path(path)
+        if index is not None:
+            stacked.setdefault(".".join(parts), []).append((index, arr))
             continue
         _put(tree, parts, arr)
     for key, items in stacked.items():

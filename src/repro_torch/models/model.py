@@ -1,10 +1,12 @@
 """Model entry points: parameter init, parameter count, the decode cache,
-`prefill_step` and `serve_step` — the functions `launch.serve` drives.
+the loss and the train step (`launch.train`), and `prefill_step` and
+`serve_step` (`launch.serve`).
 
 Everything takes an explicit ``device`` (None means ``cuda``; with no
-GPU that raises).  The model is inference-only in this slice: its
-parameters do not require gradients, and `loss_fn` and
-`make_train_step` wait for the training slice.
+GPU that raises).  A built model's parameters do not require gradients,
+so serving builds no autograd graph; the trainer turns them on for its
+own model (``model.requires_grad_()``, `launch.train.build`) before
+`make_train_step`'s step takes gradients.
 """
 
 from __future__ import annotations
@@ -16,9 +18,6 @@ from . import transformer as T
 from .layers import resolve_device
 from .ssm import mamba2_cache_shapes
 from .transformer import ModelConfig
-
-_TRAIN_TODO = ("training is not ported yet (ROADMAP Queue 1, item 11: "
-               "training with backward kernels)")
 
 
 # ------------------------------------------------------------------ params
@@ -101,12 +100,73 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 # -------------------------------------------------------------------- loss
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(_TRAIN_TODO)
+def loss_fn(cfg: ModelConfig, model, batch, *, aux_weight: float = 0.01,
+            z_weight: float = 1e-4):
+    """Next-token CE (+ router aux loss + z-loss), as the reference's:
+    logits in float32, a vision prefix cut from them, labels -1 masked.
+    Returns (total, {"ce", "aux", "zloss", "ntokens"})."""
+    logits, aux, _ = T.forward(cfg, model, batch)
+    logits = logits.to(torch.float32)   # CE reductions always in fp32
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    if logits.shape[1] != labels.shape[1]:
+        # modality prefix (VLM stub): loss over the text suffix only
+        logits = logits[:, -labels.shape[1]:]
+    valid = labels >= 0
+    labels = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = (logz - ll) * valid
+    n = torch.clamp(valid.sum(), min=1)
+    ce_mean = ce.sum() / n
+    zloss = ((logz * valid) ** 2).sum() / n
+    total = ce_mean + aux_weight * aux + z_weight * zloss
+    return total, {"ce": ce_mean, "aux": aux, "zloss": zloss,
+                   "ntokens": n}
 
 
-def make_train_step(*args, **kwargs):
-    raise NotImplementedError(_TRAIN_TODO)
+# ------------------------------------------------------------- train step
+def make_train_step(cfg: ModelConfig, optimizer):
+    """``train_step((model, opt_state, step), batch) -> (state,
+    metrics)`` with the reference's metrics (ce, aux, zloss, ntokens,
+    loss, grad_norm before clipping, step).  ``optimizer`` is a
+    `repro_torch.optim` object (``init(params)`` / ``update(g, s, p)``
+    over name -> tensor dicts).  Gradients come from `torch.autograd`
+    (the model's parameters must require them: ``requires_grad_()``;
+    `init_params` and `convert.from_reference` build frozen ones); the
+    update
+    is added to the parameters in place under `torch.no_grad`, and the
+    model object is the new state's."""
+
+    def train_step(state, batch):
+        model, opt_state, step = state
+        params = dict(model.named_parameters())
+        if not all(p.requires_grad for p in params.values()):
+            raise ValueError("the model's parameters do not require "
+                             "gradients: call model.requires_grad_() "
+                             "first")
+        with torch.enable_grad():
+            loss, metrics = loss_fn(cfg, model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        grads = dict(zip(params, grads))
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        with torch.no_grad():
+            torch._foreach_add_(list(params.values()),
+                                [updates[k] for k in params])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), grad_norm=optax_global_norm(grads),
+                       step=torch.as_tensor(step).to(torch.float32))
+        return (model, opt_state, step + 1), metrics
+
+    return train_step
+
+
+def optax_global_norm(tree: dict):
+    """sqrt of the sum of squares of every tensor of ``tree`` (name ->
+    tensor), in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree.values()))
 
 
 # ------------------------------------------------------------- serve step

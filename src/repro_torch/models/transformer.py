@@ -26,9 +26,14 @@ reference's pytree keys with the stacked layer axes split per layer
 (``layers.<i>.<rest>``, ``enc_layers.<i>.<rest>``).  PyTorch runs
 eagerly: the reference's ``lax.scan`` over stacked layers is a loop
 over the layer modules, each layer taking its own window (gemma3's 5
-local : 1 global) as a Python int, and its activation remat
-(``cfg.remat``) has no counterpart in this inference-only port.  The one-device sharding
-constraint (``launch/sharding.constrain``) is a no-op and is not copied.
+local : 1 global) as a Python int.  The reference's activation remat
+(``jax.checkpoint`` when ``cfg.remat == "block"``) is `_maybe_remat`:
+under autograd each block, Mamba layer, shared-attention invocation and
+encoder or decoder layer runs under `torch.utils.checkpoint.checkpoint`
+(non-reentrant), so its activations are recomputed in the backward
+instead of kept; serving (grad off) takes no checkpoint.  The one-device
+sharding constraint (``launch/sharding.constrain``) is a no-op and is
+not copied.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .attention import GQA, MLA, CrossAttention
@@ -292,6 +298,23 @@ def _mamba_apply(cfg: ModelConfig, layer: MambaLayer, x, cache):
 
 
 # ----------------------------------------------------------- main stacks
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` under a non-reentrant activation checkpoint when
+    ``cfg.remat == "block"`` and autograd is recording (the reference
+    wraps its scan bodies in ``jax.checkpoint``); ``fn`` itself
+    otherwise.  The forward draws no random numbers, so no RNG state is
+    kept for the recomputation."""
+    if cfg.remat != "block":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
 def _scan_blocks(cfg: ModelConfig, blocks, x, positions, windows, caches):
     """The transformer blocks in order, each with its own window (an int,
     0 meaning plain causal; None for every layer without
@@ -299,11 +322,13 @@ def _scan_blocks(cfg: ModelConfig, blocks, x, positions, windows, caches):
     "pos": [int] * L} (MLA: {"c_kv", "k_pe"} in place of k and v) or
     None; updated in place."""
     aux = torch.zeros((), device=x.device)
+    body = _maybe_remat(cfg, lambda blk, x, window, cache: _block_apply(
+        cfg, blk, x, positions, window, cache))
     for li, blk in enumerate(blocks):
         cache = ({name: t[li] for name, t in caches.items()}
                  if caches is not None else None)
         window = int(windows[li]) if windows is not None else None
-        x, new_cache, a = _block_apply(cfg, blk, x, positions, window, cache)
+        x, new_cache, a = body(blk, x, window, cache)
         aux = aux + a
         if new_cache is not None:
             caches["pos"][li] = new_cache["pos"]
@@ -313,10 +338,12 @@ def _scan_blocks(cfg: ModelConfig, blocks, x, positions, windows, caches):
 def _scan_mamba(cfg: ModelConfig, layers, x, caches):
     """The Mamba layers in order.  caches: {"conv", "ssm"} with a leading
     layer axis, or None; updated in place."""
+    body = _maybe_remat(cfg, lambda layer, x, cache: _mamba_apply(
+        cfg, layer, x, cache))
     for li, layer in enumerate(layers):
         cache = ({"conv": caches["conv"][li], "ssm": caches["ssm"][li]}
                  if caches is not None else None)
-        x, new_cache = _mamba_apply(cfg, layer, x, cache)
+        x, new_cache = body(layer, x, cache)
         if new_cache is not None:
             cache["conv"].copy_(new_cache["conv"])
             cache["ssm"].copy_(new_cache["ssm"])
@@ -334,6 +361,8 @@ def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
     aux = torch.zeros((), device=x.device)
     mc = caches["mamba"] if caches is not None else None
     ac = caches["attn"] if caches is not None else None
+    shared = _maybe_remat(cfg, lambda x, cache: _block_apply(
+        cfg, model.shared_attn, x, positions, None, cache))
     start, inv = 0, 0
     while start < n:
         end = min(start + k, n)
@@ -343,8 +372,7 @@ def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
         if end - start == k:        # full segment -> shared attn invocation
             cache = ({"k": ac["k"][inv], "v": ac["v"][inv],
                       "pos": ac["pos"][inv]} if ac is not None else None)
-            x, nac, a = _block_apply(cfg, model.shared_attn, x, positions,
-                                     None, cache)
+            x, nac, a = shared(x, cache)
             aux = aux + a
             if nac is not None:
                 ac["pos"][inv] = nac["pos"]
@@ -455,8 +483,10 @@ def _encdec_apply(cfg: ModelConfig, model: EncDecModel, batch, x,
         enc = torch.as_tensor(batch["audio_embeds"], device=dev).to(x.dtype)
         enc_pos = torch.arange(enc.shape[1], device=dev)[None].expand(
             enc.shape[:2])
+        enc_body = _maybe_remat(cfg, lambda blk, enc: _block_apply(
+            cfg, blk, enc, enc_pos, None, None))
         for blk in model.enc_layers:
-            enc, _, _ = _block_apply(cfg, blk, enc, enc_pos, None, None)
+            enc, _, _ = enc_body(blk, enc)
         enc = model.enc_norm(enc)
         kvs = [blk.xattn.encode(enc) for blk in model.layers]
         cross_kv = {name: torch.stack([kv[name] for kv in kvs])
@@ -466,16 +496,27 @@ def _encdec_apply(cfg: ModelConfig, model: EncDecModel, batch, x,
     else:
         cross_kv = caches["cross_kv"]
     lc = caches["layers"] if caches is not None else None
+    body = _maybe_remat(cfg, lambda blk, x, kv, cache: _decoder_apply(
+        cfg, blk, x, positions, kv, cache))
     for li, blk in enumerate(model.layers):
         cache = ({"k": lc["k"][li], "v": lc["v"][li], "pos": lc["pos"][li]}
                  if lc is not None else None)
-        h, new_cache = _attn_apply(cfg, blk.attn, blk.ln1(x), positions,
-                                   None, cache)
-        x = x + h
-        x = x + blk.xattn(blk.ln_x(x), {name: t[li] for name, t in
-                                         cross_kv.items()},
-                          n_heads=cfg.n_heads, head_dim=cfg.head_dim)
-        x = x + blk.ffn(blk.ln2(x), act=cfg.act_fn())
+        x, new_cache = body(blk, x, {name: t[li] for name, t in
+                                     cross_kv.items()}, cache)
         if new_cache is not None:
             lc["pos"][li] = new_cache["pos"]
     return x, lc
+
+
+def _decoder_apply(cfg: ModelConfig, blk: DecoderBlock, x, positions,
+                   cross_kv: dict, cache):
+    """One decoder layer: causal self-attention, cross-attention to the
+    layer's encoder keys and values, then the MLP.  Returns (x,
+    new_cache)."""
+    h, new_cache = _attn_apply(cfg, blk.attn, blk.ln1(x), positions, None,
+                               cache)
+    x = x + h
+    x = x + blk.xattn(blk.ln_x(x), cross_kv, n_heads=cfg.n_heads,
+                      head_dim=cfg.head_dim)
+    x = x + blk.ffn(blk.ln2(x), act=cfg.act_fn())
+    return x, new_cache

@@ -99,3 +99,32 @@ class strict_jit:
                 compiler_options=STRICT_OPTIONS)
             self._compiled[key] = exe
         return exe(*args)
+
+
+def fp32_compute(monkeypatch) -> None:
+    """Both packages' dense layers, embeddings, tied unembeddings and MoE
+    products compute in float32 (the tied unembedding rounds its
+    operands to its own ``compute_dtype``, bf16 by default, and the MoE
+    FFN to its own), through ``monkeypatch``."""
+    import jax.numpy as jnp
+    import torch
+
+    import repro.models.layers as ref_layers
+    import repro.models.moe as ref_moe
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as PM
+    monkeypatch.setitem(ref_layers.dense.__kwdefaults__, "compute_dtype",
+                        jnp.float32)
+    monkeypatch.setattr(ref_layers.embed, "__defaults__", (jnp.float32,))
+    monkeypatch.setattr(ref_layers.unembed, "__defaults__",
+                        (jnp.float32, jnp.float32))
+    monkeypatch.setitem(L.dense.__kwdefaults__, "compute_dtype",
+                        torch.float32)
+    monkeypatch.setattr(L.embed, "__defaults__", (torch.float32,))
+    monkeypatch.setattr(L.unembed, "__defaults__",
+                        (torch.float32, torch.float32))
+    for fn in (ref_moe.moe_ffn, ref_moe.moe_ffn_capacity):
+        monkeypatch.setitem(fn.__kwdefaults__, "compute_dtype", jnp.float32)
+    for fn in (PM.moe_ffn, PM.moe_ffn_capacity):
+        monkeypatch.setitem(fn.__kwdefaults__, "compute_dtype",
+                            torch.float32)

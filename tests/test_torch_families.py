@@ -44,9 +44,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.configs as ref_configs  # noqa: E402
-import repro.models.layers as ref_layers  # noqa: E402
-import repro.models.moe as ref_moe  # noqa: E402
-from _torch_compare import strict_jit  # noqa: E402
+from _torch_compare import fp32_compute, strict_jit  # noqa: E402
 from repro.kernels.flash_attention import ops as ref_fa_ops  # noqa: E402
 from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -54,9 +52,7 @@ from repro.models import transformer as RT  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, convert  # noqa: E402
-from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models import moe as PM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 ARCHS = ("mamba2-2.7b", "gemma3-4b", "qwen1.5-4b", "glm4-9b",
@@ -131,28 +127,6 @@ def _hold_bf16(fam, got, want, what: str) -> None:
     ratio = _ratio(got, want, fam.tol)
     print(f"{fam.arch} {what} bf16: |d| / (tol + tol |want|) {ratio:.3f}")
     assert ratio <= 1.0, what
-
-
-def fp32_compute(monkeypatch) -> None:
-    """Both packages' dense layers, embeddings, tied unembeddings and MoE
-    products compute in float32 (the tied unembedding rounds its
-    operands to its own ``compute_dtype``, bf16 by default, and the MoE
-    FFN to its own)."""
-    monkeypatch.setitem(ref_layers.dense.__kwdefaults__, "compute_dtype",
-                        jnp.float32)
-    monkeypatch.setattr(ref_layers.embed, "__defaults__", (jnp.float32,))
-    monkeypatch.setattr(ref_layers.unembed, "__defaults__",
-                        (jnp.float32, jnp.float32))
-    monkeypatch.setitem(L.dense.__kwdefaults__, "compute_dtype",
-                        torch.float32)
-    monkeypatch.setattr(L.embed, "__defaults__", (torch.float32,))
-    monkeypatch.setattr(L.unembed, "__defaults__",
-                        (torch.float32, torch.float32))
-    for fn in (ref_moe.moe_ffn, ref_moe.moe_ffn_capacity):
-        monkeypatch.setitem(fn.__kwdefaults__, "compute_dtype", jnp.float32)
-    for fn in (PM.moe_ffn, PM.moe_ffn_capacity):
-        monkeypatch.setitem(fn.__kwdefaults__, "compute_dtype",
-                            torch.float32)
 
 
 def test_config_is_copied_field_for_field(fam):

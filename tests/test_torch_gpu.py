@@ -24,7 +24,11 @@ the weights cast first, makes no host sync, and launches 3 times a MoE
 layer a forward, on the TMA kernel.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
-threads.
+threads.  Training: the SSD backward kernel (`ssd_bwd`) against
+autograd through the plain scan (tolerances at `SSD_BWD_GPU_CASES`),
+bit for bit from call to call, behind `ops.ssd`'s autograd; flash
+attention and `ragged_dot` raise under autograd; and one train step of
+the zamba2 smoke model on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -948,3 +952,152 @@ def test_service_with_no_device_maps_on_the_card(cuda):
     out = svc.map(make_cnkm(5, 5), CGRAConfig(), mode="bandmap")
     assert out.ok and out.source == "computed"
     assert LAUNCHES["selection_counts"] > before
+
+
+# ------------------------------------------------------------- training
+# The SSD backward kernel (csrc/ssd_bwd.cu) against autograd through the
+# plain scan on fp32 copies of the same inputs (`ref.ssd_chunked_bwd`,
+# which rounds nothing but its result): fp32 within 1e-5 max |ref|, bf16
+# within half a bf16 ulp of each value (the kernel rounds once) + 1e-5
+# max |ref|, d_a_log within 1e-3 max |ref| (a sum over every step of
+# terms that cancel: chip_smoke.py's `SSD_BWD_DA_TOL`).
+SSD_BWD_GPU_CASES = [(2, 2048, 64, 64, 64, 256), (2, 2048, 80, 64, 128, 256),
+                     (1, 1000, 4, 64, 64, 256), (2, 300, 3, 40, 24, 128),
+                     (1, 200, 3, 18, 10, 64), (1, 130, 2, 130, 12, 100),
+                     (1, 37, 2, 8, 16, 8), (1, 2100, 2, 64, 64, 1024)]
+
+
+def _hold_bwd(got, want, dtype):
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    for name, g, w in zip(("dx", "ddt", "d_a_log", "db", "dc"), got, want):
+        assert g.dtype == (torch.float32 if name == "d_a_log" else dtype)
+        err = (g.float() - w).abs()
+        if name == "d_a_log":
+            assert (err <= 1e-3 * w.abs().max()).all(), name
+        else:
+            assert (err <= rtol * w.abs() + 1e-5 * w.abs().max()).all(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_GPU_CASES, ids=str)
+def test_ssd_bwd_equals_plain_version(cuda, case, with_final, dtype):
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    b, s, h, p, n, chunk = case
+    args = _ssd_case(b, s, h, p, n, dtype, cuda, sum(case))
+    gen = torch.Generator().manual_seed(len(case))
+    dy = torch.randn((b, s, h, p), generator=gen).to(dtype).to(cuda)
+    d_final = torch.randn((b, h, p, n), generator=gen).to(cuda) \
+        if with_final else None
+    before = _route_counts("ssd_bwd")
+    got = ops.ssd_bwd(*args, dy, d_final, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _route_counts("ssd_bwd") == _moved("ssd_bwd", before, dtype)
+    want = ssd_chunked_bwd(*(t.float() for t in args), dy.float(), d_final,
+                           chunk=chunk)
+    _hold_bwd(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_is_deterministic(cuda, dtype):
+    from repro_torch.kernels.ssd import ops
+    args = _ssd_case(2, 1000, 8, 64, 64, dtype, cuda, 3)
+    dy = torch.randn_like(args[0].float()).to(dtype)
+    d_final = torch.randn((2, 8, 64, 64), device=cuda)
+    first = ops.ssd_bwd(*args, dy, d_final, chunk=256)
+    for _ in range(3):
+        again = ops.ssd_bwd(*args, dy, d_final, chunk=256)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_on_the_card_takes_the_backward_kernel(cuda, dtype):
+    """`ops.ssd` under autograd on the card: the forward kernels, then
+    one `ssd_bwd` launch, with the gradients of the plain version; with
+    grad off (serving) no autograd Function is made."""
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    args = _ssd_case(1, 300, 4, 64, 64, dtype, cuda, 5)
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, fin = ops.ssd(*leaves, chunk=128)
+    assert y.grad_fn is not None
+    dy = torch.randn_like(y.float()).to(dtype)
+    before = LAUNCHES["ssd_bwd"]
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert LAUNCHES["ssd_bwd"] == before + 1
+    want = ssd_chunked_bwd(*(t.float() for t in args), dy.float(), None,
+                           chunk=128)
+    _hold_bwd(grads, want, dtype)
+    with torch.no_grad():
+        y, _ = ops.ssd(*leaves, chunk=128)
+    assert y.grad_fn is None
+
+
+def test_flash_and_ragged_dot_raise_under_grad(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    q, k, v = _flash_case(1, 64, 64, 2, 2, 64, torch.bfloat16, cuda, 0)
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q.requires_grad_(), k, v)
+    x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(2, 64, 32, device=cuda, requires_grad=True)
+    offsets = torch.tensor([0, 4, 8], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ragged_dot(x, w, offsets)
+    assert LAUNCHES == before
+    with torch.no_grad():                  # serving: the kernels run
+        flash_attention(q, k, v)
+        ragged_dot(x, w, offsets)
+
+
+def test_zamba2_smoke_train_step_on_the_card_equals_the_cpu(cuda):
+    """One `make_train_step` step of the zamba2 smoke model in fp32
+    compute on the card and on the CPU from the same weights: loss and
+    grad norm within 1e-4, every parameter within 1e-4 max |p| + 1e-6
+    where the clipped gradient is at least 100 eps (and within the
+    first step's reach elsewhere: tests/test_torch_train.py), one
+    `ssd_bwd` launch (fp32 route) per Mamba2 layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW
+    cfg = get_smoke_config("zamba2-1.2b")
+    batch = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                     global_batch=2)).batch(0)
+    saved = (L.dense.__kwdefaults__["compute_dtype"], L.embed.__defaults__,
+             L.unembed.__defaults__)
+    L.dense.__kwdefaults__["compute_dtype"] = torch.float32
+    L.embed.__defaults__ = (torch.float32,)
+    L.unembed.__defaults__ = (torch.float32, torch.float32)
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            model = M.init_params(cfg, 0, device="cpu").to(dev)
+            model.requires_grad_()
+            opt = AdamW(lr=1e-3)
+            state = (model, opt.init(dict(model.named_parameters())),
+                     torch.zeros((), dtype=torch.int32, device=dev))
+            before = dict(LAUNCHES)
+            (model, opt_state, _), metrics = M.make_train_step(cfg, opt)(
+                state, batch)
+            out[str(dev)] = (model, opt_state, metrics, {
+                k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+    finally:
+        (L.dense.__kwdefaults__["compute_dtype"], L.embed.__defaults__,
+         L.unembed.__defaults__) = saved
+    host, card = out["cpu"], out[str(cuda)]
+    assert card[3]["ssd_bwd"] == card[3]["ssd_bwd_fp32"] == cfg.n_layers
+    assert host[3]["ssd_bwd"] == 0
+    for key in ("loss", "grad_norm"):
+        want = float(host[2][key])
+        assert abs(float(card[2][key]) - want) <= 1e-4 * abs(want) + 1e-6
+    host_params = dict(host[0].named_parameters())
+    for name, p in card[0].named_parameters():
+        got, want = p.detach().cpu(), host_params[name].detach()
+        well = (host[1]["mu"][name] / 0.1).abs() >= 100 * 1e-8
+        err = (got - want).abs()
+        assert (err[well] <= 1e-4 * want.abs().max() + 1e-6).all(), name
+        assert (err[~well] <= 2e-3 * (1 + 0.1 * want[~well].abs())).all()

@@ -322,9 +322,9 @@ def test_kv_cache_overflow_raises(ref_cfg, cfg, ref_params, model, where):
 
 def test_unported_parts_raise_not_implemented(cfg):
     """Every family builds and runs, the `encdec` family and vision
-    inputs with M-RoPE included, and every arch's config is ported;
-    training (`loss_fn`, `make_train_step`) and the dry run's
-    `input_specs` raise, naming the ROADMAP item."""
+    inputs with M-RoPE included, and every arch's config is ported; the
+    dry run's `input_specs` raises, naming the ROADMAP item (training is
+    ported: `test_loss_and_train_step_run`)."""
     from repro_torch.configs import ARCHS, input_specs
     dense = T.ModelConfig(name="d", family="dense", n_layers=2, d_model=32,
                           n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
@@ -352,11 +352,40 @@ def test_unported_parts_raise_not_implemented(cfg):
     assert {get_config(arch).name for arch in ARCHS} >= {
         "whisper-tiny", "qwen2-vl-72b"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.loss_fn(cfg, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.make_train_step(cfg, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         input_specs(cfg, "train_4k")
+
+
+def test_loss_and_train_step_run(ref_cfg, cfg, ref_params):
+    """`loss_fn` equals the reference's on the smoke model (bf16, the
+    no-cache forward's tolerance), and `make_train_step` takes a step
+    once the model requires gradients (a frozen model is refused) that
+    updates every parameter and counts the step."""
+    from repro.models import model as RMod
+    from repro_torch.optim import AdamW
+    toks = _tokens(cfg, 2, 33)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want, _ = RMod.loss_fn(ref_cfg, ref_params,
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+    model = convert.from_reference(cfg, jax.tree.map(np.asarray,
+                                                     ref_params),
+                                   device="cpu")
+    got, metrics = M.loss_fn(cfg, model, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    assert abs(float(got) - float(want)) <= LOGIT_TOL
+    assert set(metrics) == {"ce", "aux", "zloss", "ntokens"}
+    opt = AdamW(lr=1e-3)
+    step = M.make_train_step(cfg, opt)
+    state = (model, opt.init(dict(model.named_parameters())),
+             torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="requires_grad_"):
+        step(state, batch)
+    before = [p.detach().clone() for p in model.parameters()]
+    model.requires_grad_()
+    (model, opt_state, n), out = step(state, batch)
+    assert int(n) == 1 and int(opt_state["count"]) == 1
+    assert all(not torch.equal(a, b) for a, b in zip(before,
+                                                     model.parameters()))
+    assert np.isfinite(float(out["loss"])) and float(out["grad_norm"]) > 0
 
 
 def _summary_lines(text: str) -> list[str]:

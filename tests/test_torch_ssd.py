@@ -2,7 +2,9 @@
 (`repro_torch.kernels.ssd.ref`: `ssd_chunked`, `ssd_step`, `segsum`)
 against the reference's on the reference's own cases, a ragged sequence
 and two groups, and against the Pallas kernel in interpret mode; the
-wrapper's dispatch and checks.  Inputs are made with numpy from a seed
+wrapper's dispatch and checks; and the backward (`ref.ssd_chunked_bwd`
+and the backward kernel's stages) against ``jax.vjp`` of the
+reference's scan (tolerances at `BWD_TOL`).  Inputs are made with numpy from a seed
 and handed to both.
 
 Tolerance: 2e-4 absolute plus 1e-5 relative, where the reference's own
@@ -33,6 +35,7 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.ssd import ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import (segsum, ssd_chunked,  # noqa: E402
                                          ssd_step)
+from repro_torch.kernels.ssd.ref import ssd_chunked_bwd as ref_bwd  # noqa: E402
 
 ATOL, RTOL = 2e-4, 1e-5
 
@@ -379,3 +382,210 @@ def test_fp32_passes_match_the_kernel_source():
                                      ("scores", "gate", "state", "inter")}
     assert passes == 3
     assert (smoke.SSD_ATOL, smoke.SSD_RTOL["float32"]) == (1e-4, 1e-5)
+
+
+# ---------------------------------------------------------------- backward
+# The backward: `ref.ssd_chunked_bwd` (autograd through `ssd_chunked`,
+# the plain version of csrc/ssd_bwd.cu) against ``jax.vjp`` of the
+# reference's `ssd_chunked` (what ``jax.grad`` differentiates in
+# training: no kernel of the JAX package has a custom_vjp).  fp32:
+# max |d| <= 1e-5 max |ref| per gradient.  bf16: both sides compute in
+# fp32 and round each gradient to bf16 where their casts sit (per head
+# for b and c, whose head sum the cast's backward takes in bf16), in
+# other sum orders, so a gradient may land a bf16 ulp or two away: 2^-6
+# max |ref| (two ulps of the largest).  d_a_log (float32 for both
+# dtypes) sums dt A rev over every step and batch row, terms that cancel
+# to a result far smaller than they are, so it is held to 1e-5 of the
+# size of its terms, sum |dt ddt| per head (ddt = its direct terms + A
+# rev): at these cases the two packages part by up to 4e-5 of max |ref|
+# but 4e-7 of that size.
+BWD_CASES = [(2, 64, 4, 16, 32, 16, 1), (2, 200, 4, 16, 32, 64, 1),
+             (1, 40, 4, 16, 32, 16, 2), (1, 37, 2, 8, 16, 8, 1),
+             (1, 130, 3, 20, 12, 64, 1)]
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+
+def _bwd_inputs(b, s, h, p, n, g, seed=11):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    d_final = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return _inputs(b, s, h, p, n, g=g, seed=seed), dy, d_final
+
+
+def _jax_vjp(arrays, dy, d_final, chunk, dtype):
+    import jax
+    cast = [jnp.asarray(a, dtype) for a in arrays]
+    cast[2] = jnp.asarray(arrays[2])              # a_log stays fp32
+    (y, fin), vjp = jax.vjp(lambda *a: jax_ssd(*a, chunk=chunk), *cast)
+    df = jnp.zeros_like(fin) if d_final is None else jnp.asarray(d_final)
+    return [np.asarray(g, np.float32)
+            for g in vjp((jnp.asarray(dy, dtype), df))]
+
+
+def _port_inputs(arrays, dtype):
+    out = [torch.from_numpy(a).to(dtype) for a in arrays]
+    out[2] = torch.from_numpy(arrays[2])
+    return out
+
+
+def _hold(got, want, dt, tol, what):
+    """Each gradient within ``tol`` max |ref|; d_a_log within 1e-5 of its
+    terms' size, sum |dt ddt| per head (``dt`` as the inputs hold it)."""
+    terms = np.abs(dt * want[1]).sum(axis=(0, 1))
+    for name, g, w in zip(("dx", "ddt", "d_a_log", "db", "dc"), got, want):
+        err = np.abs(g.float().numpy() - w)
+        if name == "d_a_log":
+            assert (err <= 1e-5 * terms).all(), (what, name, err, terms)
+        else:
+            assert err.max() <= tol * float(np.abs(w).max()), (what, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_backward_matches_jax_vjp(case, with_final, dtype):
+    b, s, h, p, n, chunk, g = case
+    arrays, dy, d_final = _bwd_inputs(b, s, h, p, n, g)
+    d_final = d_final if with_final else None
+    want = _jax_vjp(arrays, dy, d_final, chunk, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    got = ref_bwd(*_port_inputs(arrays, tdt), torch.from_numpy(dy).to(tdt),
+                  None if d_final is None else torch.from_numpy(d_final),
+                  chunk=chunk)
+    for t, a in zip(got, _port_inputs(arrays, tdt)):
+        assert t.dtype == a.dtype and t.shape == a.shape
+    _hold(got, want, _port_inputs(arrays, tdt)[1].float().numpy(),
+          BWD_TOL[dtype], case)
+
+
+def _kernel_stages(x, dt, a_log, b, c, dy, d_final, chunk,
+                   dtype=torch.float32):
+    """The backward kernel's stages (csrc/ssd_bwd.cu) in plain torch,
+    for one group, computed in ``dtype``: cum; the chunk states S and R;
+    the forward scan (the state H before each chunk) and the reverse one
+    (dS); per chunk the gate's products and the state terms; dcum's
+    reverse cumsum."""
+    import torch.nn.functional as F
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t, dims):
+        return F.pad(t.to(dtype), (0, 0) * dims + (0, pad)).reshape(
+            bsz, nc, chunk, *t.shape[2:])
+
+    xx, dyy, dtt = chunks(x, 2), chunks(dy, 2), chunks(dt, 1)
+    bb, cc = chunks(b[:, :, 0], 1), chunks(c[:, :, 0], 1)
+    a = -torch.exp(a_log.to(dtype))
+    cum = torch.cumsum(dtt * a, dim=2)                       # (B,z,L,H)
+    total = cum[:, :, -1]
+    w = torch.exp(total[:, :, None] - cum) * dtt
+    st = torch.einsum("bzjh,bzjhp,bzjn->bzhpn", w, xx, bb)
+    rt = torch.einsum("bzih,bzihp,bzin->bzhpn", torch.exp(cum), dyy, cc)
+    hs, ds = [], [None] * nc
+    carry = torch.zeros(bsz, h, p, n, dtype=dtype)
+    for z in range(nc):
+        hs.append(carry)
+        carry = carry * torch.exp(total[:, z])[..., None, None] + st[:, z]
+    d = torch.zeros_like(carry) if d_final is None else d_final.to(dtype)
+    for z in reversed(range(nc)):
+        ds[z] = d
+        d = d * torch.exp(total[:, z])[..., None, None] + rt[:, z]
+    hs, ds = torch.stack(hs, 1), torch.stack(ds, 1)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    cum_h = cum.movedim(-1, 2)
+    e = torch.where(tril, torch.exp(torch.where(
+        tril, cum_h[..., :, None] - cum_h[..., None, :], 0.0)), 0.0)
+    cb = torch.einsum("bzin,bzjn->bzij", cc, bb)[:, :, None]
+    dxy = torch.einsum("bzihp,bzjhp->bzhij", dyy, xx)
+    dt_j = dtt.movedim(-1, 2)[..., None, :]
+    gate, q = cb * e * dt_j, e * dt_j * dxy
+    wgt = q * cb
+    xds = torch.einsum("bzjhp,bzhpn->bzjhn", xx, ds)
+    dyh = torch.einsum("bzihp,bzhpn->bzihn", dyy, hs)
+    dx = torch.einsum("bzhij,bzihp->bzjhp", gate, dyy) + w[..., None] * \
+        torch.einsum("bzjn,bzhpn->bzjhp", bb, ds)
+    dc = torch.einsum("bzhij,bzjn->bzihn", q, bb) + \
+        torch.exp(cum)[..., None] * dyh
+    db = torch.einsum("bzhij,bzin->bzjhn", q, cc) + w[..., None] * xds
+    sdot = (xds * bb[:, :, :, None]).sum(-1)
+    u = w * sdot
+    v = torch.exp(cum) * (dyh * cc[:, :, :, None]).sum(-1)
+    dcum = wgt.sum(-1).movedim(2, -1) + v - wgt.sum(-2).movedim(2, -1) - u
+    dcum[:, :, -1] += u.sum(2) + torch.exp(total) * (ds * hs).sum((-1, -2))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = (e * cb * dxy).sum(-2).movedim(2, -1) + \
+        torch.exp(total[:, :, None] - cum) * sdot + a * rev
+    d_a_log = a * (dtt * rev).sum((0, 1, 2))
+
+    def rows(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+    return (rows(dx), rows(ddt), d_a_log, rows(db.sum(3))[:, :, None],
+            rows(dc.sum(3))[:, :, None])
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[-1] == 1],
+                         ids=str)
+def test_backward_kernel_stages_match_jax_vjp(case, with_final):
+    """The maths of csrc/ssd_bwd.cu (its stages as plain torch) against
+    the reference's gradients, in fp32."""
+    b, s, h, p, n, chunk, g = case
+    arrays, dy, d_final = _bwd_inputs(b, s, h, p, n, g)
+    d_final = d_final if with_final else None
+    want = _jax_vjp(arrays, dy, d_final, chunk, jnp.float32)
+    got = _kernel_stages(*(torch.from_numpy(a) for a in arrays),
+                         torch.from_numpy(dy),
+                         None if d_final is None else torch.from_numpy(
+                             d_final), chunk)
+    _hold(got, want, arrays[1], BWD_TOL["float32"], case)
+
+
+def test_backward_wrapper_on_cpu_runs_the_plain_version():
+    arrays, dy, d_final = _bwd_inputs(1, 40, 4, 16, 32, 2)
+    args = [torch.from_numpy(a) for a in arrays]
+    before = LAUNCHES["ssd_bwd"]
+    got = ops.ssd_bwd(*args, torch.from_numpy(dy), torch.from_numpy(d_final),
+                      chunk=16)
+    want = ref_bwd(*args, torch.from_numpy(dy), torch.from_numpy(d_final),
+                   chunk=16)
+    assert LAUNCHES["ssd_bwd"] == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # autograd through `ops.ssd` on the CPU is autograd through the plain
+    # version: the same gradients.
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, fin = ops.ssd(*leaves, chunk=16)
+    grads = torch.autograd.grad((y, fin), leaves, (torch.from_numpy(dy),
+                                                   torch.from_numpy(d_final)))
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    with pytest.raises(ValueError, match="dy"):
+        ops.ssd_bwd(*args, torch.from_numpy(dy)[:, :8], chunk=16)
+    with pytest.raises(ValueError, match="d_final"):
+        ops.ssd_bwd(*args, torch.from_numpy(dy),
+                    torch.from_numpy(d_final)[..., :8], chunk=16)
+
+
+def test_plain_backward_fp32_error_against_float64():
+    """The accuracy of the plain backward itself, the yardstick of the
+    kernel: in fp32 against a float64 evaluation of the kernel's stages
+    (held to ``jax.vjp`` above), at a chunk of 256 over four chunks with
+    a final-state gradient.  dx, ddt, db and dc sit within 2e-5 max
+    |ref|; d_a_log, a sum over every step of terms that cancel, reaches
+    ~1e-4 (8.1e-5 here), which is why the card holds the kernel's
+    d_a_log at 1e-3 max |ref| (chip_smoke.py's `SSD_BWD_DA_TOL`) and the
+    other gradients at 1e-5."""
+    arrays, dy, d_final = _bwd_inputs(1, 1024, 4, 32, 32, 1)
+    args = [torch.from_numpy(a) for a in arrays]
+    truth = _kernel_stages(*args, torch.from_numpy(dy),
+                           torch.from_numpy(d_final), 256,
+                           dtype=torch.float64)
+    plain = ref_bwd(*args, torch.from_numpy(dy), torch.from_numpy(d_final),
+                    chunk=256)
+    rel = {name: float((p.double() - t).abs().max() / t.abs().max())
+           for name, p, t in zip(("dx", "ddt", "d_a_log", "db", "dc"),
+                                 plain, truth)}
+    print(rel)
+    assert max(v for k, v in rel.items() if k != "d_a_log") <= 2e-5
+    assert rel["d_a_log"] <= 1e-3
+
