@@ -214,8 +214,11 @@ each printed as one JSON line:
    (each Mamba2 layer's forward and its recomputation under the
    per-block activation checkpoint), flash never.  Each run: tokens/s,
    the step wall, peak device memory, the card's `nvidia-smi` name and
-   power limit.  Then a train step at S = 8192 on lm100m cut to 2
-   layers must raise `NotImplementedError` at flash attention (no
+   power limit; zamba2's last step runs under `torch.profiler` (untimed):
+   its top kernels and the shares of `ssd_bwd`, the SSD forward, the
+   GEMMs, the optimizer and the elementwise kernels
+   (`TRAIN_PROFILE_SHARES`).  Then a train step at S = 8192 on lm100m
+   cut to 2 layers must raise `NotImplementedError` at flash attention (no
    backward kernel yet) with nothing launched.  The first `ssd_bwd`
    call of zamba2's run is captured for phase 25.
 25. ssd-bwd-vs-plain: the SSD backward kernel (`ssd_bwd`) against
@@ -224,9 +227,12 @@ each printed as one JSON line:
    training shape (2, 2048, 64, 64), N = 64, chunk 256, with no d_final
    and with one; mamba2's (2, 2048, 80, 64), N = 128; S off the chunk;
    P = 130 and N = 12; chunk 1024), each in bf16 and fp32, within
-   `SSD_BWD_TOL`; two calls give the same bits.  At zamba2's and
-   mamba2's shapes the kernel's ms, the plain version's and the bound
-   (`ssd_bwd_bound`).
+   `SSD_BWD_TOL`; two calls give the same bits.  bf16 runs
+   `ssd_bwd_tc.cu` (tensor cores), fp32 `ssd_bwd.cu` (CUDA cores).  At
+   zamba2's and mamba2's shapes the kernel's ms, its stages' device
+   times, PR 25's times (`SSD_BWD_EARLIER_MS`, quoted), the plain
+   version's and the bound (`ssd_bwd_bound`, with its count before the
+   head fold beside it).
 26. train-card-vs-cpu: zamba2 at published widths cut to 6 layers (one
    shared-attention invocation), fp32 compute, one `train_step` at
    (1, 512) on the card and on the host from the same weights: loss,
@@ -526,6 +532,21 @@ SSD_BWD_CASES = [("zamba2 train step", "captured", False),
 SSD_BWD_TOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 SSD_BWD_ATOL = 1e-5
 SSD_BWD_DA_TOL = 1e-3
+# ssd-bwd-vs-plain's times before the bf16 route's tensor-core redesign:
+# PR 25's ssd_bwd.cu, both dtypes on the CUDA cores (PERF.md section 6,
+# chip run 1, PR 25).  Quoted in the phase's rows, never measured here,
+# so the kernels line leaves them out.
+SSD_BWD_EARLIER_MS = {"bfloat16": {"zamba2": 3.281, "mamba2": 8.353},
+                      "float32": {"zamba2": 3.277, "mamba2": 8.373}}
+# The profiled zamba2 training step (train): each label's kernels by
+# name, for their share of the step's device time.
+TRAIN_PROFILE_SHARES = {
+    "ssd_bwd": ("ssd_bwd_",),
+    "ssd forward": ("ssd_states", "ssd_scan", "ssd_out"),
+    "gemm": ("gemm", "nvjet", "cutlass", "xmma"),
+    "optimizer foreach": ("multi_tensor_apply",),
+    "elementwise": ("elementwise_kernel", "vectorized_"),
+    "reduce": ("reduce_kernel",)}
 
 
 def emit(obj: dict) -> None:
@@ -552,14 +573,17 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_profile(fn, calls: int | None = None) -> dict:
+def device_profile(fn, calls: int | None = None, top: int = 6,
+                   shares: dict | None = None) -> dict:
     """Run ``fn()`` under `torch.profiler` and return the device time it
-    took (ms) with the kernels that took most of it.  Where the profiler
-    records no device activity, the device time is None (not measured).
-    With ``calls`` (``fn`` makes that many calls of one function), the
-    device time is a call's: each kernel's mean time times its launches
-    a call, so that the event a session can drop (the first, in some
-    sessions of this script) does not count as a call's worth of nothing."""
+    took (ms) with the ``top`` kernels that took most of it.  Where the
+    profiler records no device activity, the device time is None (not
+    measured).  With ``calls`` (``fn`` makes that many calls of one
+    function), the device time is a call's: each kernel's mean time times
+    its launches a call, so that the event a session can drop (the first,
+    in some sessions of this script) does not count as a call's worth of
+    nothing.  ``shares`` (label -> substrings of kernel names) adds each
+    label's device ms (``shares_ms``) and its share of the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -575,9 +599,16 @@ def device_profile(fn, calls: int | None = None) -> dict:
     if calls:
         total = sum(ms / count * max(1, round(count / calls))
                     for _, ms, count in kernels)
-    return dict(device_ms=total if kernels else None,
-                top=[dict(kernel=name[:80], ms=ms, count=count)
-                     for name, ms, count in kernels[:6]])
+    out = dict(device_ms=total if kernels else None,
+               top=[dict(kernel=name[:80], ms=ms, count=count)
+                    for name, ms, count in kernels[:top]])
+    if shares:
+        out["shares_ms"] = {label: sum(ms for name, ms, _ in kernels
+                                       if any(k in name for k in keys))
+                            for label, keys in shares.items()}
+        out["shares"] = {label: ms / total if total else None
+                         for label, ms in out["shares_ms"].items()}
+    return out
 
 
 def conflict_graph(dfg, cgra, mode: str):
@@ -2364,13 +2395,22 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
     capture = None
     make_step = M.make_train_step
     step_s: list[float] = []
+    profile_at: list = [None]   # the step to profile (not timed), or None
+    profiles: list = []
 
     def timed_make_step(cfg, optimizer):
         """`make_train_step`'s step, with the device-synced wall of each
-        call kept in ``step_s``."""
+        call kept in ``step_s``; the step at ``profile_at`` runs once
+        under `device_profile` instead, untimed."""
         step = make_step(cfg, optimizer)
 
         def run(state, batch):
+            if len(step_s) == profile_at[0] and not profiles:
+                box = {}
+                profiles.append(device_profile(
+                    lambda: box.update(out=step(state, batch)), top=10,
+                    shares=TRAIN_PROFILE_SHARES))
+                return box["out"]
             t0 = time.perf_counter()
             out = step(state, batch)
             torch.cuda.synchronize()
@@ -2386,6 +2426,10 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
         torch.cuda.reset_peak_memory_stats()
         cap = Capture(ssd_ops, "ssd_bwd")
         step_s.clear()
+        profiles.clear()
+        # zamba2's last step is profiled: no timed step follows it.
+        profile_at[0] = int(argv[argv.index("--steps") + 1]) - 1 \
+            if arch == LLM_ARCH else None
         reset_launches()
         t0 = time.perf_counter()
         M.make_train_step = timed_make_step
@@ -2408,9 +2452,9 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
         batch = int(argv[argv.index("--batch") + 1])
         seq = int(argv[argv.index("--seq") + 1])
         losses = [h["loss"] for h in history]
-        # The step's own wall (after the first step, which warms up),
-        # and the loop's, which adds the data, the host reads of the
-        # metrics and the checkpoints.
+        # The step's own wall (after the first step, which warms up, and
+        # without the profiled one), and the loop's, which adds the data,
+        # the host reads of the metrics, the checkpoints and the profile.
         step_wall = float(np.median(step_s[1:] if len(step_s) > 1
                                     else step_s))
         runs[arch] = dict(
@@ -2422,6 +2466,7 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
             peak_mem_bytes=torch.cuda.max_memory_allocated(),
             first_loss=losses[0], last_loss=losses[-1],
             losses=losses, checkpoints_kept=kept, launches=launches,
+            profile=profiles[0] if profiles else None,
             lines=[ln for ln in lines if ln.startswith(("training", "step",
                                                         "done"))])
         check(all(map(np.isfinite, losses)), f"{arch}: a loss is not finite")
@@ -2546,31 +2591,36 @@ def train_card_vs_cpu(dev) -> dict:
 
 def ssd_bwd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
     """The least time of the backward.  Per chunk of l real steps: the
-    scores C B^T (l (l + 1) N, shared by the heads of the one group),
-    and per head dy x^T and the gate's product with dy (l (l + 1) P
-    each), its products with B and C (l (l + 1) N each), and five
-    (P x l)(l x N) products (the chunk states S and R, and the state
-    terms of dx, dB and dC: 2 l P N each), each once.  bf16 inputs at
-    the bf16 tensor-core rate; fp32 at the TF32 rate three times (the
-    split-TF32 passes the forward's fp32 tolerances need), with the CUDA
-    cores' rate as `fp32_rate_bound_ms` beside it.  The larger of that
-    time and the bytes' binds."""
-    flop = 0
+    scores C B^T and the products of the heads' summed Q with B and C
+    (l (l + 1) N each, once a chunk: one group shares B and C, so dB_j =
+    sum_i (sum_h Q^h_ij) C_i and dC_i likewise), and per head dy x^T and
+    the gate's product with dy (l (l + 1) P each) and five (P x l)(l x
+    N) products (the chunk states S and R, and the state terms of dx, dB
+    and dC: 2 l P N each), each once.  ``flop_per_head_bc`` is the count
+    before the head fold (Q times B and C per head, PR 25's bound) and
+    ``bound_per_head_bc_ms`` its bound.  bf16 inputs at the bf16
+    tensor-core rate; fp32 at the TF32 rate three times (the split-TF32
+    passes the forward's fp32 tolerances need), with the CUDA cores'
+    rate as `fp32_rate_bound_ms` beside it.  The larger of that time and
+    the bytes' binds."""
+    flop = per_head = 0
     for t0 in range(0, s, chunk):
         ln = min(chunk, s - t0)
-        flop += b * (ln * (ln + 1) * n + h * (
-            2 * ln * (ln + 1) * (p + n) + 10 * ln * p * n))
+        pairs, states = ln * (ln + 1), 10 * ln * p * n
+        flop += b * (3 * pairs * n + h * (2 * pairs * p + states))
+        per_head += b * (pairs * n + h * (2 * pairs * (p + n) + states))
     t_bytes = nbytes / PEAK_BYTES_S
+    rate, passes = (PEAK_TF32_S, 3) if fp32 else (PEAK_BF16_S, 1)
+    t_ops, t_old = (passes * f / rate for f in (flop, per_head))
     extra = {}
     if fp32:
-        t_ops = 3 * flop / PEAK_TF32_S
         extra = dict(fp32_rate_bound_ms=1e3 * max(flop / PEAK_OPS_S,
                                                    t_bytes))
-    else:
-        t_ops = flop / PEAK_BF16_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flop=flop, bytes=nbytes, **extra)
+                flop=flop, flop_per_head_bc=per_head,
+                bound_per_head_bc_ms=1e3 * max(t_old, t_bytes),
+                bytes=nbytes, **extra)
 
 
 def ssd_bwd_vs_plain(dev, capture) -> dict:
@@ -2633,14 +2683,23 @@ def ssd_bwd_vs_plain(dev, capture) -> dict:
                 nbytes = sum(t.numel() * t.element_size() for t in args) + \
                     sum(t.numel() * t.element_size() for t in got) + (
                         d_final.numel() * 4 if with_final else 0)
+                arch = "mamba2" if label.startswith("mamba2") else "zamba2"
                 row.update(
                     ms=cuda_ms(lambda: ssd_ops.ssd_bwd(
                         *args, d_final, chunk=chunk), 10),
+                    earlier_ms=SSD_BWD_EARLIER_MS[name][arch],
+                    earlier_from="PR 25's ssd_bwd.cu (CUDA cores), quoted "
+                                 "from PERF.md section 6, not measured in "
+                                 "this run",
                     plain_ms=cuda_ms(lambda: ssd_chunked_bwd(
                         *args, d_final, chunk=chunk), 3),
                     library_ms=None,
                     **ssd_bwd_bound(bsz, s, h, p, n, chunk, nbytes,
                                     fp32=dtype == torch.float32))
+                row["stages"] = device_profile(   # each stage's, a call
+                        lambda: [ssd_ops.ssd_bwd(*args, d_final,
+                                                 chunk=chunk)
+                                 for _ in range(5)], calls=5, top=8)
             rows.append(row)
             check(same, f"ssd_bwd {label} {name}: two calls differ")
             check(ok, f"ssd_bwd {label} {name}: outside the tolerance "
@@ -3422,7 +3481,8 @@ def main() -> int:
                                shape=[r["m"], r["k"], r["n"], r["groups"]])
                           for r in moe["ragged"]]),
         dict(name="ssd_bwd", route="cuda",
-             source="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_bwd_tc.cu",
+             source_fp32="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:80 (ssd_pallas has "
                       "no custom_vjp: the reference's jax.grad "
                       "differentiates ref.py:35 ssd_chunked)",
@@ -3433,13 +3493,14 @@ def main() -> int:
              max_abs_err=max(bwd_main["max_abs_err"].values()),
              ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
              bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
+             bound_per_head_bc_ms=bwd_main["bound_per_head_bc_ms"],
              library_ms=None,
              shape=f"{tuple(bwd_main['shape'])} N={bwd_main['n']} "
                    f"chunk={bwd_main['chunk']} bf16 ({LLM_ARCH} train "
                    f"step)",
              fp32={key: bwd32[key] for key in (
                  "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                 "fp32_rate_bound_ms")},
+                 "bound_per_head_bc_ms", "fp32_rate_bound_ms")},
              path_shapes=[{k: r[k] for k in (
                  "case", "dtype", "shape", "n", "chunk", "ms", "plain_ms",
                  "bound_ms", "bound_by", "max_abs_err")}

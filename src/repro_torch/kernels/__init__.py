@@ -37,11 +37,18 @@ and ``ops.py`` (the checked wrapper):
                     the tensor cores: bf16 to ``ssd_tc.cu`` (mma.sync,
                     split-bf16 operands), fp32 to ``ssd.cu`` (split-TF32
                     operands, 3xTF32; mma.sync, and wgmma for the last
-                    stage up to N = 64); and ``ssd_bwd``, its backward
-                    (``ssd_bwd.cu``, fp32 on the CUDA cores), behind
-                    ``ssd``'s autograd on the card — the training path's
-                    (no TPU kernel: the reference differentiates the
-                    plain scan)
+                    stage up to N = 64); and ``ssd_bwd``, its backward,
+                    behind ``ssd``'s autograd on the card — the training
+                    path's (no TPU kernel: the reference differentiates
+                    the plain scan): bf16 to ``ssd_bwd_tc.cu`` (five
+                    kernels, mma.sync, split-bf16 operands, dB and dC
+                    summed over head groups before their products),
+                    fp32 to ``ssd_bwd.cu`` (the CUDA cores).  CPU tests
+                    hold a plain-torch model of the bf16 design to
+                    ``jax.vjp`` (``tests/test_torch_ssd.py``); the card
+                    tests (``-m gpu tests/test_torch_gpu.py -k
+                    ssd_bwd``) hold both routes to autograd through
+                    the plain scan
 - ragged_dot/       ``ragged_dot``: the grouped matrix product of the
                     MoE FFN (rows sorted by expert, each expert's rows
                     times its own weights), with the group offsets read

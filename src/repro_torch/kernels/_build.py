@@ -33,6 +33,7 @@ SOURCES = {
     "ssd": ("ssd/csrc/ssd.cu",),
     "ssd_tc": ("ssd/csrc/ssd_tc.cu",),
     "ssd_bwd": ("ssd/csrc/ssd_bwd.cu",),
+    "ssd_bwd_tc": ("ssd/csrc/ssd_bwd_tc.cu",),
     "ragged_dot": ("ragged_dot/csrc/ragged_dot.cu",),
 }
 

@@ -1,6 +1,8 @@
 // The backward of the Mamba2 SSD chunked scan (one group): the gradients
 // of y and the final state with respect to x, dt, a_log, B and C, on the
-// CUDA cores in fp32, for bf16 or fp32 inputs.
+// CUDA cores in fp32, for fp32 inputs.  bf16 inputs take ssd_bwd_tc.cu,
+// the tensor-core design; this file's bf16 instantiation, which only
+// they reached, is gone.
 //
 // The JAX package has no backward kernel: jax.grad differentiates the
 // plain ref.ssd_chunked (repro/kernels/ssd/ref.py), and ssd_pallas
@@ -61,14 +63,12 @@
 // dy, B and C (l^2 (P + 2N) / 2 each), and four (P x l)(l x N) products
 // per head: at zamba2's training shape (2, 2048, 64, 64), N = 64, L =
 // 256 about 6e10 FLOP, so on the CUDA cores (67e12 FLOP/s fp32) the
-// operations bind, not the ~150 MB of bf16 in and out.  This first
-// design keeps every product on the CUDA cores; the tensor-core redesign
-// is ROADMAP Queue 2 work.
+// operations bind.  Every product stays on the CUDA cores; the bf16
+// route's redesign for the tensor cores is ssd_bwd_tc.cu.
 //
 // The launcher is a plain C function (no PyTorch headers) that returns
 // cudaGetLastError, so a refused launch is reported.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -81,13 +81,7 @@ constexpr int kK = 32;          // steps a slice of stage 1
 constexpr int kThreads = 256;   // 16 x 16 threads, each 4 rows by 4+ cols
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 // The real steps of a chunk that starts at step t0.
 __device__ __forceinline__ int steps_in(int s, int64_t t0, int chunk) {
   return s - t0 < chunk ? static_cast<int>(s - t0) : chunk;
@@ -726,27 +720,22 @@ int dispatch(const void* x, const void* dt, const void* a_log, const void* b,
 
 }  // namespace
 
-// x, dt, b, c, dy in one type (bf16 when bf16 != 0, else fp32); a_log and
-// d_final (may be null) fp32.  Outputs dx, ddt, db, dc in the inputs'
-// type and d_a_log fp32.  Scratch (fp32): cum (B, nC, H, L), the four
-// per-position sums sc (4, B, nC, H, L), hst and dst (B, nC, H, P, N),
-// dbp and dcp (B, S, H, N), dap (B, nC, H).
+// x, dt, b, c, dy fp32, a_log and d_final (may be null) fp32.  Outputs
+// dx, ddt, db, dc and d_a_log fp32.  Scratch (fp32): cum (B, nC, H, L),
+// the four per-position sums sc (4, B, nC, H, L), hst and dst (B, nC, H,
+// P, N), dbp and dcp (B, S, H, N), dap (B, nC, H).
 extern "C" int ssd_bwd_launch(const void* x, const void* dt,
                               const void* a_log, const void* b, const void* c,
                               const void* dy, const void* dfin, void* dx,
                               void* ddt, void* da, void* db, void* dc,
                               void* cum, void* hst, void* dst_, void* dbp,
                               void* dcp, void* sc, void* dap, int bsz, int s,
-                              int h, int p, int n, int chunk, int bf16,
-                              void* stream) {
+                              int h, int p, int n, int chunk, void* stream) {
   if (bsz <= 0 || h <= 0 || p <= 0 || s <= 0) return 0;
   if (n <= 0 || n > 128 || chunk <= 0 || chunk > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(x, dt, a_log, b, c, dy, dfin, dx, ddt,
-                                        da, db, dc, cum, hst, dst_, dbp, dcp,
-                                        sc, dap, bsz, s, h, p, n, chunk, stm)
-              : dispatch<float>(x, dt, a_log, b, c, dy, dfin, dx, ddt, da, db,
-                                dc, cum, hst, dst_, dbp, dcp, sc, dap, bsz, s,
-                                h, p, n, chunk, stm);
+  return dispatch<float>(x, dt, a_log, b, c, dy, dfin, dx, ddt, da, db, dc,
+                         cum, hst, dst_, dbp, dcp, sc, dap, bsz, s, h, p, n,
+                         chunk, stm);
 }

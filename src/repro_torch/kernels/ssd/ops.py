@@ -16,9 +16,12 @@ route it took, ``LAUNCHES["ssd_bf16"]`` or ``LAUNCHES["ssd_fp32"]``.
 
 Under autograd (grad enabled and an input requiring it) a CUDA call is
 a `torch.autograd.Function`: the forward kernels above, and for the
-backward `ssd_bwd`, the hand-written kernel of ``csrc/ssd_bwd.cu`` (fp32
-arithmetic on the CUDA cores for bf16 or fp32 inputs, one group, N <=
-128, chunks <= 1024, S off a multiple of the chunk).  `ssd_bwd` on CPU
+backward `ssd_bwd`, hand-written kernels chosen by dtype (one group, N
+<= 128, chunks <= 1024, S off a multiple of the chunk): bfloat16 to
+``csrc/ssd_bwd_tc.cu`` (five kernels, the products on the bf16 tensor
+cores with each fp32 operand in two bf16 terms, dB and dC summed over
+groups of heads before their products), float32 to ``csrc/ssd_bwd.cu``
+(fp32 arithmetic on the CUDA cores).  `ssd_bwd` on CPU
 tensors is the plain version, `ref.ssd_chunked_bwd` (autograd through
 `ref.ssd_chunked`), which is also how a CPU call of `ssd` is
 differentiated.  Every backward launch adds one to
@@ -38,7 +41,11 @@ from .ref import ssd_chunked, ssd_chunked_bwd
 
 _NAME = "ssd"
 _TC = "ssd_tc"     # the bf16 stages' library
-_BWD = "ssd_bwd"   # the backward kernel's library
+_BWD = "ssd_bwd"   # the fp32 backward's library
+_BWD_TC = "ssd_bwd_tc"   # the bf16 backward's library
+# ssd_bwd_tc.cu's kGroup (heads whose dB and dC one block sums) and
+# kTermsH, kTermsDS (bf16 terms of the states H and dS it reads).
+_TC_GROUP, _TC_TERMS_H, _TC_TERMS_DS = 8, 2, 2
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -171,10 +178,15 @@ class _SSD(torch.autograd.Function):
         return (*grads, None)
 
 
-def _bwd_launcher():
-    fn = load(_BWD).ssd_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+def _bwd_launcher(bf16: bool):
+    if bf16:
+        fn = load(_BWD_TC).ssd_bwd_tc_launch
+        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+    else:
+        fn = load(_BWD).ssd_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,8 +195,8 @@ def ssd_bwd(x, dt, a_log, b, c, dy, d_final=None, *, chunk: int = 64):
     """The gradients of `ssd`'s (y, final state) on x, dt, a_log, b and c
     given ``dy`` (x's shape) and ``d_final`` ((B, H, P, N), or None for
     zero): (dx, ddt, d_a_log, db, dc), each in its input's type.  CPU
-    tensors take `ref.ssd_chunked_bwd`; CUDA tensors the backward kernel,
-    or the call raises."""
+    tensors take `ref.ssd_chunked_bwd`; CUDA tensors the backward kernels
+    of their dtype, or the call raises."""
     _check(x, dt, a_log, b, c)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, not {chunk}")
@@ -212,28 +224,50 @@ def ssd_bwd(x, dt, a_log, b, c, dy, d_final=None, *, chunk: int = 64):
     if x.numel() == 0:
         return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
     nc = -(-s // chunk)
-    # Scratch: cum, the four per-position sums, the state before each
-    # chunk and dS (written over the two chunk products), the per-head
-    # dB and dC, and each chunk's part of d_a_log.
+    bf16 = x.dtype == torch.bfloat16
     cum = torch.empty((bsz, nc, h, chunk), **f32)
     sc = torch.empty((4, bsz, nc, h, chunk), **f32)
-    hst = torch.empty((bsz, nc, h, p, n), **f32)
-    dst = torch.empty_like(hst)
-    dbp = torch.empty((bsz, s, h, n), **f32)
-    dcp = torch.empty_like(dbp)
     dap = torch.empty((bsz, nc, h), **f32)
-    bf16 = x.dtype == torch.bfloat16
-    ptrs = [t.data_ptr() for t in (x, dt, a_log, b, c, dy)] + [
-        0 if d_final is None else d_final.data_ptr()] + [
-        t.data_ptr() for t in (dx, ddt, da, db, dc, cum, hst, dst, dbp, dcp,
-                               sc, dap)]
+    head = [x, dt, a_log, b, c, dy, d_final, dx, ddt, da, db, dc]
+    if bf16:
+        # Scratch: cum and dt in fp32; the chunk states S and R (dS is
+        # written over R);
+        # H and dS as bf16 terms; each warp's part of <dS, H>; the four
+        # per-position sums; dB and dC per group of heads; each chunk's
+        # part of d_a_log; a counter per head.
+        ng = -(-h // _TC_GROUP)
+        nw = 8 * -(-(p * n) // 256)
+        sr = torch.empty((2, bsz, nc, h, p, n), **f32)
+        planes = torch.empty((_TC_TERMS_H + _TC_TERMS_DS, bsz, nc, h, p, n),
+                             dtype=x.dtype, device=dev)
+        dhp = torch.empty((bsz * h, nc, nw), **f32)
+        dbp = torch.empty((bsz, s, ng, n), **f32)
+        dcp = torch.empty_like(dbp)
+        cnt = torch.empty((h,), dtype=torch.int32, device=dev)
+        scratch = [cum, torch.empty_like(cum), sr, planes[:_TC_TERMS_H],
+                   planes[_TC_TERMS_H:], dhp, sc, dbp, dcp, dap, cnt]
+    else:
+        # Scratch: cum, the four per-position sums, the state before each
+        # chunk and dS (written over the two chunk products), the per-head
+        # dB and dC, and each chunk's part of d_a_log.
+        hst = torch.empty((bsz, nc, h, p, n), **f32)
+        dbp = torch.empty((bsz, s, h, n), **f32)
+        scratch = [cum, hst, torch.empty_like(hst), dbp,
+                   torch.empty_like(dbp), sc, dap]
+    ptrs = [0 if t is None else t.data_ptr() for t in head + scratch]
+    args = [bsz, s, h, p, n, chunk]
+    if bf16:
+        # cp.async moves 16 bytes: P and N multiples of 8 from 16-byte
+        # aligned bases; otherwise plain loads.
+        args.append(int(p % 8 == 0 and n % 8 == 0 and
+                        all(q % 16 == 0 for q in ptrs if q)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_launcher()(*ptrs, bsz, s, h, p, n, chunk, int(bf16),
-                              stream)
+        err = _bwd_launcher(bf16)(*ptrs, *args, stream)
     route = "bf16" if bf16 else "fp32"
     if err != 0:
-        raise RuntimeError(f"{_BWD} ({route}) launch failed: CUDA error "
+        name = _BWD_TC if bf16 else _BWD
+        raise RuntimeError(f"{name} ({route}) launch failed: CUDA error "
                            f"{err}")
     count_launch(_BWD, route)
     return dx, ddt, da, db, dc

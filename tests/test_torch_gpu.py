@@ -24,9 +24,11 @@ the weights cast first, makes no host sync, and launches 3 times a MoE
 layer a forward, on the TMA kernel.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
-threads.  Training: the SSD backward kernel (`ssd_bwd`) against
-autograd through the plain scan (tolerances at `SSD_BWD_GPU_CASES`),
-bit for bit from call to call, behind `ops.ssd`'s autograd; flash
+threads.  Training: the SSD backward kernels (`ssd_bwd`: bf16 on the
+tensor cores, `csrc/ssd_bwd_tc.cu`; fp32 on the CUDA cores,
+`csrc/ssd_bwd.cu`) against autograd through the plain scan (tolerances
+at `SSD_BWD_GPU_CASES`), bit for bit from call to call, each dtype on
+its own library, behind `ops.ssd`'s autograd; flash
 attention and `ragged_dot` raise under autograd; and one train step of
 the zamba2 smoke model on the card against the CPU.
 """
@@ -955,16 +957,22 @@ def test_service_with_no_device_maps_on_the_card(cuda):
 
 
 # ------------------------------------------------------------- training
-# The SSD backward kernel (csrc/ssd_bwd.cu) against autograd through the
-# plain scan on fp32 copies of the same inputs (`ref.ssd_chunked_bwd`,
-# which rounds nothing but its result): fp32 within 1e-5 max |ref|, bf16
+# The SSD backward kernels (bf16: csrc/ssd_bwd_tc.cu, fp32:
+# csrc/ssd_bwd.cu) against autograd through the plain scan on fp32
+# copies of the same inputs (`ref.ssd_chunked_bwd`, which rounds nothing
+# but its result): fp32 within 1e-5 max |ref|, bf16
 # within half a bf16 ulp of each value (the kernel rounds once) + 1e-5
 # max |ref|, d_a_log within 1e-3 max |ref| (a sum over every step of
 # terms that cancel: chip_smoke.py's `SSD_BWD_DA_TOL`).
 SSD_BWD_GPU_CASES = [(2, 2048, 64, 64, 64, 256), (2, 2048, 80, 64, 128, 256),
                      (1, 1000, 4, 64, 64, 256), (2, 300, 3, 40, 24, 128),
                      (1, 200, 3, 18, 10, 64), (1, 130, 2, 130, 12, 100),
-                     (1, 37, 2, 8, 16, 8), (1, 2100, 2, 64, 64, 1024)]
+                     (1, 37, 2, 8, 16, 8), (1, 2100, 2, 64, 64, 1024),
+                     # the bf16 route's head groups of 8: 8 + 4 heads, and
+                     # 8 + 8 + 1 with P = 24, N = 40
+                     (1, 300, 12, 64, 64, 128), (2, 130, 17, 24, 40, 32),
+                     # S under one chunk (a short training sequence)
+                     (2, 100, 4, 64, 64, 256)]
 
 
 def _hold_bwd(got, want, dtype):
@@ -1009,6 +1017,26 @@ def test_ssd_bwd_is_deterministic(cuda, dtype):
     for _ in range(3):
         again = ops.ssd_bwd(*args, dy, d_final, chunk=256)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_takes_its_dtypes_library(cuda, dtype, monkeypatch):
+    """A bf16 call builds and launches the tensor-core library
+    (``ssd_bwd_tc``) and not the CUDA-core one; an fp32 call the CUDA-core
+    library (``ssd_bwd``): the libraries the call loads, and its route's
+    launch count."""
+    from repro_torch.kernels.ssd import ops
+    loaded = []
+    real = ops.load
+    monkeypatch.setattr(ops, "load",
+                        lambda name: loaded.append(name) or real(name))
+    args = _ssd_case(1, 300, 12, 64, 64, dtype, cuda, 9)
+    dy = torch.randn_like(args[0].float()).to(dtype)
+    before = _route_counts("ssd_bwd")
+    ops.ssd_bwd(*args, dy, chunk=128)
+    torch.cuda.synchronize()
+    assert _route_counts("ssd_bwd") == _moved("ssd_bwd", before, dtype)
+    assert loaded == ["ssd_bwd_tc" if dtype == torch.bfloat16 else "ssd_bwd"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -589,3 +589,178 @@ def test_plain_backward_fp32_error_against_float64():
     assert max(v for k, v in rel.items() if k != "d_a_log") <= 2e-5
     assert rel["d_a_log"] <= 1e-3
 
+
+
+# ---- the bf16 backward's tensor-core design (csrc/ssd_bwd_tc.cu)
+# bf16 terms of each fp32 operand the kernel splits: the weighted B in
+# the chunk states S ("s"), the weighted C in R ("r"), the states H
+# ("h") and dS ("ds") in the state terms, the group's summed Q in dB and
+# dC ("q"), the gate G in dx ("g").  C B^T and dy x^T have bf16
+# operands and take one pass.
+TC_BWD_TERMS = {"s": 2, "r": 2, "h": 2, "ds": 2, "q": 2, "g": 2}
+TC_BWD_GROUP = 8    # heads whose Q one block sums before its products
+# The one-group BWD_CASES (the kernel takes one group), and two with H >=
+# 8 so that the fold sums 8 heads (and 8 + 4 at H = 12).
+TC_BWD_CASES = [c for c in BWD_CASES if c[-1] == 1] + [
+    (1, 256, 8, 32, 32, 64, 1), (2, 300, 12, 16, 32, 128, 1)]
+# Where one term fewer shows: zamba2's chunk and widths at 12 heads.
+TC_BWD_WIDE = (1, 512, 12, 64, 64, 256, 1)
+
+
+def _tc_bwd_model(x, dt, a_log, b, c, dy, d_final, chunk, terms=None,
+                  group=TC_BWD_GROUP):
+    """csrc/ssd_bwd_tc.cu's decomposition in plain torch (fp32): the
+    stages of `_kernel_stages` with each fp32 operand of a product split
+    into its bf16 terms (`_split`, counts `TC_BWD_TERMS` updated by
+    ``terms``), dB's and dC's products taken once per group of ``group``
+    heads on the group's summed Q, and their state terms formed per head
+    as x dS and dy H, scaled per row afterwards.  Returns (dx, ddt,
+    d_a_log, db, dc) in fp32."""
+    import torch.nn.functional as F
+    terms = dict(TC_BWD_TERMS, **(terms or {}))
+
+    def split(v, name):
+        return sum(_split(v, terms[name]))
+
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t, dims):
+        return F.pad(t.float(), (0, 0) * dims + (0, pad)).reshape(
+            bsz, nc, chunk, *t.shape[2:])
+
+    xx, dyy, dtt = chunks(x, 2), chunks(dy, 2), chunks(dt, 1)
+    bb, cc = chunks(b[:, :, 0], 1), chunks(c[:, :, 0], 1)
+    a = -torch.exp(a_log.float())
+    cum = torch.cumsum(dtt * a, dim=2)                       # (B,z,L,H)
+    total = cum[:, :, -1]
+    w = torch.exp(total[:, :, None] - cum) * dtt
+    ecum = torch.exp(cum)
+    st = torch.einsum("bzjhp,bzjhn->bzhpn", xx,
+                      split(w[..., None] * bb[:, :, :, None], "s"))
+    rt = torch.einsum("bzihp,bzihn->bzhpn", dyy,
+                      split(ecum[..., None] * cc[:, :, :, None], "r"))
+    hs, ds = [], [None] * nc
+    carry = torch.zeros(bsz, h, p, n)
+    for z in range(nc):
+        hs.append(carry)
+        carry = carry * torch.exp(total[:, z])[..., None, None] + st[:, z]
+    d = torch.zeros_like(carry) if d_final is None else d_final.float()
+    for z in reversed(range(nc)):
+        ds[z] = d
+        d = d * torch.exp(total[:, z])[..., None, None] + rt[:, z]
+    hs, ds = torch.stack(hs, 1), torch.stack(ds, 1)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    cum_h = cum.movedim(-1, 2)
+    e = torch.where(tril, torch.exp(torch.where(
+        tril, cum_h[..., :, None] - cum_h[..., None, :], 0.0)), 0.0)
+    cb = torch.einsum("bzin,bzjn->bzij", cc, bb)[:, :, None]
+    dxy = torch.einsum("bzihp,bzjhp->bzhij", dyy, xx)
+    dt_j = dtt.movedim(-1, 2)[..., None, :]
+    gate, q = cb * e * dt_j, e * dt_j * dxy
+    wgt = q * cb
+    qg = [split(q[:, :, h0:h0 + group].sum(2), "q")
+          for h0 in range(0, h, group)]
+    xds = torch.einsum("bzjhp,bzhpn->bzjhn", xx, split(ds, "ds"))
+    dyh = torch.einsum("bzihp,bzhpn->bzihn", dyy, split(hs, "h"))
+    dx = torch.einsum("bzhij,bzihp->bzjhp", split(gate, "g"), dyy) + \
+        w[..., None] * torch.einsum("bzjn,bzhpn->bzjhp", bb, split(ds, "ds"))
+    dc = sum(torch.einsum("bzij,bzjn->bzin", t, bb) for t in qg) + \
+        (ecum[..., None] * dyh).sum(3)
+    db = sum(torch.einsum("bzij,bzin->bzjn", t, cc) for t in qg) + \
+        (w[..., None] * xds).sum(3)
+    sdot = (xds * bb[:, :, :, None]).sum(-1)
+    u = w * sdot
+    v = ecum * (dyh * cc[:, :, :, None]).sum(-1)
+    dcum = wgt.sum(-1).movedim(2, -1) + v - wgt.sum(-2).movedim(2, -1) - u
+    dcum[:, :, -1] += u.sum(2) + torch.exp(total) * (ds * hs).sum((-1, -2))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = (e * cb * dxy).sum(-2).movedim(2, -1) + \
+        torch.exp(total[:, :, None] - cum) * sdot + a * rev
+    d_a_log = a * (dtt * rev).sum((0, 1, 2))
+
+    def rows(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+    return (rows(dx), rows(ddt), d_a_log, rows(db)[:, :, None],
+            rows(dc)[:, :, None])
+
+
+_TC_BWD_WANT: dict = {}
+
+
+def _tc_bwd_errors(case, with_final=True, **terms):
+    """The largest ratio of |error| to the bf16 route's tolerance for
+    each gradient (<= 1 where it holds) of `_tc_bwd_model` with ``terms``
+    against ``jax.vjp`` of the reference on fp32 copies of bf16 inputs:
+    dx, ddt, db, dc (rounded to bf16, as the kernel writes them) within
+    2^-8 |ref| + 1e-5 max |ref|, d_a_log within 1e-3 max |ref|
+    (chip_smoke.py's `SSD_BWD_TOL`, `SSD_BWD_ATOL`, `SSD_BWD_DA_TOL`).
+    dy is drawn apart from x: `_bwd_inputs` draws both from one seed, so
+    there dy equals x, and the split terms' errors in S and H cancel
+    where independent ones do not."""
+    b, s, h, p, n, chunk, g = case
+    arrays = _inputs(b, s, h, p, n, g=g, seed=13)
+    rng = np.random.default_rng(14)     # dy apart from x (see _bwd_inputs)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    d_final = rng.standard_normal((b, h, p, n)).astype(np.float32) \
+        if with_final else None
+    arrays = [a if i == 2 else torch.from_numpy(a).bfloat16().float().numpy()
+              for i, a in enumerate(arrays)]
+    dy = torch.from_numpy(dy).bfloat16().float().numpy()
+    key = (case, with_final)
+    if key not in _TC_BWD_WANT:
+        _TC_BWD_WANT[key] = _jax_vjp(arrays, dy, d_final, chunk, jnp.float32)
+    want = _TC_BWD_WANT[key]
+    got = _tc_bwd_model(*(torch.from_numpy(a) for a in arrays),
+                        torch.from_numpy(dy),
+                        None if d_final is None else torch.from_numpy(
+                            d_final), chunk, terms)
+    out = {}
+    for name, gv, wv in zip(("dx", "ddt", "d_a_log", "db", "dc"), got, want):
+        top = float(np.abs(wv).max())
+        if name == "d_a_log":
+            err = np.abs(gv.numpy() - wv) / (1e-3 * top)
+        else:
+            err = np.abs(gv.bfloat16().float().numpy() - wv) / (
+                2.0 ** -8 * np.abs(wv) + 1e-5 * top)
+        out[name] = float(err.max())
+    return out
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=str)
+def test_bf16_backward_design_meets_its_tolerances(case, with_final):
+    """csrc/ssd_bwd_tc.cu's arithmetic (two bf16 terms for each fp32
+    operand, dB and dC folded over groups of 8 heads) against the
+    reference's gradients at the bf16 route's tolerances."""
+    errs = _tc_bwd_errors(case, with_final)
+    assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("product", sorted(TC_BWD_TERMS))
+def test_one_bf16_term_fewer_misses_the_backward_tolerances(product):
+    """One term fewer (one bf16 term) for any split operand misses the
+    tolerances at zamba2's chunk and widths, so none of them can take
+    fewer than the kernel's two."""
+    errs = _tc_bwd_errors(TC_BWD_WIDE, **{
+        product: TC_BWD_TERMS[product] - 1})
+    assert max(errs.values()) > 1.0, (product, errs)
+    assert max(_tc_bwd_errors(TC_BWD_WIDE).values()) <= 1.0
+
+
+def test_bf16_backward_terms_match_the_kernel_source():
+    """The term counts and the group the model uses are the kernel's
+    constants, and the wrapper sizes its scratch with the same ones."""
+    import pathlib
+    import re
+    src = (pathlib.Path(ops.__file__).parent / "csrc" /
+           "ssd_bwd_tc.cu").read_text()
+    found = {m.group(1).lower(): int(m.group(2)) for m in re.finditer(
+        r"constexpr int kTerms(\w+) = (\d+);", src)}
+    assert found == TC_BWD_TERMS
+    group = int(re.search(r"constexpr int kGroup = (\d+);", src).group(1))
+    assert group == TC_BWD_GROUP
+    assert (ops._TC_GROUP, ops._TC_TERMS_H, ops._TC_TERMS_DS) == (
+        group, found["h"], found["ds"])
