@@ -238,26 +238,42 @@ each printed as one JSON line:
    (1, 512) on the card and on the host from the same weights: loss,
    grad norm and every updated parameter within `TRAIN_TOL` (see its
    comment); `ssd_bwd` launched 6 times on the card, on its fp32 route.
-27. race: `map_dfg(backend="race")` with the portfolio side on the card,
+27. dryrun: `launch.op_analysis` counts zamba2-1.2b's uncut train step
+   at (2, 2048) (forward, recompute, backward, AdamW; `ssd` and
+   `ssd_bwd` on the bf16 route) and mixtral-8x7b's no-cache forward at
+   (1, 8192) cut to 4 layers (flash at its 4096 window, `ragged_dot`),
+   each on the card and on the meta device at the same config: the dot
+   FLOPs and each kernel's calls must be equal (the kernels count by
+   their stated formulas on every device), and the card's counted
+   kernel calls must equal their launches.  zamba2's step as a share of
+   the card's 989e12 dense bf16 FLOP/s by model FLOPs (6 N D) and by
+   the traced count, over the train phase's measured step wall (median
+   after the first), with the card's name and power limit; the state's
+   bytes predicted by the dry run's specs on a 1 x 1 mesh must equal
+   what its parameters and AdamW moments hold.  Then
+   `launch.dryrun.trace_cell` on every applicable cell of the single
+   mesh (34 cells of ten archs); the multi mesh and the optimized plan
+   are left to the CLI and the slow tests.
+28. race: `map_dfg(backend="race")` with the portfolio side on the card,
    on C5K5 bandmap (its (II, routing PEs) must be the golden pair) and
    on the forced loser of tests/test_exact_race.py (busmap, max_ii 2,
    certify off, seed 7: the exact side must win, and the cancelled
    portfolio may run at most one chunk of iterations past the cancel).
    Every "race-side" span must carry its ``ok`` (a side that raised
    lacks it: the race would have degraded around it).
-28. comap: `co_map` on the card on the tier-1 cases of
+29. comap: `co_map` on the card on the tier-1 cases of
    tests/test_comap.py and on `COMAP_PORTFOLIO_PAIR`; every ok merged
    binding must pass the port's validator, the 2x2 case must fail
    cleanly.
-29. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
+30. map-trace: `launch.serve.run_map_trace` (the ``--map-trace`` entry
    point) on the card, `SERVICE_TRACE` requests at 8x8 with
    `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
    outcome, no serve-crash event, every ok result valid.  Requests/s,
    p50/p95/p99 latency, sources, hit rates, the slowest requests.
-30. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
+31. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
    with their span walls by name (`obs.export.to_json`) and
    `MappingResult.explain()`'s report.
-Each of phases 27-30 resets the launch counts just before it and reads
+Each of phases 28-31 resets the launch counts just before it and reads
 them just after: `selection_counts` must have launched.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
@@ -547,6 +563,22 @@ TRAIN_PROFILE_SHARES = {
     "optimizer foreach": ("multi_tensor_apply",),
     "elementwise": ("elementwise_kernel", "vectorized_"),
     "reduce": ("reduce_kernel",)}
+
+
+# dryrun: the op-level count (`launch.op_analysis`) of two steps the
+# script runs, once on the card and once on the meta device at the same
+# config and shape: zamba2-1.2b's uncut train step at (2, 2048) (`ssd`
+# and `ssd_bwd`, bf16) and mixtral-8x7b's no-cache forward at (1, 8192)
+# cut to 4 layers (flash at its 4096 window, `ragged_dot`).  Their dot
+# FLOPs must be equal: each kernel counts by its stated formula on every
+# device.  Then zamba2's step as a share of the card's dense bf16 peak
+# (`launch.dryrun.PEAK_FLOPS`) by model FLOPs (6 N D) and by the traced
+# count, the state's predicted bytes on a 1 x 1 mesh against what its
+# tensors hold, and `launch.dryrun.trace_cell` on every applicable cell
+# of the single mesh (the CLI and the slow tests take the multi mesh and
+# the optimized plan).
+DRYRUN_TRAIN = ("zamba2-1.2b", 2, 2048)
+DRYRUN_LONG = ("mixtral-8x7b", {"n_layers": 4}, 8192)
 
 
 def emit(obj: dict) -> None:
@@ -2711,6 +2743,167 @@ def ssd_bwd_vs_plain(dev, capture) -> dict:
                 seconds=time.perf_counter() - t_phase)
 
 
+def dryrun_phase(dev, card: str, zamba_train: dict) -> dict:
+    """The dry run's phase (see `DRYRUN_TRAIN`): emits its line, then
+    checks it.  ``zamba_train`` is the train phase's zamba2 run (its
+    measured step wall)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, SHAPES, applicable, get_config
+    from repro_torch.core import planner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun, op_analysis, train
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+
+    def counted(ana: dict, launches: dict) -> dict:
+        return dict(dot_flops=ana["dot_flops"], hbm_bytes=ana["hbm_bytes"],
+                    n_ops=ana["n_ops"], kernels=ana["kernels"],
+                    launches=launches)
+
+    # (a) zamba2's train step on the card, then on meta
+    arch, b, s = DRYRUN_TRAIN
+    cfg = get_config(arch)
+    free_model()
+    state, step, data, _ = train.build(cfg, batch=b, seq=s, lr=3e-4,
+                                       steps=6, device=dev)
+    batch = {k: np.ascontiguousarray(v) for k, v in data.batch(0).items()}
+    model, opt_state, step_t = state
+    params = dict(model.named_parameters())
+    mesh = make_smoke_mesh()
+    rules = sh.Rules(planner.plan(cfg, "train", s, b, mesh).rules, mesh)
+    predicted = dryrun.per_device_bytes(
+        dryrun.state_shardings(params, opt_state, rules), mesh.shape)
+    held = sum(t.numel() * t.element_size() for t in (
+        *params.values(), *opt_state["mu"].values(),
+        *opt_state["nu"].values(), opt_state["count"], step_t))
+    reset_launches()
+    t0 = time.perf_counter()
+    ana = op_analysis.analyze(step, state, batch)
+    torch.cuda.synchronize()
+    train_card = counted(ana, {k: LAUNCHES[k] for k in (
+        "ssd", "ssd_bf16", "ssd_bwd", "ssd_bwd_bf16", "flash_attention")})
+    train_card["counted_step_s"] = time.perf_counter() - t0
+    del ana, state, step, model, opt_state, params, step_t
+    free_model()
+    model = T.build_model(cfg, device=meta).requires_grad_()
+    t0 = time.perf_counter()
+    ana = op_analysis.analyze(
+        M.make_train_step(cfg, AdamW()),
+        (model, M.opt_state_specs(dict(model.named_parameters())),
+         torch.zeros((), dtype=torch.int32, device=meta)),
+        {k: torch.from_numpy(v).to(meta) for k, v in batch.items()})
+    train_meta = counted(ana, {})
+    train_meta["trace_s"] = time.perf_counter() - t0
+    del ana, model
+
+    # (a) mixtral's long forward on the card, then on meta
+    arch_l, reduced, seq = DRYRUN_LONG
+    cfg_l = dataclasses.replace(get_config(arch_l), **reduced)
+    model = M.init_params(cfg_l, 0, device=dev)
+    toks = np.random.default_rng(1).integers(0, cfg_l.vocab, (1, seq),
+                                             dtype=np.int32)
+    reset_launches()
+    with torch.inference_mode():
+        ana = op_analysis.analyze(T.forward, cfg_l, model, {
+            "tokens": torch.from_numpy(toks).to(dev)})
+        torch.cuda.synchronize()
+    long_card = counted(ana, {k: LAUNCHES[k] for k in (
+        "flash_attention", "flash_attention_bf16", "ragged_dot",
+        "ragged_dot_wgmma")})
+    del ana, model
+    free_model()
+    with torch.inference_mode():
+        ana = op_analysis.analyze(T.forward, cfg_l, T.build_model(
+            cfg_l, device=meta), {"tokens": torch.from_numpy(toks).to(meta)})
+    long_meta = counted(ana, {})
+    del ana
+
+    # (b) zamba2's step as a share of the card's dense bf16 peak
+    wall = zamba_train["step_wall_s"]
+    mf = dryrun.model_flops(cfg, "train", b * s)
+    shares = dict(
+        step_wall_s=wall, model_flops=mf,
+        traced_dot_flops=train_card["dot_flops"],
+        model_flops_share=mf / wall / dryrun.PEAK_FLOPS,
+        traced_share=train_card["dot_flops"] / wall / dryrun.PEAK_FLOPS,
+        peak_flops=dryrun.PEAK_FLOPS, card=card)
+
+    # (c) every applicable cell of the single mesh
+    cells = []
+    for arch_c in ARCHS:
+        for shape in SHAPES:
+            if not applicable(arch_c, shape)[0]:
+                continue
+            rec = dryrun.trace_cell(arch_c, shape, multi_pod=False)
+            r = rec["roofline"]
+            cells.append(dict(
+                arch=arch_c, shape=shape, skipped=rec["skipped"],
+                trace_s=rec["lower_s"], hlo_flops_total=r["hlo_flops_total"],
+                model_flops_total=r["model_flops_total"],
+                useful_flops_ratio=r["useful_flops_ratio"],
+                dominant=r["dominant"], compute_s=r["compute_s"],
+                memory_s=r["memory_s"], collective_s=r["collective_s"],
+                argument_size_in_bytes=rec["memory_analysis"][
+                    "argument_size_in_bytes"],
+                activations=len(rec["activations"])))
+    row = dict(phase="dryrun", card=card,
+               train=dict(arch=arch, batch=b, seq=s, card=train_card,
+                          meta=train_meta),
+               long=dict(arch=arch_l, reduced=reduced, seq=seq,
+                         card=long_card, meta=long_meta),
+               shares=shares,
+               state_bytes=dict(mesh=mesh.shape, predicted=predicted,
+                                held=held),
+               cells=cells,
+               seconds=time.perf_counter() - t_phase)
+    emit(row)
+    for label, card_c, meta_c in (("zamba2's train step", train_card,
+                                   train_meta),
+                                  ("mixtral's long forward", long_card,
+                                   long_meta)):
+        check(card_c["dot_flops"] == meta_c["dot_flops"] > 0,
+              f"{label}: {card_c['dot_flops']} dot FLOPs on the card, "
+              f"{meta_c['dot_flops']} on meta")
+        check({k: v["calls"] for k, v in card_c["kernels"].items()} ==
+              {k: v["calls"] for k, v in meta_c["kernels"].items()},
+              f"{label}: kernel calls {card_c['kernels']} on the card, "
+              f"{meta_c['kernels']} on meta")
+    n_ssd = ssd_calls(cfg)
+    tl = train_card["launches"]
+    check(tl["ssd"] == tl["ssd_bf16"] == 2 * n_ssd and
+          tl["ssd_bwd"] == tl["ssd_bwd_bf16"] == n_ssd and
+          tl["flash_attention"] == 0,
+          f"zamba2's counted step launched {tl}")
+    def calls(c, name):
+        return c["kernels"].get(name, {}).get("calls", 0)
+    check(calls(train_card, "ssd") == tl["ssd"] and
+          calls(train_card, "ssd_bwd") == tl["ssd_bwd"],
+          f"zamba2: counted kernels {train_card['kernels']}, launches {tl}")
+    ll = long_card["launches"]
+    check(ll["flash_attention"] == ll["flash_attention_bf16"]
+          == attention_calls(cfg_l) and ll["ragged_dot"]
+          == ll["ragged_dot_wgmma"] == ragged_calls(cfg_l),
+          f"mixtral's counted forward launched {ll}")
+    check(calls(long_card, "flash_attention") == ll["flash_attention"] and
+          calls(long_card, "ragged_dot") == ll["ragged_dot"],
+          f"mixtral: counted kernels {long_card['kernels']}, launches {ll}")
+    check(predicted == held, f"zamba2's state: {predicted} bytes predicted "
+          f"on a 1 x 1 mesh, {held} held")
+    check(0 < shares["model_flops_share"] < shares["traced_share"] < 1,
+          f"zamba2's step shares of peak {shares}")
+    check(cells and all(not c["skipped"] and c["hlo_flops_total"] > 0
+                        and c["argument_size_in_bytes"] > 0
+                        and c["activations"] for c in cells),
+          f"a dry-run cell failed: {cells}")
+    return row
+
+
 def span_walls(tracer) -> dict:
     """Wall seconds and count by span name, from the ported
     `obs.export.to_json`, largest first."""
@@ -3328,6 +3521,10 @@ def main() -> int:
     free_model()
     check_row = train_card_vs_cpu(dev)
     emit(check_row)
+
+    # ---- 27. the dry run: op-level counts on the card and on meta, the
+    # train step's share of peak, the single mesh's cells
+    dry_row = dryrun_phase(dev, card, train_row["runs"][LLM_ARCH])
     zamba_train = train_row["runs"][LLM_ARCH]
     bwd_main = next(r for r in bwd_row["cases"]
                     if r["case"] == SSD_BWD_CASES[0][0]
@@ -3336,7 +3533,7 @@ def main() -> int:
                  if r["case"] == SSD_BWD_CASES[0][0]
                  and r["dtype"] == "float32")
 
-    # ---- 27-30. the service tier: race, co-mapping, the serve tier
+    # ---- 28-31. the service tier: race, co-mapping, the serve tier
     # behind --map-trace, and traced maps with their explain reports
     service = {}
     for run in (service_race, service_comap, service_trace,

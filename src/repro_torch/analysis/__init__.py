@@ -3,8 +3,10 @@
 The port's copy of `repro.analysis`: the domain pass (`dfglint` +
 `demand`, the schedule-free II floor behind ``map_dfg``'s static
 pre-pass) and its two wrappers, `analyze` and `static_infeasibility`
-(the serve tier's admission check).  The reference's repo pass
-(`astlint`) is not ported (ROADMAP Queue 1, item 13).
+(the serve tier's admission check); and the repo pass, `astlint`, the
+linter of the port's written-down invariants over ``src/repro_torch``
+(a standalone module, ``python -m repro_torch.analysis.astlint``, not
+imported here).
 
 Soundness contract
 ------------------

@@ -299,11 +299,3 @@ def plan(cfg: ModelConfig, kind: str, seq: int, batch: int, mesh,
     return Plan(arch=arch or cfg.name, shape=shape or kind,
                 mesh_axes=mesh_axes, rules=rules, transfers=transfers,
                 grad_compression=optimized and "pod" in mesh_axes)
-
-
-def mesh_stub(axes: dict):
-    """Planner-facing mesh stand-in: `plan` only reads ``mesh.shape``,
-    so callers with no device mesh (the serving driver's plan report)
-    pass this instead (the reference's ``launch/mesh.mesh_stub``)."""
-    import types
-    return types.SimpleNamespace(shape=dict(axes))

@@ -72,8 +72,19 @@ a kernel with more than one route also adds one to the route it took:
 attention, the SSD scan and its backward), ``LAUNCHES["ragged_dot_wgmma"]``,
 ``["ragged_dot_mma"]`` or ``["ragged_dot_fp32"]``.  The counts are
 exact when several threads launch: every update holds one lock.
+
+A wrapper also tells the op counters of `launch.op_analysis` what its
+kernel does (`kernel_work`), on every device: a kernel launched through
+``ctypes`` is seen by no dispatch mode, and on the ``meta`` device (the
+dry run's) a wrapper returns outputs of the right shapes and types and
+computes nothing.  The count is a stated formula, the dot FLOPs of the
+kernel's plain version (``flops`` in each ``ops.py``), and the ops the
+wrapper runs inside (the plain version on the CPU, scratch on the card)
+are not counted again.  A meta call launches nothing and adds nothing to
+``LAUNCHES``.
 """
 
+import contextlib
 import threading
 
 _COUNT_LOCK = threading.Lock()
@@ -101,6 +112,44 @@ def count_launch(name: str, route: str | None = None) -> None:
         LAUNCHES[name] += 1
         if route is not None:
             LAUNCHES[f"{name}_{route}"] += 1
+
+
+#: The op counters counting now (`launch.op_analysis.OpCounter`), each
+#: with ``kernel_begin(name, flops, nbytes)`` and ``kernel_end()``.
+COUNTERS: list = []
+
+
+_NOT_COUNTING = contextlib.nullcontext()
+
+
+def kernel_work(name: str, work):
+    """Around a wrapper's work: each active op counter counts one call of
+    kernel ``name`` at ``work()``'s (dot FLOPs, bytes: its inputs read
+    once and its outputs written once), and none of the ops run inside.
+    With no counter active (serving and training) a call costs one check
+    of `COUNTERS`, and ``work`` is not called."""
+    if not COUNTERS:
+        return _NOT_COUNTING
+    return _counted(name, *work())
+
+
+@contextlib.contextmanager
+def _counted(name: str, flops: float, nbytes: float):
+    with _COUNT_LOCK:
+        counters = list(COUNTERS)
+    for c in counters:
+        c.kernel_begin(name, flops, nbytes)
+    try:
+        yield
+    finally:
+        for c in reversed(counters):
+            c.kernel_end()
+
+
+def tensor_bytes(*tensors) -> int:
+    """The bytes of ``tensors`` (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def reset_launches() -> None:

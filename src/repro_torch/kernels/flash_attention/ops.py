@@ -16,6 +16,14 @@ one to the route it took, ``LAUNCHES["flash_attention_bf16"]`` or
 ``LAUNCHES["flash_attention_fp32"]``.  There is no backward kernel yet
 (ROADMAP Queue 2): a CUDA call under autograd (grad enabled and an input
 requiring it) raises `NotImplementedError`.
+
+On the ``meta`` device (the dry run's) a call takes the CUDA route's
+checks and returns an output of q's shape and type, computing nothing and
+launching nothing; under autograd it is a `torch.autograd.Function` whose
+backward gives gradients of the inputs' shapes, so a dry run traces a
+train step past 4096^2 pairs that the card cannot take yet.  On every
+device each call tells the op counters its dot FLOPs (`flops`, and twice
+that for a meta backward; `kernels.kernel_work`).
 """
 
 from __future__ import annotations
@@ -25,13 +33,22 @@ import math
 
 import torch
 
-from .. import count_launch
+from .. import count_launch, kernel_work, tensor_bytes
 from .._build import load
 from .ref import flash_attention_ref
 
 _NAME = "flash_attention"
 _TC = "flash_attention_tc"     # the bf16 kernel's library
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flops(q_shape, sk: int, block_k: int = 512) -> float:
+    """The dot FLOPs of the plain version (`ref.flash_attention_ref`) for
+    q of ``q_shape`` (B, Sq, Hq, D) over ``sk`` keys: the keys padded to
+    whole blocks of ``block_k``, Q K^T and P V over every block (masked
+    pairs included), 2 FLOPs a multiply-add."""
+    b, sq, hq, d = q_shape
+    return 4.0 * b * sq * hq * d * -(-sk // block_k) * block_k
 
 
 def _check(q, k, v) -> None:
@@ -56,8 +73,9 @@ def _check(q, k, v) -> None:
     if k.shape[2] == 0 or hq % k.shape[2]:
         raise ValueError(f"{hq} query heads are not a multiple of "
                          f"{k.shape[2]} key heads")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_NAME} runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{_NAME} runs on cpu, cuda or meta, not "
+                         f"{q.device}")
 
 
 def _launcher(bf16: bool):
@@ -74,10 +92,18 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     """Causal GQA attention (see the module docstring); ``block_k`` is
     the plain version's key block and does not change the result."""
     _check(q, k, v)
+
+    def work():
+        # Bytes: q, k and v, and the output (q's).
+        return (flops(q.shape, k.shape[1], block_k),
+                tensor_bytes(q, k, v) + tensor_bytes(q))
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_offset=q_offset,
-                                   window=window, block_k=block_k)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        with kernel_work(_NAME, work):
+            return flash_attention_ref(q, k, v, q_offset=q_offset,
+                                       window=window, block_k=block_k)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if grad and not q.is_meta:
         raise NotImplementedError(
             f"{_NAME} has no backward kernel yet (ROADMAP Queue 2: flash "
             f"attention's backward); training on the card takes attention "
@@ -95,9 +121,18 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
                          f"head is not planned (ROADMAP.md)")
     if max(b, sq, sk, hq, 64 * hkv * d) >= 2**31 or abs(q_offset) >= 2**30:
         raise ValueError(f"{_NAME}: a size or q_offset is out of range")
+    if grad:
+        return _MetaAttention.apply(q, k, v, block_k)
+    with kernel_work(_NAME, work):
+        return _launch(q, k, v, q_offset, window)
+
+
+def _launch(q, k, v, q_offset: int, window):
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     win = 0 if window is None or window <= 0 else int(window)
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if q.is_meta or out.numel() == 0:
         return out
     bf16 = q.dtype == torch.bfloat16
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -117,3 +152,27 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
                            f"CUDA error {err}")
     count_launch(_NAME, route)
     return out
+
+
+class _MetaAttention(torch.autograd.Function):
+    """`flash_attention` on meta tensors under autograd: the output, and
+    in the backward the gradients of q, k and v, by shape only, counted
+    at `flops` and twice that (each product gives one gradient of each
+    operand)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.flops = flops(q.shape, k.shape[1], block_k)
+        with kernel_work(_NAME, lambda: (
+                ctx.flops, tensor_bytes(q, k, v) + tensor_bytes(q))):
+            return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with kernel_work(_NAME + "_bwd", lambda: (
+                2 * ctx.flops,
+                2 * tensor_bytes(q, k, v) + tensor_bytes(dout))):
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None)

@@ -24,6 +24,13 @@ route it took: ``LAUNCHES["ragged_dot_wgmma"]``,
 There is no backward kernel yet (ROADMAP Queue 2): a CUDA call under
 autograd (grad enabled and x or w requiring it) raises
 `NotImplementedError`.
+
+On the ``meta`` device (the dry run's) a call takes the CUDA route's
+checks and returns an (M, N) output of x's type, computing nothing and
+launching nothing; under autograd it is a `torch.autograd.Function` whose
+backward gives gradients of x's and w's shapes and types.  On every
+device each call tells the op counters its dot FLOPs (`flops`, twice that
+for a meta backward; `kernels.kernel_work`).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import ctypes
 
 import torch
 
-from .. import count_launch
+from .. import count_launch, kernel_work, tensor_bytes
 from .._build import load
 from .ref import ragged_dot_ref
 
@@ -42,6 +49,14 @@ _PAIRS = {torch.float32: (torch.float32,),
           torch.bfloat16: (torch.bfloat16, torch.float32)}
 #: The most groups the TMA route takes (``tc::kMaxGroups``).
 TC_MAX_GROUPS = 1024
+
+
+def flops(m: int, k: int, n: int) -> float:
+    """The dot FLOPs of the grouped product of x (M, K) by w (G, K, N):
+    2 M K N, every row once through its group's weights (XLA's count of
+    a ``ragged-dot``).  The plain version counts the rows its offsets
+    cover, which is all M on the MoE FFN's path."""
+    return 2.0 * m * k * n
 
 
 def _check(x, w, group_offsets) -> None:
@@ -63,8 +78,17 @@ def _check(x, w, group_offsets) -> None:
     if group_offsets.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"group_offsets must be int32 or int64, not "
                         f"{group_offsets.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_NAME} runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{_NAME} runs on cpu, cuda or meta, not "
+                         f"{x.device}")
+
+
+def _work(x, w, group_offsets) -> tuple[float, int]:
+    """(dot FLOPs, bytes: the inputs and the (M, N) output)."""
+    m, k = x.shape
+    n = w.shape[2]
+    return flops(m, k, n), (tensor_bytes(x, w, group_offsets)
+                            + m * n * x.element_size())
 
 
 def _launcher(symbol: str, n_ints: int):
@@ -95,8 +119,10 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
         raise ValueError(f"route must be None, 'wgmma' or 'mma', not "
                          f"{route!r}")
     if x.device.type == "cpu":
-        return ragged_dot_ref(x, w, group_offsets)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
+            return ragged_dot_ref(x, w, group_offsets)
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if grad and not x.is_meta:
         raise NotImplementedError(
             f"{_NAME} has no backward kernel yet (ROADMAP Queue 2: "
             f"ragged_dot's backward), so the moe family does not train on "
@@ -112,8 +138,17 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
     groups, _, n = w.shape
     if max(m, k, n, groups) >= 2**31:
         raise ValueError(f"{_NAME}: a size is out of range")
+    if grad:
+        return _MetaRaggedDot.apply(x, w, group_offsets)
+    with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
+        return _launch(x, w, group_offsets, route)
+
+
+def _launch(x, w, group_offsets, route):
+    m, k = x.shape
+    groups, _, n = w.shape
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
+    if x.is_meta or y.numel() == 0:
         return y
     w_fp32 = int(w.dtype == torch.float32)
     if x.dtype == torch.float32:
@@ -147,3 +182,24 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
                            f"error {err}")
     count_launch(_NAME, route)
     return y
+
+
+class _MetaRaggedDot(torch.autograd.Function):
+    """`ragged_dot` on meta tensors under autograd: the output, and in
+    the backward the gradients of x and w, by shape only, counted at
+    `flops` and twice that (dx = dy w^T and dw = x^T dy per group)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_offsets):
+        ctx.save_for_backward(x, w, group_offsets)
+        with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
+            return torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+                               device=x.device)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_offsets = ctx.saved_tensors
+        with kernel_work(_NAME + "_bwd", lambda: (
+                2 * _work(x, w, group_offsets)[0],
+                2 * tensor_bytes(x, w) + tensor_bytes(dy, group_offsets))):
+            return torch.empty_like(x), torch.empty_like(w), None

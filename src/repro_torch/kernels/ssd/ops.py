@@ -27,6 +27,11 @@ tensors is the plain version, `ref.ssd_chunked_bwd` (autograd through
 differentiated.  Every backward launch adds one to
 ``LAUNCHES["ssd_bwd"]`` and to ``LAUNCHES["ssd_bwd_bf16"]`` or
 ``["ssd_bwd_fp32"]``.
+
+On the ``meta`` device (the dry run's) both take the CUDA route's checks
+and its autograd, return outputs of the right shapes and types, compute
+nothing and launch nothing.  On every device each call tells the op
+counters its dot FLOPs (`flops`, `bwd_flops`; `kernels.kernel_work`).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import ctypes
 
 import torch
 
-from .. import count_launch
+from .. import count_launch, kernel_work, tensor_bytes
 from .._build import load
 from .ref import ssd_chunked, ssd_chunked_bwd
 
@@ -47,6 +52,25 @@ _BWD_TC = "ssd_bwd_tc"   # the bf16 backward's library
 # kTermsH, kTermsDS (bf16 terms of the states H and dS it reads).
 _TC_GROUP, _TC_TERMS_H, _TC_TERMS_DS = 8, 2, 2
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flops(shape, n: int, chunk: int) -> float:
+    """The dot FLOPs of the plain scan (`ref.ssd_chunked`) on x of
+    ``shape`` (B, S, H, P) with state N: S padded to whole chunks of L,
+    its four products per chunk and head, C B^T (L x L x N), the gated
+    scores times x (L x L x P), the chunk state (P x N x L) and C times
+    the carried state (L x P x N), 2 FLOPs a multiply-add."""
+    bsz, s, h, p = shape
+    nc = -(-s // chunk)
+    return 2.0 * bsz * nc * h * chunk * (chunk * n + chunk * p + 2 * p * n)
+
+
+def bwd_flops(shape, n: int, chunk: int) -> float:
+    """The dot FLOPs of the scan's backward given its forward: each of
+    the four products gives two (one a gradient of each operand), so
+    twice `flops`.  (`ref.ssd_chunked_bwd` also reruns the forward
+    first; that is the forward's count, not the backward's.)"""
+    return 2.0 * flops(shape, n, chunk)
 
 
 def _check(x, dt, a_log, b, c) -> None:
@@ -69,8 +93,17 @@ def _check(x, dt, a_log, b, c) -> None:
             b.shape[2] == 0 or h % b.shape[2]:
         raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} "
                          f"disagree with x {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_NAME} runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{_NAME} runs on cpu, cuda or meta, not "
+                         f"{x.device}")
+
+
+def _work(x, dt, a_log, b, c, chunk: int) -> tuple[float, int]:
+    """(dot FLOPs, bytes: the inputs, y and the fp32 final state)."""
+    bsz, _, h, p = x.shape
+    n = b.shape[3]
+    return flops(x.shape, n, chunk), (tensor_bytes(x, dt, a_log, b, c) +
+                                      tensor_bytes(x) + 4 * bsz * h * p * n)
 
 
 def _launcher(bf16: bool):
@@ -87,7 +120,8 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 64):
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, not {chunk}")
     if x.device.type == "cpu":
-        return ssd_chunked(x, dt, a_log, b, c, chunk=chunk)
+        with kernel_work(_NAME, lambda: _work(x, dt, a_log, b, c, chunk)):
+            return ssd_chunked(x, dt, a_log, b, c, chunk=chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a_log, b, c)):
         return _SSD.apply(x, dt, a_log, b, c, chunk)
@@ -120,13 +154,19 @@ def _check_cuda(x, dt, a_log, b, c, chunk: int) -> None:
 
 
 def _forward(x, dt, a_log, b, c, chunk: int):
-    """The forward kernels on CUDA tensors: (y, final state)."""
+    """The forward kernels on CUDA tensors: (y, final state); on meta
+    tensors the outputs only."""
     _check_cuda(x, dt, a_log, b, c, chunk)
+    with kernel_work(_NAME, lambda: _work(x, dt, a_log, b, c, chunk)):
+        return _launch(x, dt, a_log, b, c, chunk)
+
+
+def _launch(x, dt, a_log, b, c, chunk: int):
     bsz, s, h, p = x.shape
     n = b.shape[3]
     y = torch.empty_like(x)
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    if y.numel() == 0 and fin.numel() == 0:
+    if x.is_meta or (y.numel() == 0 and fin.numel() == 0):
         return y, fin
     bf16 = x.dtype == torch.bfloat16
     # Scratch of the stages: cum per chunk and head, the chunk states,
@@ -196,7 +236,8 @@ def ssd_bwd(x, dt, a_log, b, c, dy, d_final=None, *, chunk: int = 64):
     given ``dy`` (x's shape) and ``d_final`` ((B, H, P, N), or None for
     zero): (dx, ddt, d_a_log, db, dc), each in its input's type.  CPU
     tensors take `ref.ssd_chunked_bwd`; CUDA tensors the backward kernels
-    of their dtype, or the call raises."""
+    of their dtype, or the call raises; meta tensors the CUDA route's
+    checks, and outputs only."""
     _check(x, dt, a_log, b, c)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, not {chunk}")
@@ -210,9 +251,27 @@ def ssd_bwd(x, dt, a_log, b, c, dy, d_final=None, *, chunk: int = 64):
             d_final.device != x.device):
         raise ValueError(f"d_final {tuple(d_final.shape)} disagrees with "
                          f"the state {(bsz, h, p, n)}")
+    def work():
+        # Bytes: the inputs, and the gradients (a_log's in fp32).
+        return (bwd_flops(x.shape, n, chunk),
+                tensor_bytes(x, dt, a_log, b, c, dy, d_final) +
+                tensor_bytes(x, dt, b, c) + 4 * h)
     if x.device.type == "cpu":
-        return ssd_chunked_bwd(x, dt, a_log, b, c, dy, d_final, chunk=chunk)
+        with kernel_work(_BWD, work):
+            return ssd_chunked_bwd(x, dt, a_log, b, c, dy, d_final,
+                                   chunk=chunk)
     _check_cuda(x, dt, a_log, b, c, chunk)
+    with kernel_work(_BWD, work):
+        return _launch_bwd(x, dt, a_log, b, c, dy, d_final, chunk)
+
+
+def _launch_bwd(x, dt, a_log, b, c, dy, d_final, chunk: int):
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    if x.is_meta:
+        return (torch.empty_like(x), torch.empty_like(dt),
+                torch.empty((h,), dtype=torch.float32, device=x.device),
+                torch.empty_like(b), torch.empty_like(c))
     dy = dy.to(x.dtype).contiguous()
     if d_final is not None:
         d_final = d_final.float().contiguous()

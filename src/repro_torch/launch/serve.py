@@ -118,9 +118,10 @@ def serving_transfer_rounds(cfg, *, batch: int, seq: int,
     `planner.schedule_transfer_rounds`.  Returns (rounds, printable
     summary)."""
     from repro_torch.core import planner
+    from repro_torch.launch.mesh import mesh_stub
 
     plan = planner.plan(cfg, "decode", seq, batch,
-                        planner.mesh_stub({"data": 1, "model": tp}),
+                        mesh_stub({"data": 1, "model": tp}),
                         arch=cfg.name, shape="serve")
     rounds = planner.schedule_transfer_rounds(plan)
     moving = [t for t in plan.transfers if t.bytes_per_step > 0]

@@ -8,9 +8,10 @@ device (``device=None`` means ``cuda``; the CPU only when asked for).
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
 ``--arch lm100m`` (the default) trains the ~100M-parameter dense model
-`LM100M`.  The port has no device mesh yet (ROADMAP Queue 1, the dry
-run): `build` hands the planner a one-card stand-in, ``{"data": 1,
-"model": 1}``, prints its plan and applies no sharding rules.  On the
+`LM100M`.  It trains on one card: `build` hands the planner the
+one-device mesh (`launch.mesh.make_smoke_mesh`), prints its plan and
+installs no sharding rules (`launch.dryrun` traces the production
+meshes' plans on the ``meta`` device).  On the
 card the Mamba2 layers' SSD scan runs its forward and backward kernels;
 the moe family (`ragged_dot`) and attention over more than 4096^2
 (query, key) pairs (flash attention) have no backward kernel yet and
@@ -28,6 +29,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import planner as planner_mod
 from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import model as M
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.transformer import ModelConfig
@@ -45,7 +47,7 @@ def build(cfg: ModelConfig, *, batch: int, seq: int, lr: float,
     with gradients on, AdamW's state and the step counter (int32, as the
     reference's), the step, the pipeline and the planner's plan."""
     dev = resolve_device(device)
-    mesh = mesh or planner_mod.mesh_stub({"data": 1, "model": 1})
+    mesh = mesh or make_smoke_mesh()
     plan = planner_mod.plan(cfg, "train", seq, batch, mesh)
     optimizer = AdamW(lr=cosine_schedule(lr, max(steps // 20, 1), steps))
     model = M.init_params(cfg, seed, device=dev).requires_grad_()

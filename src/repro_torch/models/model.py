@@ -1,6 +1,10 @@
-"""Model entry points: parameter init, parameter count, the decode cache,
-the loss and the train step (`launch.train`), and `prefill_step` and
-`serve_step` (`launch.serve`).
+"""Model entry points: parameter init, specs and count, the decode cache
+and its specs, the optimizer state's specs, the loss and the train step
+(`launch.train`), and `prefill_step` and `serve_step` (`launch.serve`).
+
+A spec is a tensor on the ``meta`` device: its shape and type, and no
+memory (the reference's ``ShapeDtypeStruct``).  The dry run
+(`launch.dryrun`) traces the steps on specs.
 
 Everything takes an explicit ``device`` (None means ``cuda``; with no
 GPU that raises).  A built model's parameters do not require gradients,
@@ -13,6 +17,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.optim import AdamW
 
 from . import transformer as T
 from .layers import resolve_device
@@ -32,12 +38,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return T.build_model(cfg, device=dev, generator=gen)
 
 
-def count_params(cfg: ModelConfig) -> int:
+def param_specs(cfg: ModelConfig) -> dict:
+    """Module path -> meta tensor of every parameter of ``cfg``'s model
+    (no allocation).  The reference's tree stacks the layers; the port's
+    names are per layer (`models.convert.reference_path` maps them)."""
     model = T.build_model(cfg, device=torch.device("meta"))
-    return int(sum(p.numel() for p in model.parameters()))
+    return dict(model.named_parameters())
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return int(sum(p.numel() for p in param_specs(cfg).values()))
+
+
+def opt_state_specs(params: dict) -> dict:
+    """AdamW's state for ``params`` (name -> meta tensor), as
+    `optim.AdamW.init` builds it, on meta: fp32 ``mu`` and ``nu`` of
+    each parameter's shape and the 0-d int32 ``count``.  The dry run's
+    train step starts from it (`launch.dryrun.trace_cell`)."""
+    return AdamW().init(params)
 
 
 # ------------------------------------------------------------------- cache
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                dtype=torch.bfloat16) -> dict:
+    """`init_cache`'s tree on the meta device (no allocation); its
+    positions stay Python ints, where the reference's are int32 arrays
+    of the same shapes."""
+    return init_cache(cfg, batch, s_max, dtype, device=torch.device("meta"))
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
     """The zeroed decode cache of ``batch`` sequences with capacity

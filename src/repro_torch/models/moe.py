@@ -130,10 +130,13 @@ def moe_ffn(p: MoE, x, *, top_k: int, compute_dtype=torch.bfloat16):
     y = y * sorted_w[:, None].to(y.dtype)
     out = combine(y, order, t, top_k)
 
+    # The aux loss before the shared MLP: under remat the recomputation
+    # stops after the last tensor the backward saves, so the shared
+    # MLP's last product (whose output the backward does not need) is
+    # not rerun, as XLA drops it from the reference's recomputation.
+    aux = router_load_balancing_loss(logits, gate_i, n_experts, top_k)
     if p.shared is not None:
         out = out + p.shared(xf)
-
-    aux = router_load_balancing_loss(logits, gate_i, n_experts, top_k)
     return out.reshape(b, s, d), aux
 
 
@@ -175,9 +178,9 @@ def moe_ffn_capacity(p: MoE, x, *, top_k: int,
     contrib = y[dest] * (sw * keep)[:, None].to(y.dtype)
     out = combine(contrib, order, t, top_k)
 
-    if p.shared is not None:
-        out = out + p.shared(xf)
     aux = router_load_balancing_loss(logits, gate_i, n_experts, top_k)
+    if p.shared is not None:      # after the aux loss, as in `moe_ffn`
+        out = out + p.shared(xf)
     return out.reshape(bsz, s, d), aux
 
 

@@ -28,12 +28,15 @@ eagerly: the reference's ``lax.scan`` over stacked layers is a loop
 over the layer modules, each layer taking its own window (gemma3's 5
 local : 1 global) as a Python int.  The reference's activation remat
 (``jax.checkpoint`` when ``cfg.remat == "block"``) is `_maybe_remat`:
-under autograd each block, Mamba layer, shared-attention invocation and
-encoder or decoder layer runs under `torch.utils.checkpoint.checkpoint`
-(non-reentrant), so its activations are recomputed in the backward
-instead of kept; serving (grad off) takes no checkpoint.  The one-device
-sharding constraint (``launch/sharding.constrain``) is a no-op and is
-not copied.
+under autograd each block, Mamba layer and encoder or decoder layer runs
+under `torch.utils.checkpoint.checkpoint` (non-reentrant), so its
+activations are recomputed in the backward instead of kept; zamba2's
+shared-attention invocations are not checkpointed, as the reference's
+are not; serving (grad off) takes no checkpoint.  The residual stream
+and the logits pass `annotate.constrain` at the reference's five
+sites: with no rules installed it returns its input and does nothing
+else; under the dry run's rules it records each activation's names and
+per-device shape.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .annotate import constrain
 from .attention import GQA, MLA, CrossAttention
 from .moe import MoE
 from .ssm import Mamba2Block
@@ -287,14 +291,16 @@ def _block_apply(cfg: ModelConfig, blk: Block, x, positions, window, cache):
     else:
         h = blk.ffn(blk.ln2(x), act=cfg.act_fn())
         aux = torch.zeros((), device=x.device)
-    return x + h, new_cache, aux
+    x = constrain(x + h, ("batch", "seq", "embed"))
+    return x, new_cache, aux
 
 
 def _mamba_apply(cfg: ModelConfig, layer: MambaLayer, x, cache):
     h, new_cache = layer.mamba(
         layer.ln(x), d_state=cfg.d_state, head_dim=cfg.ssm_head_dim,
         n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk, cache=cache)
-    return x + h, new_cache
+    x = constrain(x + h, ("batch", "seq", "embed"))
+    return x, new_cache
 
 
 # ----------------------------------------------------------- main stacks
@@ -361,8 +367,6 @@ def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
     aux = torch.zeros((), device=x.device)
     mc = caches["mamba"] if caches is not None else None
     ac = caches["attn"] if caches is not None else None
-    shared = _maybe_remat(cfg, lambda x, cache: _block_apply(
-        cfg, model.shared_attn, x, positions, None, cache))
     start, inv = 0, 0
     while start < n:
         end = min(start + k, n)
@@ -372,7 +376,10 @@ def _hybrid_apply(cfg: ModelConfig, model: HybridModel, x, positions,
         if end - start == k:        # full segment -> shared attn invocation
             cache = ({"k": ac["k"][inv], "v": ac["v"][inv],
                       "pos": ac["pos"][inv]} if ac is not None else None)
-            x, nac, a = shared(x, cache)
+            # No checkpoint, as the reference's shared block has none:
+            # its activations are kept for the backward.
+            x, nac, a = _block_apply(cfg, model.shared_attn, x, positions,
+                                     None, cache)
             aux = aux + a
             if nac is not None:
                 ac["pos"][inv] = nac["pos"]
@@ -413,6 +420,7 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
     if cfg.mrope_sections is not None:
         positions = _mrope_positions(cfg, b, s, positions)
 
+    x = constrain(x, ("batch", "seq", "embed"))
     lc = caches["layers"] if caches is not None else None
     aux = torch.zeros((), device=dev)
     if cfg.family in ("dense", "moe"):
@@ -434,6 +442,7 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict, caches=None):
         logits = L.unembed(model.embed.table, x, logits_dtype=ldt)
     else:
         logits = model.unembed(x).to(ldt)
+    logits = constrain(logits, ("batch", "seq", "vocab"))
     return logits, aux, new_caches
 
 
@@ -519,4 +528,5 @@ def _decoder_apply(cfg: ModelConfig, blk: DecoderBlock, x, positions,
     x = x + blk.xattn(blk.ln_x(x), cross_kv, n_heads=cfg.n_heads,
                       head_dim=cfg.head_dim)
     x = x + blk.ffn(blk.ln2(x), act=cfg.act_fn())
+    x = constrain(x, ("batch", "seq", "embed"))
     return x, new_cache

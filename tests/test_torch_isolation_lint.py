@@ -1,6 +1,7 @@
 """The port stands alone: `src/repro_torch/` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package `repro`, and the repo's AST
-linter holds the port to the same invariants as the reference."""
+neither JAX nor anything of the JAX package `repro`, and the port's own
+AST linter (`repro_torch.analysis.astlint`, a copy of the reference's)
+holds the port to the same invariants as the reference."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import sys
 
 import pytest
 
-from repro.analysis.astlint import _KNOB_NAMES, _SERIAL_PINS, lint_source
+from repro.analysis.astlint import _KNOB_NAMES, _SERIAL_PINS
+from repro_torch.analysis.astlint import lint_source
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -71,13 +73,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                          ids=[os.path.relpath(p, PORT)
                               for p in _port_files()])
 def test_astlint_rules_hold_on_the_port(path):
-    """Linted under the reference's own path (``repro_torch/`` read as
-    ``repro/``), every path-scoped rule of the linter applies to the
-    port's mirror module, with no edit to the linter."""
+    """Linted by the port's copy under its own path, every path-scoped
+    rule applies to the port's module (the copy's scopes name
+    ``repro_torch/`` modules)."""
     rel = os.path.relpath(path, os.path.join(ROOT, "src"))
-    rel = rel.replace(os.sep, "/").replace("repro_torch/", "repro/", 1)
     with open(path, encoding="utf-8") as fh:
-        findings = lint_source(fh.read(), "src/" + rel)
+        findings = lint_source(fh.read(), "src/" + rel.replace(os.sep, "/"))
     assert findings == [], [f.summary() for f in findings]
 
 

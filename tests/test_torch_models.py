@@ -285,12 +285,13 @@ def test_transfer_rounds_match_reference(ref_cfg, cfg):
     from repro.core import planner as ref_planner
     from repro.launch.mesh import mesh_stub as ref_mesh_stub
     from repro_torch.core import planner
+    from repro_torch.launch.mesh import mesh_stub
     big = get_config(ARCH)
     for kind in ("train", "decode"):
         want = ref_planner.plan(big, kind, 4096, 256,
                                 ref_mesh_stub({"data": 16, "model": 16}))
         got = planner.plan(big, kind, 4096, 256,
-                           planner.mesh_stub({"data": 16, "model": 16}))
+                           mesh_stub({"data": 16, "model": 16}))
         assert got.summary() == want.summary()
 
 
@@ -320,11 +321,13 @@ def test_kv_cache_overflow_raises(ref_cfg, cfg, ref_params, model, where):
     assert np.isfinite(np.asarray(logits)).all()   # the reference clamps
 
 
-def test_unported_parts_raise_not_implemented(cfg):
+def test_unported_parts_raise_not_implemented(cfg, ref_cfg):
     """Every family builds and runs, the `encdec` family and vision
     inputs with M-RoPE included, and every arch's config is ported; the
-    dry run's `input_specs` raises, naming the ROADMAP item (training is
-    ported: `test_loss_and_train_step_run`)."""
+    dry run's `input_specs` is ported too and gives the reference's
+    shapes and types (training is ported:
+    `test_loss_and_train_step_run`; every cell's specs:
+    `tests/test_torch_dryrun.py`)."""
     from repro_torch.configs import ARCHS, input_specs
     dense = T.ModelConfig(name="d", family="dense", n_layers=2, d_model=32,
                           n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
@@ -351,8 +354,15 @@ def test_unported_parts_raise_not_implemented(cfg):
         M.init_params(dataclasses.replace(dense, family="rnn"), device="cpu")
     assert {get_config(arch).name for arch in ARCHS} >= {
         "whisper-tiny", "qwen2-vl-72b"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        input_specs(cfg, "train_4k")
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.configs import input_specs as ref_input_specs
+    from repro_torch.configs import SHAPES
+    got = input_specs(cfg, SHAPES["train_4k"])
+    want = ref_input_specs(ref_cfg, REF_SHAPES["train_4k"])
+    assert {k: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for k, t in got["batch"].items()} == {
+        k: (tuple(t.shape), str(t.dtype)) for k, t in want["batch"].items()}
+    assert all(t.is_meta for t in got["batch"].values())
 
 
 def test_loss_and_train_step_run(ref_cfg, cfg, ref_params):

@@ -162,8 +162,14 @@ def test_wrapper_checks_its_input():
         ops.ssd(x, dt, a_log, b[:, :, :, :8], c)
     with pytest.raises(ValueError):
         ops.ssd(x, dt, a_log, b, c, chunk=0)
-    with pytest.raises(ValueError, match="meta"):
-        ops.ssd(*(t.to("meta") for t in (x, dt, a_log, b, c)))
+    # The meta device (the dry run's) takes the card's checks and gives
+    # the outputs' shapes and types only.
+    y, f = ops.ssd(*(t.to("meta") for t in (x, dt, a_log, b, c)))
+    assert y.is_meta and y.shape == x.shape and y.dtype == x.dtype
+    assert f.is_meta and f.shape == (1, 4, 8, 16) and f.dtype == torch.float32
+    with pytest.raises(ValueError, match="one group"):
+        ops.ssd(*(t.to("meta") for t in (x, dt, a_log, torch.cat([b, b], 2),
+                                           torch.cat([c, c], 2))))
 
 
 def _split(v, terms):
