@@ -212,15 +212,21 @@ each printed as one JSON line:
    (2, 2048) for 6 steps writing no checkpoint: finite falling losses,
    `ssd_bwd` 38 times a step (228, all bf16) and `ssd` twice as often
    (each Mamba2 layer's forward and its recomputation under the
-   per-block activation checkpoint), flash never.  Each run: tokens/s,
-   the step wall, peak device memory, the card's `nvidia-smi` name and
-   power limit; zamba2's last step runs under `torch.profiler` (untimed):
-   its top kernels and the shares of `ssd_bwd`, the SSD forward, the
-   GEMMs, the optimizer and the elementwise kernels
-   (`TRAIN_PROFILE_SHARES`).  Then a train step at S = 8192 on lm100m
-   cut to 2 layers must raise `NotImplementedError` at flash attention (no
-   backward kernel yet) with nothing launched.  The first `ssd_bwd`
-   call of zamba2's run is captured for phase 25.
+   per-block activation checkpoint), flash never.  Then mixtral-8x7b
+   (1 of 32 layers) and deepseek-v2-lite-16b (3 of 27) at (1, 4096), 4
+   steps each, and gemma3-4b (6 of 34: 5 local, 1 global) at (1, 8192),
+   3 steps (`TRAIN_RUNS`): finite falling losses; `ragged_dot_bwd` 3
+   times a MoE layer a step and `ragged_dot` twice as often (on TMA +
+   wgmma); `flash_attention_bwd` once a layer a step and
+   `flash_attention` twice; no plain version (`ref.*`) called on a CUDA
+   tensor.  Each run: tokens/s, the step wall, peak device memory, the
+   card's `nvidia-smi` name and power limit, its seconds; zamba2's last
+   step runs under `torch.profiler` (untimed): its top kernels and the
+   shares of `ssd_bwd`, the SSD forward, the GEMMs, the optimizer and
+   the elementwise kernels (`TRAIN_PROFILE_SHARES`).  The first
+   `ssd_bwd` call of zamba2's run, and each projection's first
+   `ragged_dot_bwd` call of the MoE runs, are captured for the next
+   phases.
 25. ssd-bwd-vs-plain: the SSD backward kernel (`ssd_bwd`) against
    autograd through the plain scan on the card (`ref.ssd_chunked_bwd`
    on fp32 copies of the inputs) at `SSD_BWD_CASES` (zamba2's captured
@@ -233,11 +239,31 @@ each printed as one JSON line:
    times, PR 25's times (`SSD_BWD_EARLIER_MS`, quoted), the plain
    version's and the bound (`ssd_bwd_bound`, with its count before the
    head fold beside it).
-26. train-card-vs-cpu: zamba2 at published widths cut to 6 layers (one
-   shared-attention invocation), fp32 compute, one `train_step` at
-   (1, 512) on the card and on the host from the same weights: loss,
-   grad norm and every updated parameter within `TRAIN_TOL` (see its
-   comment); `ssd_bwd` launched 6 times on the card, on its fp32 route.
+25b. ragged-dot-bwd-vs-plain: the grouped product's backward
+   (`ragged_dot_bwd`: ``ragged_dot_dx`` and ``ragged_dot_dw``,
+   csrc/ragged_dot_bwd.cu) against its plain version at the shapes the
+   MoE runs captured and at `RAGGED_BWD_EDGES` (unaligned K and N,
+   rows outside the groups, empty groups, bf16 weights, the fp32
+   route), within the forward's tolerances; two calls give the same
+   bits.  At the captured shapes: both kernels' ms and each alone, the
+   plain halves' ms, the bounds (`ragged_bwd_bound`) and
+   `torch._grouped_mm` for dx and for dw on pre-cast weights.
+25c. flash-bwd-vs-plain: flash attention's backward
+   (`flash_attention_bwd`: ``flash_bwd_dq`` and ``flash_bwd_dkdv``,
+   csrc/flash_attention_bwd.cu) at every flash path shape the serving
+   phases captured, in bf16 and fp32, against the plain backward one
+   KV-head group at a time (`FA_BWD_TOL`); two calls give the same
+   bits, and the forward's output is the same with and without its LSE.
+   ms (both kernels and each alone), the plain halves' ms, the bounds
+   (`flash_bwd_bound`) and SDPA's backward (`flash_bwd_vs_plain`).
+26. train-card-vs-cpu: one fp32 `train_step` on the card and on the
+   host from the same weights, for zamba2 at published widths cut to 6
+   layers (one shared-attention invocation) at (1, 512) and for the
+   mixtral and deepseek smoke configs at (2, 256) (`TRAIN_CHECKS`):
+   loss, grad norm and every updated parameter within `TRAIN_TOL` (see
+   its comment); `ssd_bwd` launched once a Mamba2 layer and
+   `ragged_dot_bwd` three times a MoE layer on the card, on their fp32
+   routes.
 27. dryrun: `launch.op_analysis` counts zamba2-1.2b's uncut train step
    at (2, 2048) (forward, recompute, backward, AdamW; `ssd` and
    `ssd_bwd` on the bf16 route) and mixtral-8x7b's no-cache forward at
@@ -500,25 +526,76 @@ RAGGED_CASES = [(8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
 # lm100m (12 x 768, GQA 12:4, tied; launch.train's default) with a
 # checkpoint every 5 steps and a failure injected at step 7, then on
 # zamba2-1.2b uncut at (2, 2048) for 6 steps writing no checkpoint
-# (every 1000 steps): 38 SSD backward launches a step.  Then one train
-# step at S = 8192 on lm100m cut to 2 layers, which reaches flash
-# attention under autograd and must raise.
+# (every 1000 steps): 38 SSD backward launches a step.  Then the moe
+# family and attention past 4096^2 pairs at published widths, cut in
+# depth (``--layers``) to fit one card: AdamW's update holds about 7 fp32
+# copies of the parameters at its peak (zamba2's 1.170e9 peaked at 34.17
+# GB, 7.3 x 4 bytes a parameter), so mixtral-8x7b takes 1 of its 32
+# layers (1.713e9 parameters) and deepseek-v2-lite-16b 3 of 27 (2.174e9),
+# each at (1, 4096) for 4 steps (`ragged_dot` and its backward, 3 a MoE
+# layer); gemma3-4b 6 of 34 (5 local, 1 global; 1.237e9) at (1, 8192)
+# for 3 steps (flash and its backward at D = 256 on every layer).
 TRAIN_RUNS = {
     "lm100m": ["--steps", "20", "--batch", "8", "--seq", "256",
                "--ckpt-every", "5", "--inject-failure-at", "7"],
     "zamba2-1.2b": ["--arch", "zamba2-1.2b", "--steps", "6", "--batch",
-                    "2", "--seq", "2048", "--ckpt-every", "1000"]}
-TRAIN_FLASH_SEQ = 8192
-# train-card-vs-cpu: zamba2 at its published widths cut to 6 layers
-# (one shared-attention invocation), fp32 compute, one step at (1, 512)
-# from the same weights on the card and on the host.  Loss and grad norm
-# within 1e-4 (relative, + 1e-6); every updated parameter within 1e-4
-# max |p| + 1e-6 of the host's where the clipped gradient is at least
-# 100 eps (the optimizer's first-step slope g / (|g| + eps) is up to
-# 1 / eps below that: tests/test_torch_train.py), and within the most
-# the step can move it, lr (1 + wd |p|) each way, elsewhere.
-TRAIN_CHECK_REDUCED = {"n_layers": 6}
-TRAIN_CHECK_SHAPE = (1, 512)
+                    "2", "--seq", "2048", "--ckpt-every", "1000"],
+    "mixtral-8x7b": ["--arch", "mixtral-8x7b", "--layers", "1", "--steps",
+                     "4", "--batch", "1", "--seq", "4096", "--ckpt-every",
+                     "1000"],
+    "deepseek-v2-lite-16b": ["--arch", "deepseek-v2-lite-16b", "--layers",
+                             "3", "--steps", "4", "--batch", "1", "--seq",
+                             "4096", "--ckpt-every", "1000"],
+    "gemma3-4b": ["--arch", "gemma3-4b", "--layers", "6", "--steps", "3",
+                  "--batch", "1", "--seq", "8192", "--ckpt-every", "1000"]}
+# ragged-dot-bwd-vs-plain: the backward pair at the shapes captured from
+# the MoE runs (gate/up and down of each: bf16 x and dy, the fp32 stacks),
+# then at edges: K and N off 8 (the plain loads), one group holding every
+# row, rows before the first group and past the last, empty groups, the
+# fp32 route, bf16 weights.  (M, K, N, group sizes, x's type, w's type,
+# rows before the first group.)  Tolerances are the forward's
+# (`RAGGED_ATOL`, `RAGGED_RTOL`, by x's type: dw of fp32 weights is a bf16
+# value).
+RAGGED_BWD_EDGES = [(300, 70, 198, [0, 100, 0, 150, 40], "bf16", "fp32", 0),
+                    (257, 64, 96, [257], "bf16", "bf16", 0),
+                    (520, 128, 4104, [300, 0, 220], "bf16", "fp32", 0),
+                    (600, 2048, 1408, [10] * 50 + [0] * 14, "bf16", "fp32",
+                     37),
+                    (1000, 256, 384, [100, 0, 300, 250, 0, 300], "fp32",
+                     "fp32", 20),
+                    (4096, 4096, 1024, [1000, 0, 2000, 1096], "fp32",
+                     "fp32", 0)]
+# flash-bwd-vs-plain: the backward pair at each flash path shape the
+# serving phases captured (zamba2's (1, 8192, 32, 64); gemma3's (1, 8192,
+# 8, 256) with 4 KV heads, local and global; mixtral's (1, 8192, 32,
+# 128), window 4096; qwen2-vl's (1, 8192, 64, 128), GQA 64:8), each in
+# bf16 and fp32, on the card's own forward output and LSE and a seeded
+# dO, against the plain backward on fp32 copies one KV-head group at a
+# time.  Each gradient within `FA_BWD_TOL` of its max |ref|: fp32 the
+# orders of fp32 sums; bf16 the design's tolerance, which
+# tests/test_torch_flash_bwd.py's emulation of its roundings (P and dS as
+# single bf16 terms) holds well inside (``pytest -s -k bf16`` prints it).
+# fp32 at 3e-5: each dK and dV entry is one fp32 sum over up to Sq g =
+# 65536 terms at these shapes (8192 queries of 8 heads), taken in order
+# by the kernel and by blocks of keys and batched products by the plain
+# version (tests/test_torch_gpu.py holds 1e-5 at its smaller shapes).
+FA_BWD_TOL = {"float32": 3e-5, "bfloat16": 1e-2}
+# train-card-vs-cpu: one fp32 step from the same weights on the card and
+# on the host: zamba2 at its published widths cut to 6 layers (one
+# shared-attention invocation) at (1, 512), and the mixtral and
+# deepseek smoke configs (the grouped products' fp32 routes, forward
+# and backward) at (2, 256).  Loss and grad norm within 1e-4 (relative,
+# + 1e-6); every updated parameter within 1e-4 max |p| + 1e-6 of the
+# host's where the clipped gradient is at least 100 eps (the optimizer's
+# first-step slope g / (|g| + eps) is up to 1 / eps below that:
+# tests/test_torch_train.py), and within the most the step can move it,
+# lr (1 + wd |p|) each way, elsewhere.  name -> (arch, smoke, reduced,
+# (batch, seq)).
+TRAIN_CHECKS = {"zamba2-1.2b": ("zamba2-1.2b", False, {"n_layers": 6},
+                                (1, 512)),
+                "mixtral-8x7b smoke": ("mixtral-8x7b", True, {}, (2, 256)),
+                "deepseek-v2-lite-16b smoke": ("deepseek-v2-lite-16b", True,
+                                               {}, (2, 256))}
 TRAIN_TOL = 1e-4
 # ssd-bwd-vs-plain: the backward kernel against autograd through the
 # plain scan on the card (`ref.ssd_chunked_bwd`), on zamba2's training
@@ -961,7 +1038,9 @@ class Capture:
     kernel.  The wrapped call still counts its own launch.  With
     ``clone=False`` the arguments are kept as they are (for inputs the
     path does not write after the call, such as the grouped products'
-    operands, whose expert weights are too large to copy)."""
+    operands, whose expert weights are too large to copy); with
+    ``clone="host"`` they are copied to the host (for inputs kept past
+    the model that gave them: a training run's)."""
 
     def __init__(self, module, name: str, key=None, clone=True) -> None:
         self.module, self.name = module, name
@@ -987,7 +1066,8 @@ class Capture:
         key = self.key(args, kwargs)
         if key not in self.calls:
             self.calls[key] = (tuple(
-                a.clone() if self.clone and a is not None else a
+                a if a is None or not self.clone else
+                a.to("cpu") if self.clone == "host" else a.clone()
                 for a in args), dict(kwargs))
         self.counts[key] = self.counts.get(key, 0) + 1
         return self.orig(*args, **kwargs)
@@ -1004,7 +1084,7 @@ def by_window(args, kwargs):
 def by_projection(args, kwargs):
     """A grouped product's (rows, K, N): the gate and up projections of a
     forward share one key, the down projection has its own."""
-    x, w, _ = args
+    x, w = args[:2]
     return (x.shape[0], w.shape[1], w.shape[2])
 
 
@@ -2407,24 +2487,29 @@ def path_shapes(rows: list, kernel: str) -> list:
 
 
 # ------------------------------------------------ the service tier
-def llm_train(dev, card: str) -> tuple[dict, object]:
+def llm_train(dev, card: str) -> tuple[dict, object, dict]:
     """`launch.train.main` on each of `TRAIN_RUNS` (its printed lines
-    kept), then one train step that reaches flash under autograd.
+    kept), with the launch counts of every kernel and the calls of the
+    plain versions that reached a CUDA tensor (which must be none).
     Returns (the phase's row, the zamba2 run's first `ssd_bwd` call, a
-    `Capture`)."""
+    `Capture`, and the MoE runs' `ragged_dot_bwd` calls by arch, each a
+    `Capture` kept on the host)."""
     import contextlib
     import io
     import re
     import shutil
     import numpy as np
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ragged_dot import ops as rd_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch import train
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     runs = {}
-    capture = None
+    capture, moe_caps = None, {}
     make_step = M.make_train_step
     step_s: list[float] = []
     profile_at: list = [None]   # the step to profile (not timed), or None
@@ -2450,30 +2535,61 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
             return out
         return run
 
+    # The plain versions the wrappers take on the CPU: a call on a CUDA
+    # tensor here would be a plain product on the path.
+    plain_on_card: dict = {}
+
+    @contextlib.contextmanager
+    def watch_plain():
+        saved = []
+        for mod, name in ((rd_ops, "ragged_dot_ref"),
+                          (rd_ops, "ragged_dot_bwd_ref"),
+                          (fa_ops, "flash_attention_ref"),
+                          (fa_ops, "flash_attention_bwd_ref"),
+                          (ssd_ops, "ssd_chunked"),
+                          (ssd_ops, "ssd_chunked_bwd")):
+            orig = getattr(mod, name)
+            saved.append((mod, name, orig))
+
+            def watched(*args, _orig=orig, _name=name, **kwargs):
+                if args[0].is_cuda:
+                    plain_on_card[_name] = plain_on_card.get(_name, 0) + 1
+                return _orig(*args, **kwargs)
+            setattr(mod, name, watched)
+        try:
+            yield
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+
     for arch, argv in TRAIN_RUNS.items():
+        t_run = time.perf_counter()
         ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt", arch)
         shutil.rmtree(ckpt, ignore_errors=True)
         out = io.StringIO()
         free_model()
         torch.cuda.reset_peak_memory_stats()
         cap = Capture(ssd_ops, "ssd_bwd")
+        moe_cap = Capture(rd_ops, "ragged_dot_bwd", key=by_projection,
+                          clone="host")
         step_s.clear()
         profiles.clear()
         # zamba2's last step is profiled: no timed step follows it.
         profile_at[0] = int(argv[argv.index("--steps") + 1]) - 1 \
             if arch == LLM_ARCH else None
+        plain_on_card.clear()
         reset_launches()
         t0 = time.perf_counter()
         M.make_train_step = timed_make_step
         try:
-            with cap, contextlib.redirect_stdout(out):
+            with cap, moe_cap, watch_plain(), \
+                    contextlib.redirect_stdout(out):
                 history = train.main(argv + ["--ckpt", ckpt])
         finally:
             M.make_train_step = make_step
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in LLM_KEYS + (
-            "ssd_bwd", "ssd_bwd_bf16", "ssd_bwd_fp32")}
+        launches = {k: v for k, v in LAUNCHES.items() if v}
         lines = out.getvalue().splitlines()
         done = next(ln for ln in lines if ln.startswith("done:"))
         restarts = int(re.search(r"restarts=(\d+)", done).group(1))
@@ -2489,15 +2605,18 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
         # the host reads of the metrics, the checkpoints and the profile.
         step_wall = float(np.median(step_s[1:] if len(step_s) > 1
                                     else step_s))
+        reduced = {"n_layers": int(argv[argv.index("--layers") + 1])} \
+            if "--layers" in argv else {}
         runs[arch] = dict(
-            argv=argv, card=card, wall_s=wall, loop_s=loop_s,
-            steps_run=len(history), restarts=restarts,
+            argv=argv, card=card, reduced=reduced, wall_s=wall,
+            loop_s=loop_s, steps_run=len(history), restarts=restarts,
             step_s=list(step_s), step_wall_s=step_wall,
             tokens_per_s=batch * seq / step_wall,
             loop_tokens_per_s=batch * seq * len(history) / loop_s,
             peak_mem_bytes=torch.cuda.max_memory_allocated(),
             first_loss=losses[0], last_loss=losses[-1],
             losses=losses, checkpoints_kept=kept, launches=launches,
+            plain_on_card=dict(plain_on_card),
             profile=profiles[0] if profiles else None,
             lines=[ln for ln in lines if ln.startswith(("training", "step",
                                                         "done"))])
@@ -2505,57 +2624,76 @@ def llm_train(dev, card: str) -> tuple[dict, object]:
         check(losses[-1] < losses[0],
               f"{arch}: the last loss {losses[-1]} is not below the first "
               f"{losses[0]}")
+        check(not plain_on_card, f"{arch}: plain versions ran on CUDA "
+                                 f"tensors: {plain_on_card}")
+
+        def count(name):
+            return LAUNCHES.get(name, 0)
         if arch == "lm100m":
             check(restarts == 1, f"lm100m: {restarts} restarts, not 1")
             check(len(history) == steps + 2,
                   f"lm100m: {len(history)} steps run, not {steps} + the 2 "
                   f"replayed from the step-5 checkpoint")
-        else:
+        elif arch == LLM_ARCH:
             capture = cap
             want = 38 * steps
-            check(launches["ssd_bwd"] == want and
-                  launches["ssd_bwd_bf16"] == want,
-                  f"zamba2: ssd_bwd launched {launches['ssd_bwd']} times "
-                  f"({launches['ssd_bwd_bf16']} bf16), not {want}")
-            check(launches["ssd"] == 2 * want,
-                  f"zamba2: ssd launched {launches['ssd']} times, not "
+            check(count("ssd_bwd") == want and count("ssd_bwd_bf16") == want,
+                  f"zamba2: ssd_bwd launched {count('ssd_bwd')} times "
+                  f"({count('ssd_bwd_bf16')} bf16), not {want}")
+            check(count("ssd") == 2 * want,
+                  f"zamba2: ssd launched {count('ssd')} times, not "
                   f"{2 * want} (a forward and its recomputation a layer)")
-            check(launches["flash_attention"] == 0,
+            check(count("flash_attention") == 0,
                   "zamba2 at S = 2048 launched flash attention")
+        else:
+            # A forward and its recomputation under the per-block
+            # checkpoint, and one backward, each layer a step.
+            cfg = dataclasses.replace(get_config(arch), **reduced)
+            rd, fa = ragged_calls(cfg) * steps, attention_calls(cfg) * steps
+            if seq * seq <= 4096 * 4096:
+                fa = 0   # the plain masked product takes the attention
+            for name, want in (("ragged_dot", 2 * rd),
+                               ("ragged_dot_wgmma", 2 * rd),
+                               ("ragged_dot_bwd", rd),
+                               ("ragged_dot_bwd_bf16", rd),
+                               ("flash_attention", 2 * fa),
+                               ("flash_attention_bf16", 2 * fa),
+                               ("flash_attention_bwd", fa),
+                               ("flash_attention_bwd_bf16", fa)):
+                check(count(name) == want, f"{arch}: {name} launched "
+                                           f"{count(name)} times, not {want}")
+            check(rd + fa > 0, f"{arch}: no backward kernel on its path")
+            if rd:
+                moe_caps[arch] = moe_cap
+        runs[arch]["seconds"] = time.perf_counter() - t_run
         free_model()
-    # Flash under autograd on the card: a step at S past 4096 raises.
-    cfg = dataclasses.replace(train.LM100M, n_layers=2)
-    state, step, data, _ = train.build(cfg, batch=1, seq=TRAIN_FLASH_SEQ,
-                                       lr=3e-4, steps=1, device=dev)
-    reset_launches()
-    message = None
-    try:
-        step(state, data.batch(0))
-    except NotImplementedError as e:
-        message = str(e)
-    del state, step
-    free_model()
-    check(message is not None and "ROADMAP" in message,
-          f"a train step at S = {TRAIN_FLASH_SEQ} did not raise on flash "
-          f"attention: {message}")
-    check(LAUNCHES["flash_attention"] == 0, "flash launched under grad")
-    return dict(phase="train", runs=runs, flash_under_grad=dict(
-        seq=TRAIN_FLASH_SEQ, n_layers=2, raised=message),
-        seconds=time.perf_counter() - t_phase), capture
+    return dict(phase="train", runs=runs,
+                seconds=time.perf_counter() - t_phase), capture, moe_caps
 
 
 def train_card_vs_cpu(dev) -> dict:
-    """One train step of zamba2 cut to 6 layers in fp32 compute on the
-    card and on the host from the same weights and batch; loss, grad
-    norm and every updated parameter compared (`TRAIN_TOL`)."""
+    """One train step in fp32 compute on the card and on the host from
+    the same weights and batch, for each of `TRAIN_CHECKS`: loss, grad
+    norm and every updated parameter compared (`TRAIN_TOL`); each
+    backward kernel launched once a layer on its fp32 route."""
+    t_phase = time.perf_counter()
+    runs = {name: _card_vs_cpu(dev, name, *spec)
+            for name, spec in TRAIN_CHECKS.items()}
+    return dict(phase="train-card-vs-cpu", runs=runs, compute="float32",
+                tolerance=TRAIN_TOL, seconds=time.perf_counter() - t_phase)
+
+
+def _card_vs_cpu(dev, name: str, arch: str, smoke: bool, reduced: dict,
+                 shape) -> dict:
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
-    t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LLM_ARCH), **TRAIN_CHECK_REDUCED)
-    b, s = TRAIN_CHECK_SHAPE
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(
+        (get_smoke_config if smoke else get_config)(arch), **reduced)
+    b, s = shape
     with compute_dtype(torch.float32):
         host, host_step, data, _ = train.build(cfg, batch=b, seq=s, lr=3e-4,
                                                steps=1, device="cpu")
@@ -2571,8 +2709,7 @@ def train_card_vs_cpu(dev) -> dict:
         (card_model, card_opt, _), card_m = card_step(card, batch)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in LLM_KEYS + (
-            "ssd_bwd", "ssd_bwd_bf16", "ssd_bwd_fp32")}
+        launches = {k: v for k, v in LAUNCHES.items() if v}
         t0 = time.perf_counter()
         (host_model, host_opt, _), host_m = host_step(host, batch)
         host_s = time.perf_counter() - t0
@@ -2583,14 +2720,14 @@ def train_card_vs_cpu(dev) -> dict:
         got, want = float(card_m[key]), float(host_m[key])
         metrics[key] = dict(card=got, host=want)
         check(abs(got - want) <= TRAIN_TOL * abs(want) + 1e-6,
-              f"train-card-vs-cpu: {key} {got} on the card, {want} on the "
-              f"host")
+              f"train-card-vs-cpu {name}: {key} {got} on the card, {want} "
+              f"on the host")
     worst, ill, worst_ill = 0.0, 0, 0.0
     host_params = dict(host_model.named_parameters())
-    for name, p in card_model.named_parameters():
-        got, want = p.detach().cpu(), host_params[name].detach()
+    for pname, p in card_model.named_parameters():
+        got, want = p.detach().cpu(), host_params[pname].detach()
         # The clipped gradient: mu after the first step is (1 - b1) g.
-        g = host_opt["mu"][name] / (1 - opt.b1)
+        g = host_opt["mu"][pname] / (1 - opt.b1)
         well = g.abs() >= 100 * opt.eps
         ill += int((~well).sum())
         err = (got - want).abs()
@@ -2598,27 +2735,318 @@ def train_card_vs_cpu(dev) -> dict:
         if well.any():
             ratio = float(err[well].max()) / bound
             worst = max(worst, ratio)
-            check(ratio <= 1.0, f"train-card-vs-cpu: {name} parts by "
-                                f"{float(err[well].max())} (bound {bound})")
+            check(ratio <= 1.0, f"train-card-vs-cpu {name}: {pname} parts "
+                                f"by {float(err[well].max())} (bound "
+                                f"{bound})")
         if (~well).any():
             move = 2 * lr * (1 + opt.weight_decay * want[~well].abs())
             worst_ill = max(worst_ill, float((err[~well] / move).max()))
             check(bool((err[~well] <= move).all()),
-                  f"train-card-vs-cpu: {name} moved past the first step's "
-                  f"reach where its gradient is under 100 eps")
-    check(launches["ssd_bwd"] == cfg.n_layers and
-          launches["ssd_bwd_fp32"] == cfg.n_layers,
-          f"train-card-vs-cpu: ssd_bwd launched {launches['ssd_bwd']} "
-          f"times ({launches['ssd_bwd_fp32']} fp32), not {cfg.n_layers}")
-    check(launches["flash_attention"] == 0, "flash launched at S = 512")
+                  f"train-card-vs-cpu {name}: {pname} moved past the first "
+                  f"step's reach where its gradient is under 100 eps")
+    # Each backward kernel once a layer, on its fp32 route; no flash at
+    # these lengths.
+    for kernel, want in (("ssd_bwd", ssd_calls(cfg)),
+                         ("ragged_dot_bwd", ragged_calls(cfg))):
+        got = (launches.get(kernel, 0), launches.get(f"{kernel}_fp32", 0))
+        check(got == (want, want), f"train-card-vs-cpu {name}: {kernel} "
+                                   f"launched {got} (all, fp32), not {want}")
+    check(not launches.get("flash_attention", 0),
+          f"train-card-vs-cpu {name}: flash launched at S = {s}")
     del card, host, card_model, host_model, card_opt, host_opt
     free_model()
-    return dict(phase="train-card-vs-cpu", reduced=TRAIN_CHECK_REDUCED,
-                shape=TRAIN_CHECK_SHAPE, compute="float32",
+    return dict(arch=arch, smoke=smoke, reduced=reduced, shape=list(shape),
                 metrics=metrics, worst_param_ratio=worst,
-                entries_under_100_eps=ill, worst_under_100_eps_ratio=worst_ill,
-                launches=launches, card_step_s=card_s, host_step_s=host_s,
-                tolerance=TRAIN_TOL, seconds=time.perf_counter() - t_phase)
+                entries_under_100_eps=ill,
+                worst_under_100_eps_ratio=worst_ill, launches=launches,
+                card_step_s=card_s, host_step_s=host_s,
+                seconds=time.perf_counter() - t_run)
+
+
+def ragged_bwd_bound(part: str, m, k, n, groups_used, groups,
+                     x_bytes=2, w_bytes=4) -> dict:
+    """The least time of one half of the grouped product's backward: 2 m
+    k n FLOP at the bf16 tensor-core rate (3 TF32 passes at its rate for
+    fp32 x), against its bytes moved once: dx reads dy, the used groups'
+    weights and the offsets and writes dx; dw reads x, dy and the
+    offsets and writes every group's dw."""
+    flop = 2 * m * k * n
+    if part == "dx":
+        nbytes = x_bytes * (m * n + m * k) + w_bytes * groups_used * k * n
+    else:
+        nbytes = x_bytes * (m * k + m * n) + w_bytes * groups * k * n
+    nbytes += 4 * (groups + 1)
+    fp32 = x_bytes == 4
+    t_ops = (3 * flop / PEAK_TF32_S) if fp32 else flop / PEAK_BF16_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop, bytes=nbytes)
+
+
+def _grouped_mm_bwd(x, w, offs, dy) -> dict:
+    """`torch._grouped_mm` for dx and for dw on the weights cast to bf16
+    first (a yardstick off the path, never used by the port): (dx, dw)
+    callables, or the error each raised."""
+    import torch
+    wb = w.to(torch.bfloat16)
+    ends = offs[1:]
+    # Each half as its operands lie, then on copies laid out as the
+    # call may require (made outside the timed call).
+    wt, xt = wb.transpose(-2, -1), x.t()
+    wtc, xtc = wt.contiguous(), xt.contiguous()
+    calls = dict(
+        dx=(lambda: torch._grouped_mm(dy, wt, offs=ends),
+            lambda: torch._grouped_mm(dy, wtc, offs=ends)),
+        dw=(lambda: torch._grouped_mm(xt, dy, offs=ends),
+            lambda: torch._grouped_mm(xtc, dy, offs=ends)))
+    out = {}
+    for part, fns in calls.items():
+        out[part] = None
+        for fn in fns:
+            try:
+                fn()
+            except (RuntimeError, TypeError, ValueError) as e:
+                out[part] = str(e)[:200]
+                continue
+            out[part] = fn
+            break
+    return out
+
+
+def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
+    """The grouped product's backward (`ragged_dot_bwd`: the dx and dw
+    kernels) against its plain version on the card, at the shapes the
+    MoE training runs gave it (captured, on the host, then back on the
+    card) and at `RAGGED_BWD_EDGES`; two calls give the same bits.  At
+    the captured shapes each kernel's ms (both halves, each alone), its
+    plain half's ms, its bound (`ragged_bwd_bound`) and
+    `torch._grouped_mm`'s ms on pre-cast weights (a yardstick off the
+    path)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ragged_dot import ops as rd_ops
+    from repro_torch.kernels.ragged_dot.ref import (ragged_dot_bwd_ref,
+                                                    ragged_dot_dw_ref,
+                                                    ragged_dot_dx_ref)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    specs = []
+    for arch, cap in moe_caps.items():
+        for (m, k, n), (args, _) in cap.calls.items():
+            label = "gate/up" if k == get_config(arch).d_model else "down"
+            specs.append((f"{arch} {label}", [a.to(dev) for a in args]))
+    for m, k, n, sizes, xt, wt, before in RAGGED_BWD_EDGES:
+        x_type = torch.float32 if xt == "fp32" else torch.bfloat16
+        w_type = torch.float32 if wt == "fp32" else torch.bfloat16
+        offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]) + before,
+                            dtype=torch.int32, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(x_type)
+        w = (torch.randn((len(sizes), k, n), generator=gen, device=dev) *
+             k ** -0.5).to(w_type)
+        dy = torch.randn((m, n), generator=gen, device=dev).to(x_type)
+        specs.append((f"edge ({m}, {k}, {n}) {xt} x {wt} w, "
+                      f"{len(sizes)} groups, {before} rows before",
+                      [x, w, offs, dy]))
+    rows = []
+    for label, (x, w, offs, dy) in specs:
+        m, k = x.shape
+        groups, _, n = w.shape
+        got = rd_ops.ragged_dot_bwd(x, w, offs, dy)
+        again = rd_ops.ragged_dot_bwd(x, w, offs, dy)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ragged_dot_bwd_ref(x, w, offs, dy)
+        name = str(x.dtype).split(".")[1]
+        rtol = RAGGED_RTOL[name]
+        errs, ok = {}, same
+        for part, g_, w_ in zip(("dx", "dw"), got, want):
+            d = (g_.float() - w_.float()).abs()
+            errs[part] = float(d.max()) if d.numel() else 0.0
+            ok &= bool((d <= RAGGED_ATOL + rtol * w_.float().abs()).all())
+        row = dict(case=label, m=m, k=k, n=n, groups=groups,
+                   x=name, w=str(w.dtype).split(".")[1],
+                   max_abs_err=errs, bit_identical=same, within=ok)
+        del got, again, want
+        if not label.startswith("edge"):
+            used = int((offs.diff() > 0).sum())
+            lib = _grouped_mm_bwd(x, w, offs, dy)
+            reps = 10
+            row["ms"] = cuda_ms(lambda: rd_ops.ragged_dot_bwd(x, w, offs,
+                                                              dy), reps)
+            for bit, part, plain in ((1, "dx", ragged_dot_dx_ref),
+                                     (2, "dw", ragged_dot_dw_ref)):
+                fn = lib[part]
+                row[part] = dict(
+                    ms=cuda_ms(lambda: rd_ops._launch_bwd(x, w, offs, dy,
+                                                          parts=bit), reps),
+                    plain_ms=cuda_ms(lambda: plain(x, w, offs, dy), 2),
+                    library_ms=cuda_ms(fn, reps) if callable(fn) else None,
+                    library="torch._grouped_mm on the weights cast to bf16"
+                            + ("" if callable(fn) else f" (raised: {fn})"),
+                    **ragged_bwd_bound(part, m, k, n, used, groups,
+                                       x_bytes=x.element_size(),
+                                       w_bytes=w.element_size()))
+            row["groups_used"] = used
+            del lib
+        rows.append(row)
+        check(same, f"ragged_dot_bwd {label}: two calls differ")
+        check(ok, f"ragged_dot_bwd {label}: outside the tolerance ({errs})")
+        del x, w, offs, dy
+    return dict(phase="ragged-dot-bwd-vs-plain", cases=rows,
+                tolerance=dict(atol=RAGGED_ATOL, rtol=RAGGED_RTOL),
+                seconds=time.perf_counter() - t_phase)
+
+
+def flash_bwd_bound(part: str, b, sq, sk, hq, hkv, d, nbytes, fp32=False,
+                    q_offset=0, window=None) -> dict:
+    """The least time of the flash backward or one of its kernels: per
+    visible (query, key) pair (`visible_pairs`) 2 d FLOP a product, five
+    products for the whole backward (S, dP, dV, dK, dQ: 10 d), three for
+    the dq kernel's own work (S, dP, dQ) and four for the dk/dv kernel's
+    (S, dP, dV, dK), at the bf16 tensor-core rate, or 3 TF32 passes at
+    its rate for fp32; against ``nbytes`` (each input read once, each
+    output written once)."""
+    products = {"bwd": 5, "dq": 3, "dkdv": 4}[part]
+    pairs = visible_pairs(sq, sk, q_offset, window)
+    flop = 2 * d * products * pairs * hq * b
+    t_ops = (3 * flop / PEAK_TF32_S) if fp32 else flop / PEAK_BF16_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                pairs=pairs, flop=flop, bytes=nbytes)
+
+
+def flash_bwd_vs_plain(dev, captured: dict) -> dict:
+    """Flash attention's backward (`flash_attention_bwd`: the dq and dk/dv
+    kernels) at every flash path shape (`time_specs`), in bf16 and fp32,
+    on the card's own forward output and LSE and a seeded dO: each
+    gradient against the plain backward on fp32 copies, one KV-head
+    group at a time, within `FA_BWD_TOL` of its max |ref|; two calls give
+    the same bits; the forward's output the same bits with and without
+    the LSE.  Each row: ms (both kernels, and each alone), the plain
+    halves' ms, the bounds (`flash_bwd_bound`), and SDPA's backward under
+    autograd on the same tensors (windows as a boolean mask) as the
+    library yardstick, off the path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_bwd_dkdv_ref, flash_bwd_dq_ref)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    rows = []
+    for arch, label, args, kwargs in time_specs(captured)[0]:
+        window, q_offset = kwargs.get("window"), kwargs.get("q_offset", 0)
+        kw = dict(q_offset=q_offset, window=window)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            fp32 = dtype == torch.float32
+            q, k, v = (t.to(dtype) for t in args)
+            b, sq, hq, d = q.shape
+            sk, hkv = k.shape[1], k.shape[2]
+            g = hq // hkv
+            out, lse = fa_ops._forward(q, k, v, q_offset, window, 512, True)
+            plain_out, _ = fa_ops._forward(q, k, v, q_offset, window, 512,
+                                           False)
+            fwd_same = bool(torch.equal(out, plain_out))
+            del plain_out
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            err = {p: 0.0 for p in ("dq", "dk", "dv")}
+            ref_max = dict(err)
+            for h in range(hkv):
+                qs = slice(h * g, (h + 1) * g)
+                ks = slice(h, h + 1)
+                want = flash_attention_bwd_ref(
+                    q[:, :, qs].float(), k[:, :, ks].float(),
+                    v[:, :, ks].float(), out[:, :, qs].float(), lse[:, qs],
+                    do[:, :, qs].float(), **kw)
+                for p, g_, w_ in zip(("dq", "dk", "dv"),
+                                     (got[0][:, :, qs], got[1][:, :, ks],
+                                      got[2][:, :, ks]), want):
+                    err[p] = max(err[p], float((g_.float() - w_).abs().max()))
+                    ref_max[p] = max(ref_max[p], float(w_.abs().max()))
+                del want
+            ok = same and fwd_same and all(
+                err[p] <= FA_BWD_TOL[name] * ref_max[p] for p in err)
+            nbytes = {
+                "bwd": 5 * q.numel() * q.element_size() + 4 * k.numel() *
+                k.element_size() + 4 * lse.numel(),
+                "dq": 4 * q.numel() * q.element_size() + 2 * k.numel() *
+                k.element_size() + 4 * lse.numel(),
+                "dkdv": 3 * q.numel() * q.element_size() + 4 * k.numel() *
+                k.element_size() + 4 * lse.numel()}
+            reps = 3 if fp32 else 10
+            _, _, _, delta = fa_ops._launch_bwd(q, k, v, out, lse, do,
+                                                q_offset, window)
+
+            def sdpa_backward():
+                # Clones: the captured inputs are inference tensors, which
+                # take no gradient outside inference mode.
+                leaves = [t.transpose(1, 2).clone().requires_grad_()
+                          for t in (q, k, v)]
+                mask = window_mask(sq, sk, window, dev) if window else None
+                o = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=hq != hkv)
+                grad_out = do.transpose(1, 2)
+                return lambda: torch.autograd.grad(o, leaves, grad_out,
+                                                   retain_graph=True)
+            try:
+                lib = sdpa_backward()
+                library_ms = cuda_ms(lib, reps)
+                del lib
+            except (RuntimeError, torch.OutOfMemoryError) as e:
+                library_ms = None
+                lib_error = str(e)[:200]
+            else:
+                lib_error = None
+            row = dict(
+                arch=arch, label=label, shape=[b, sq, hq, d], kv_heads=hkv,
+                window=window, dtype=name, forward_bit_equal_with_lse=fwd_same,
+                bit_identical=same, max_abs_err=err, max_abs_ref=ref_max,
+                within=ok, tolerance=FA_BWD_TOL[name],
+                ms=cuda_ms(lambda: fa_ops.flash_attention_bwd(
+                    q, k, v, out, lse, do, **kw), reps),
+                plain_ms=cuda_ms(lambda: flash_attention_bwd_ref(
+                    q, k, v, out, lse, do, **kw), 1),
+                library_ms=library_ms,
+                library="torch.nn.functional.scaled_dot_product_attention's"
+                        " backward under autograd" + (
+                            " (window as attn_mask)" if window else
+                            " (is_causal)") + (
+                            f" (raised: {lib_error})" if lib_error else ""),
+                **flash_bwd_bound("bwd", b, sq, sk, hq, hkv, d,
+                                  nbytes["bwd"], fp32, q_offset, window))
+            for bit, part, plain in ((1, "dq", flash_bwd_dq_ref),
+                                     (2, "dkdv", flash_bwd_dkdv_ref)):
+                row[part] = dict(
+                    ms=cuda_ms(lambda: fa_ops._launch_bwd(
+                        q, k, v, out, lse, do, q_offset, window, parts=bit,
+                        delta=delta), reps),
+                    plain_ms=cuda_ms(lambda: plain(q, k, v, out, lse, do,
+                                                   **kw), 1),
+                    **flash_bwd_bound(part, b, sq, sk, hq, hkv, d,
+                                      nbytes[part], fp32, q_offset, window))
+            rows.append(row)
+            check(fwd_same, f"flash forward {arch} {label} {name}: the "
+                            f"output differs with the LSE written")
+            check(same, f"flash_attention_bwd {arch} {label} {name}: two "
+                        f"calls differ")
+            check(ok, f"flash_attention_bwd {arch} {label} {name}: "
+                      f"{err} against max |ref| {ref_max}")
+            del q, k, v, out, lse, do, got, delta
+            free_model()
+    return dict(phase="flash-bwd-vs-plain", cases=rows,
+                tolerance=FA_BWD_TOL, seconds=time.perf_counter() - t_phase)
 
 
 def ssd_bwd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
@@ -3126,6 +3554,66 @@ def service_explain(dev) -> dict:
     return dict(phase="explain", launches=launches, runs=runs)
 
 
+def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
+                 checks: dict) -> dict:
+    """The kernel table's row of one backward kernel: its time, bound,
+    plain and library times at the main path's shape (mixtral's gate/up
+    backward for the grouped product's, gemma3's global layer in bf16
+    for flash's; each path shape and the fp32 route beside), its launches
+    in the training run that took it, and its largest error."""
+    flash = name.startswith("flash")
+    part = name.rsplit("_", 1)[1]
+    if flash:
+        rows = fa_bwd["cases"]
+        main = next(r for r in rows if r["arch"] == "gemma3-4b" and
+                    r["label"] == "flash_global" and r["dtype"] == "bfloat16")
+        run = train_runs["gemma3-4b"]
+        launches = run["launches"].get("flash_attention_bwd", 0)
+        err = max(r["max_abs_err"][p] for r in rows
+                  for p in (("dq",) if part == "dq" else ("dk", "dv")))
+        source = "flash_attention/csrc/flash_attention_bwd.cu"
+        replaces = ("src/repro/kernels/flash_attention/kernel.py:89 "
+                    "(flash_attention_pallas has no custom_vjp: the "
+                    "reference's jax.grad differentiates ref.py:19 "
+                    "flash_attention_ref)")
+        shape = (f"{tuple(main['shape'])} Hkv {main['kv_heads']} bf16 "
+                 f"causal (gemma3-4b's global layer)")
+    else:
+        rows = [r for r in rd_bwd["cases"] if "ms" in r]
+        main = next(r for r in rows
+                    if r["case"] == "mixtral-8x7b gate/up")
+        run = train_runs["mixtral-8x7b"]
+        launches = run["launches"].get("ragged_dot_bwd", 0)
+        err = max(r["max_abs_err"][part] for r in rd_bwd["cases"])
+        source = "ragged_dot/csrc/ragged_dot_bwd.cu"
+        replaces = ("src/repro/models/moe.py:67 (jax.grad through "
+                    "jax.lax.ragged_dot in moe_ffn: XLA's transpose, no "
+                    "pl.pallas_call)")
+        shape = (f"({main['m']}, {main['k']}, {main['n']}; {main['groups']} "
+                 f"groups) bf16 x, fp32 w (mixtral-8x7b gate/up)")
+    mine = main[part]
+    return dict(
+        name=name, route="cuda", source="src/repro_torch/kernels/" + source,
+        replaces=replaces, launches=launches,
+        launches_from=f"train, {run['argv'][1]} {run['reduced']}, "
+                      f"{run['steps_run']} steps",
+        launches_card_vs_cpu={k: c["launches"].get(
+            "flash_attention_bwd" if flash else "ragged_dot_bwd", 0)
+            for k, c in checks.items()},
+        max_abs_err=err, ms=mine["ms"], ms_both_kernels=main["ms"],
+        plain_ms=mine["plain_ms"], bound_ms=mine["bound_ms"],
+        bound_by=mine["bound_by"],
+        library_ms=main["library_ms"] if flash else mine["library_ms"],
+        library=main["library"] + " (dq, dk and dv in one call)" if flash
+        else mine["library"],
+        shape=shape,
+        path_shapes=[dict(case=r.get("case") or f"{r['arch']} {r['label']}",
+                          dtype=r.get("dtype") or r["x"],
+                          ms=r[part]["ms"], bound_ms=r[part]["bound_ms"],
+                          plain_ms=r[part]["plain_ms"])
+                     for r in rows])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3511,14 +3999,21 @@ def main() -> int:
                  path_err["flash"])
 
     # ---- 24-26. training: launch.train.main on lm100m (a failure and a
-    # restart) and zamba2-1.2b uncut; the SSD backward kernel against its
-    # plain version; one fp32 step on the card against the host
-    train_row, bwd_capture = llm_train(dev, card)
+    # restart), zamba2-1.2b uncut, mixtral, deepseek and gemma3 cut in
+    # depth; the three backward kernels against their plain versions; one
+    # fp32 step on the card against the host
+    train_row, bwd_capture, moe_caps = llm_train(dev, card)
     emit(train_row)
     bwd_row = ssd_bwd_vs_plain(dev, bwd_capture)
     emit(bwd_row)
     del bwd_capture
     free_model()
+    rd_bwd_row = ragged_bwd_vs_plain(dev, moe_caps)
+    emit(rd_bwd_row)
+    del moe_caps
+    free_model()
+    fa_bwd_row = flash_bwd_vs_plain(dev, captured)
+    emit(fa_bwd_row)
     check_row = train_card_vs_cpu(dev)
     emit(check_row)
 
@@ -3686,7 +4181,8 @@ def main() -> int:
              launches=zamba_train["launches"]["ssd_bwd"],
              launches_from=f"train, {LLM_ARCH} uncut, "
                            f"{zamba_train['steps_run']} steps",
-             launches_card_vs_cpu=check_row["launches"]["ssd_bwd"],
+             launches_card_vs_cpu=check_row["runs"][LLM_ARCH]["launches"][
+                 "ssd_bwd"],
              max_abs_err=max(bwd_main["max_abs_err"].values()),
              ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
              bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
@@ -3701,7 +4197,11 @@ def main() -> int:
              path_shapes=[{k: r[k] for k in (
                  "case", "dtype", "shape", "n", "chunk", "ms", "plain_ms",
                  "bound_ms", "bound_by", "max_abs_err")}
-                 for r in bwd_row["cases"] if "ms" in r])],
+                 for r in bwd_row["cases"] if "ms" in r])] + [
+        backward_row(part, rd_bwd_row, fa_bwd_row, train_row["runs"],
+                     check_row["runs"])
+        for part in ("ragged_dot_dx", "ragged_dot_dw", "flash_bwd_dq",
+                     "flash_bwd_dkdv")],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,11 @@ and ``ops.py`` (the checked wrapper):
                     ``flash_attention.cu`` (split-TF32 operands,
                     3xTF32: wgmma up to D = 64; past it P V on
                     mma.sync, S in fp32 on the CUDA cores); head dims
-                    up to 256 on both
+                    up to 256 on both; and its backward,
+                    ``flash_attention_bwd`` (the dq kernel, then the
+                    dk/dv kernel: mma.sync for bf16, the CUDA cores for
+                    fp32), fed the forward's row LSE, the training
+                    path's past 4096^2 (query, key) pairs
 - ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
                     layer's prefill (replaces
                     ``repro/kernels/ssd/kernel.py::ssd_pallas``).  Two
@@ -58,13 +62,19 @@ and ``ops.py`` (the checked wrapper):
                     the port's counterpart of
                     ``jax.lax.ragged_dot`` in
                     ``repro/models/moe.py::moe_ffn``, an XLA operation
-                    with no Pallas kernel behind it
+                    with no Pallas kernel behind it; and its backward,
+                    ``ragged_dot_bwd`` (dx and dw on mma.sync for bf16
+                    x, the CUDA cores for fp32), the training path's
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Under
-autograd on the card, ``ssd`` runs its backward kernel; ``flash_attention``
-and ``ragged_dot`` have no backward kernel yet (ROADMAP Queue 2) and
-raise rather than hand back results that carry no gradient.  Each
+autograd each of ``ssd``, ``flash_attention`` and ``ragged_dot`` is one
+`torch.autograd.Function` whose backward runs its backward kernels on
+the card (``ssd_bwd``; flash's dq and dk/dv kernels in
+``flash_attention/csrc/flash_attention_bwd.cu``; the grouped product's
+dx and dw kernels in ``ragged_dot/csrc/ragged_dot_bwd.cu``), each
+counted as ``LAUNCHES[name + "_bwd"]`` and its route, and the plain
+backward on the CPU.  Each
 wrapper call that launches adds one to ``LAUNCHES[name]`` through
 `count_launch`, so a run can show which kernels its path went through;
 a kernel with more than one route also adds one to the route it took:
@@ -99,7 +109,12 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "ssd_bwd": 0, "ssd_bwd_bf16": 0,
                              "ssd_bwd_fp32": 0,
                              "ragged_dot": 0, "ragged_dot_wgmma": 0,
-                             "ragged_dot_mma": 0, "ragged_dot_fp32": 0}
+                             "ragged_dot_mma": 0, "ragged_dot_fp32": 0,
+                             "ragged_dot_bwd": 0, "ragged_dot_bwd_bf16": 0,
+                             "ragged_dot_bwd_fp32": 0,
+                             "flash_attention_bwd": 0,
+                             "flash_attention_bwd_bf16": 0,
+                             "flash_attention_bwd_fp32": 0}
 
 
 def count_launch(name: str, route: str | None = None) -> None:

@@ -35,6 +35,8 @@ SOURCES = {
     "ssd_bwd": ("ssd/csrc/ssd_bwd.cu",),
     "ssd_bwd_tc": ("ssd/csrc/ssd_bwd_tc.cu",),
     "ragged_dot": ("ragged_dot/csrc/ragged_dot.cu",),
+    "ragged_dot_bwd": ("ragged_dot/csrc/ragged_dot_bwd.cu",),
+    "flash_attention_bwd": ("flash_attention/csrc/flash_attention_bwd.cu",),
 }
 
 #: library name -> headers its sources include, hashed with them so an
@@ -45,7 +47,11 @@ HEADERS = {
     "flash_attention": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
     "flash_attention_tc": ("csrc/sm90.cuh",),
     "ssd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
-    "ragged_dot": ("csrc/sm90.cuh",),
+    "ragged_dot": ("csrc/sm90.cuh", "csrc/mma_bf16.cuh",
+                   "ragged_dot/csrc/ragged_items.cuh"),
+    "ragged_dot_bwd": ("csrc/sm90.cuh", "csrc/mma_bf16.cuh",
+                       "ragged_dot/csrc/ragged_items.cuh"),
+    "flash_attention_bwd": ("csrc/sm90.cuh", "csrc/mma_bf16.cuh"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,7 +13,11 @@
 // over the keys j visible from the query's absolute position
 // qp = q_offset + i: j < sk, j <= qp and, with window > 0,
 // qp - j < window; g = Hq / Hkv and scale = D^-0.5.  A row with no
-// visible key gives 0, as the plain version's guards give.
+// visible key gives 0, as the plain version's guards give.  With a
+// non-null lse (B, Hq, Sq) it also writes each row's log-sum-exp of its
+// scaled logits (-inf for a row with no visible key), which the backward
+// (flash_attention_bwd.cu) reads; the output is the same either way, bit
+// for bit.
 //
 // Products.  A TF32 value keeps 10 explicit mantissa bits, so the product
 // of two is exact in fp32.  Each fp32 operand x is split as hi = tf32(x),
@@ -140,9 +144,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 template <int NP>
 __global__ void __launch_bounds__(Cfg<NP>::kThreads, 1)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-          int hq, int hkv, int d, int q_offset, int window, float scale,
-          int vec) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int sq, int sk, int hq, int hkv, int d,
+          int q_offset, int window, float scale, int vec) {
   using C = Cfg<NP>;
   constexpr int kBK = C::kBK, kLd = C::kLd, kStages = C::kStages;
   constexpr int kThreads = C::kThreads, kBQ = C::kBQ;
@@ -337,6 +341,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = row_lo + 8 * r;
+    if (lse != nullptr && tq == 0 && qi < sq)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qi] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
     l[r] = fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -378,9 +386,9 @@ constexpr int kSmemBytes = 1024 + kRaw + kStages * 2 * kRawTile;
 
 __global__ void __launch_bounds__(wg::kThreads, 1)
 fa_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int sq,
-                int sk, int hq, int hkv, int d, int q_offset, int window,
-                float scale, int vec) {
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int sq, int sk, int hq, int hkv,
+                int d, int q_offset, int window, float scale, int vec) {
   using namespace wg;
   static_assert(kPasses == 3, "three wgmma a step: hi lo, lo hi, hi hi");
   extern __shared__ uint8_t smem_raw[];
@@ -615,6 +623,10 @@ fa_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = row_lo + 8 * r;
+    if (lse != nullptr && tq == 0 && qi < sq)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qi] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
     l[r] = fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -633,8 +645,9 @@ fa_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
-                 int window, float scale, int vec, cudaStream_t stream) {
+                 void* lse, int b, int sq, int sk, int hq, int hkv, int d,
+                 int q_offset, int window, float scale, int vec,
+                 cudaStream_t stream) {
   const int n_qt = (sq + wg::kBQ - 1) / wg::kBQ;
   if (b > 65535 || n_qt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -645,15 +658,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   fa_wgmma_kernel<<<dim3(hq, b, n_qt), wg::kThreads, wg::kSmemBytes,
                     stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq, hkv, d,
-      q_offset, window, scale, vec);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset, window, scale,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NP>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int hq, int hkv, int d, int q_offset, int window,
-           float scale, int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
+           int window, float scale, int vec, cudaStream_t stream) {
   using C = Cfg<NP>;
   const int n_qt = (sq + C::kBQ - 1) / C::kBQ;
   if (b > 65535 || n_qt > 65535)
@@ -664,19 +678,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (err != cudaSuccess) return static_cast<int>(err);
   fa_kernel<NP><<<dim3(hq, b, n_qt), C::kThreads, C::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq, hkv, d,
-      q_offset, window, scale, vec);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset, window, scale,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); o: (B, Sq, Hq, D), all
-// contiguous float32; 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means
-// none; scale = D^-0.5; vec != 0 when D % 4 == 0 and every pointer is
-// 16-byte aligned (the cp.async route).
+// contiguous float32; lse: (B, Hq, Sq) float32, or null to write none;
+// 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means none; scale = D^-0.5;
+// vec != 0 when D % 4 == 0 and every pointer is 16-byte aligned (the
+// cp.async route).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, void* lse,
                                       int b, int sq, int sk, int hq,
                                       int hkv, int d, int q_offset,
                                       int window, float scale, int vec,
@@ -687,16 +703,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 63) / 64) {   // 64-column panels of D
     case 1:
-      return launch_wgmma(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset,
+      return launch_wgmma(q, k, v, o, lse, b, sq, sk, hq, hkv, d, q_offset,
                           window, scale, vec, s);
     case 2:
-      return launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale, vec, s);
+      return launch<2>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale, vec, s);
     case 3:
-      return launch<3>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale, vec, s);
+      return launch<3>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale, vec, s);
     default:
-      return launch<4>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale, vec, s);
+      return launch<4>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale, vec, s);
   }
 }

@@ -13,7 +13,10 @@
 // over the keys j visible from the query's absolute position
 // qp = q_offset + i: j < sk, j <= qp and, with window > 0,
 // qp - j < window; g = Hq / Hkv and scale = D^-0.5.  A row with no
-// visible key gives 0.
+// visible key gives 0.  With a non-null lse (B, Hq, Sq) it also writes
+// each row's log-sum-exp of its scaled logits (natural log; -inf for a
+// row with no visible key), which the backward (flash_attention_bwd.cu)
+// reads; the output is the same either way, bit for bit.
 //
 // Bound.  At the path's shape (1, 8192, 32, 64), causal, the products
 // are 4 D FLOP per visible (query, key) pair, 2.75e11 FLOP: 0.28 ms at
@@ -173,9 +176,9 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
 template <int NP>
 __global__ void __launch_bounds__(kThreads, NP == 1 && kWG == 2 ? 2 : 1)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-             int hq, int hkv, int d, int q_offset, int window,
-             float scale_log2, int vec) {
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int sq, int sk, int hq, int hkv, int d,
+             int q_offset, int window, float scale_log2, int vec) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   constexpr int kStages = ring_stages(NP);
@@ -438,6 +441,12 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // LSE = ln sum exp(s scale) = (m c + log2 l) ln 2, c = scale log2(e).
+    const int qi = row_lo + 8 * r;
+    if (lse != nullptr && quad == 0 && qi < sq)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qi] =
+          l[r] > 0.f ? (m[r] * scale_log2 + log2f(l[r])) * 0.69314718f
+                     : -INFINITY;
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -459,9 +468,9 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int NP>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int hq, int hkv, int d, int q_offset, int window,
-           float scale_log2, int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
+           int window, float scale_log2, int vec, cudaStream_t stream) {
   const int bytes = 1024 + NP * (kBQ + 2 * ring_stages(NP) * kBK) * 128;
   cudaError_t err = cudaFuncSetAttribute(
       fa_tc_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -469,21 +478,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   fa_tc_kernel<NP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, hq, hkv, d,
-      q_offset, window, scale_log2, vec);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset, window,
+      scale_log2, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); o: (B, Sq, Hq, D), all
-// contiguous bfloat16; 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means
-// none; scale_log2 = D^-0.5 log2(e); vec != 0 when D % 8 == 0 and every
+// contiguous bfloat16; lse: (B, Hq, Sq) float32, or null to write none;
+// 1 <= D <= 256, Hq % Hkv == 0, window <= 0 means none;
+// scale_log2 = D^-0.5 log2(e); vec != 0 when D % 8 == 0 and every
 // pointer is 16-byte aligned (the cp.async route).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int b,
-                                         int sq, int sk, int hq, int hkv,
-                                         int d, int q_offset, int window,
+                                         const void* v, void* o,
+                                         void* lse, int b, int sq, int sk,
+                                         int hq, int hkv, int d,
+                                         int q_offset, int window,
                                          float scale_log2, int vec,
                                          void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
@@ -492,16 +504,16 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 63) / 64) {
     case 1:
-      return launch<1>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale_log2, vec, s);
+      return launch<1>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale_log2, vec, s);
     case 2:
-      return launch<2>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale_log2, vec, s);
+      return launch<2>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale_log2, vec, s);
     case 3:
-      return launch<3>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale_log2, vec, s);
+      return launch<3>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale_log2, vec, s);
     default:
-      return launch<4>(q, k, v, o, b, sq, sk, hq, hkv, d, q_offset, window,
-                       scale_log2, vec, s);
+      return launch<4>(q, k, v, o, lse, b, sq, sk, hq, hkv, d,
+                       q_offset, window, scale_log2, vec, s);
   }
 }

@@ -107,7 +107,9 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "ragged_items.cuh"
 
 namespace {
 
@@ -130,65 +132,6 @@ struct __align__(16) Stage {
   __nv_bfloat16 a[BM * A_LD];
   __nv_bfloat16 b[BK * B_LD];
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// This block's work item, the blockIdx.y-th (segment, row tile) pair in
-// row order, into item = {segment, tile's first row, lo, hi}; false when
-// there is none (the grid counts the most there can be).  Segment 0 is
-// the rows before offsets[0], segment s in [1, groups] group s - 1,
-// segment groups + 1 the rows past offsets[groups]; the first and last
-// are written as zeros.  Each segment starts where the one before it
-// ended (offsets that go down make empty groups), so every row belongs
-// to exactly one.  Thread 0 walks the offsets; the block reads item.
-template <int TILE>
-__device__ __forceinline__ bool find_item(const int* __restrict__ offsets,
-                                          int m, int groups, int (&item)[4]) {
-  if (threadIdx.x == 0) {
-    int left = blockIdx.y, found = -1, prev = 0;
-    for (int sg = 0; sg <= groups + 1 && found < 0; ++sg) {
-      int lo = sg == 0 ? 0 : offsets[sg - 1];
-      int hi = sg == 0 ? offsets[0] : sg <= groups ? offsets[sg] : m;
-      lo = min(max(lo, prev), m);
-      hi = min(max(hi, lo), m);
-      prev = hi;
-      if (lo >= hi) continue;
-      const int t0 = lo / TILE, count = (hi - 1) / TILE - t0 + 1;
-      if (left < count) {
-        found = sg;
-        item[1] = (t0 + left) * TILE;
-        item[2] = max(lo, item[1]);
-        item[3] = min(hi, item[1] + TILE);
-      }
-      left -= count;
-    }
-    item[0] = found;
-  }
-  __syncthreads();
-  return item[0] >= 0;
-}
 
 // One K slice [kb, kb + BK) into a ring stage: A is rows [m0, m0 + BM)
 // of x, zero outside [lo, hi); B is rows [kb, kb + BK) of the group's

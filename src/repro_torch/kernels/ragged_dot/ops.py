@@ -21,16 +21,23 @@ The kernels read the offsets on the card, so a call makes no host sync.
 Every launch adds one to ``LAUNCHES["ragged_dot"]`` and one to the
 route it took: ``LAUNCHES["ragged_dot_wgmma"]``,
 ``LAUNCHES["ragged_dot_mma"]`` or ``LAUNCHES["ragged_dot_fp32"]``.
-There is no backward kernel yet (ROADMAP Queue 2): a CUDA call under
-autograd (grad enabled and x or w requiring it) raises
-`NotImplementedError`.
+
+Under autograd (grad enabled and x or w requiring it) a call is one
+`torch.autograd.Function` on every device, whose backward is
+`ragged_dot_bwd`: on the CPU the plain version
+(`ref.ragged_dot_bwd_ref`), on the card the two kernels of
+``csrc/ragged_dot_bwd.cu`` (``ragged_dot_dx``: dx = dy w[g]^T,
+``ragged_dot_dw``: dw[g] = x[rows_g]^T dy[rows_g]): bf16 x on mma.sync
+(fp32 weights rounded on load, dw rounded to bf16 and written in w's
+type), fp32 on the CUDA cores.  Each backward call adds one to
+``LAUNCHES["ragged_dot_bwd"]`` and to ``["ragged_dot_bwd_bf16"]`` or
+``["ragged_dot_bwd_fp32"]``.
 
 On the ``meta`` device (the dry run's) a call takes the CUDA route's
-checks and returns an (M, N) output of x's type, computing nothing and
-launching nothing; under autograd it is a `torch.autograd.Function` whose
-backward gives gradients of x's and w's shapes and types.  On every
-device each call tells the op counters its dot FLOPs (`flops`, twice that
-for a meta backward; `kernels.kernel_work`).
+checks and returns outputs of the right shapes and types, computing
+nothing and launching nothing, its backward too.  On every device each
+call tells the op counters its dot FLOPs (`flops`, and twice that for the
+backward; `kernels.kernel_work`).
 """
 
 from __future__ import annotations
@@ -41,9 +48,10 @@ import torch
 
 from .. import count_launch, kernel_work, tensor_bytes
 from .._build import load
-from .ref import ragged_dot_ref
+from .ref import ragged_dot_bwd_ref, ragged_dot_ref
 
 _NAME = "ragged_dot"
+_BWD = "ragged_dot_bwd"   # the backward's library and launch count
 #: (x's type, w's types) the wrapper takes.
 _PAIRS = {torch.float32: (torch.float32,),
           torch.bfloat16: (torch.bfloat16, torch.float32)}
@@ -118,15 +126,15 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
     if route not in (None, "wgmma", "mma"):
         raise ValueError(f"route must be None, 'wgmma' or 'mma', not "
                          f"{route!r}")
-    if x.device.type == "cpu":
-        with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
-            return ragged_dot_ref(x, w, group_offsets)
-    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if grad and not x.is_meta:
-        raise NotImplementedError(
-            f"{_NAME} has no backward kernel yet (ROADMAP Queue 2: "
-            f"ragged_dot's backward), so the moe family does not train on "
-            f"the card")
+    if x.device.type != "cpu":
+        _check_cuda(x, w, group_offsets)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RaggedDot.apply(x, w, group_offsets, route)
+    return _forward(x, w, group_offsets, route)
+
+
+def _check_cuda(x, w, group_offsets) -> None:
+    """What the CUDA kernels (forward and backward) take."""
     if x.dtype not in _PAIRS:
         raise TypeError(f"{_NAME} takes float32 or bfloat16, not {x.dtype}")
     if group_offsets.dtype != torch.int32:
@@ -138,9 +146,12 @@ def ragged_dot(x, w, group_offsets, *, route: str | None = None):
     groups, _, n = w.shape
     if max(m, k, n, groups) >= 2**31:
         raise ValueError(f"{_NAME}: a size is out of range")
-    if grad:
-        return _MetaRaggedDot.apply(x, w, group_offsets)
+
+
+def _forward(x, w, group_offsets, route):
     with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
+        if x.device.type == "cpu":
+            return ragged_dot_ref(x, w, group_offsets)
         return _launch(x, w, group_offsets, route)
 
 
@@ -184,22 +195,85 @@ def _launch(x, w, group_offsets, route):
     return y
 
 
-class _MetaRaggedDot(torch.autograd.Function):
-    """`ragged_dot` on meta tensors under autograd: the output, and in
-    the backward the gradients of x and w, by shape only, counted at
-    `flops` and twice that (dx = dy w^T and dw = x^T dy per group)."""
+class _RaggedDot(torch.autograd.Function):
+    """`ragged_dot` under autograd, on every device: the forward above,
+    and `ragged_dot_bwd` on the saved inputs."""
 
     @staticmethod
-    def forward(ctx, x, w, group_offsets):
+    def forward(ctx, x, w, group_offsets, route):
         ctx.save_for_backward(x, w, group_offsets)
-        with kernel_work(_NAME, lambda: _work(x, w, group_offsets)):
-            return torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
-                               device=x.device)
+        return _forward(x, w, group_offsets, route)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, group_offsets = ctx.saved_tensors
-        with kernel_work(_NAME + "_bwd", lambda: (
-                2 * _work(x, w, group_offsets)[0],
-                2 * tensor_bytes(x, w) + tensor_bytes(dy, group_offsets))):
-            return torch.empty_like(x), torch.empty_like(w), None
+        dx, dw = ragged_dot_bwd(x, w, group_offsets, dy)
+        need_x, need_w = ctx.needs_input_grad[:2]
+        return dx if need_x else None, dw if need_w else None, None, None
+
+
+def _bwd_launcher(symbol: str):
+    fn = getattr(load(_BWD), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ragged_dot_bwd(x, w, group_offsets, dy):
+    """The gradients of `ragged_dot` on x and w given ``dy`` (M, N):
+    (dx in x's type, dw in w's type), as `ref.ragged_dot_bwd_ref`.  CPU
+    tensors take that plain version; CUDA tensors the two kernels of
+    ``csrc/ragged_dot_bwd.cu``, or the call raises; meta tensors the
+    CUDA route's checks, and outputs only."""
+    _check(x, w, group_offsets)
+    m, n = x.shape[0], w.shape[2]
+    if not isinstance(dy, torch.Tensor) or tuple(dy.shape) != (m, n) or \
+            dy.device != x.device:
+        raise ValueError(f"dy must be ({m}, {n}) on {x.device}")
+
+    def work():
+        # Bytes: x, w, dy and the offsets read, dx and dw written.
+        return (2 * _work(x, w, group_offsets)[0],
+                2 * tensor_bytes(x, w) + tensor_bytes(dy, group_offsets))
+    if x.device.type == "cpu":
+        with kernel_work(_BWD, work):
+            return ragged_dot_bwd_ref(x, w, group_offsets, dy)
+    _check_cuda(x, w, group_offsets)
+    with kernel_work(_BWD, work):
+        return _launch_bwd(x, w, group_offsets, dy)
+
+
+def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
+    """(dx, dw): both kernels (``parts`` 3), or the dx kernel alone (1)
+    or the dw kernel alone (2), for timing each (the one not launched is
+    left unwritten)."""
+    m, k = x.shape
+    groups, _, n = w.shape
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.is_meta:
+        return dx, dw
+    dy = dy.to(x.dtype).contiguous()
+    fp32 = x.dtype == torch.float32
+    ptrs = (x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), dw.data_ptr())
+    # cp.async moves 16 bytes: rows of whole chunks of 8 from 16-byte
+    # bases (fp32 weights then load as pairs of float4).
+    vec = int(k % 8 == 0 and n % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    args = (m, k, n, groups, vec, int(fp32), int(w.dtype == torch.float32))
+    x_p, w_p, o_p, dy_p, dx_p, dw_p = ptrs
+    err = 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if parts & 1:
+            err = _bwd_launcher("ragged_dot_dx_launch")(
+                dy_p, w_p, o_p, dx_p, *args, stream)
+        if err == 0 and parts & 2:
+            err = _bwd_launcher("ragged_dot_dw_launch")(
+                x_p, dy_p, o_p, dw_p, *args, stream)
+    route = "fp32" if fp32 else "bf16"
+    if err != 0:
+        raise RuntimeError(f"{_BWD} ({route}) launch failed: error {err}")
+    if parts == 3:
+        count_launch(_BWD, route)
+    return dx, dw

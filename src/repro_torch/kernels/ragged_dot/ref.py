@@ -17,19 +17,58 @@ from __future__ import annotations
 import torch
 
 
+def group_rows(group_offsets: torch.Tensor, m: int):
+    """Each group's rows ``(g, lo, hi)``, clamped as the kernels clamp
+    them: a group starts where the one before it ended, and no row past
+    M (offsets that go down make empty groups)."""
+    offs = group_offsets.tolist()
+    prev = 0
+    for g in range(len(offs) - 1):
+        lo = min(max(offs[g], prev), m)
+        hi = min(max(offs[g + 1], lo), m)
+        prev = hi
+        yield g, lo, hi
+
+
 def ragged_dot_ref(x: torch.Tensor, w: torch.Tensor,
                    group_offsets: torch.Tensor) -> torch.Tensor:
     """x (M, K), w (G, K, N), group_offsets (G + 1,) int -> (M, N) in
     x's type."""
     m, n = x.shape[0], w.shape[2]
     out = torch.zeros((m, n), dtype=x.dtype, device=x.device)
-    offs = group_offsets.tolist()
-    prev = 0
-    for g in range(w.shape[0]):
-        lo = min(max(offs[g], prev), m)
-        hi = min(max(offs[g + 1], lo), m)
-        prev = hi
+    for g, lo, hi in group_rows(group_offsets, m):
         if hi > lo:
             out[lo:hi] = (x[lo:hi].float() @ w[g].to(x.dtype).float()) \
                 .to(x.dtype)
     return out
+
+
+def ragged_dot_bwd_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_offsets: torch.Tensor, dy: torch.Tensor):
+    """The gradients of `ragged_dot_ref` given dy (M, N): (dx (M, K) in
+    x's type, zero outside the groups; dw (G, K, N) in w's type, each
+    group's sum rounded to x's type first, zero for an empty group)."""
+    return (ragged_dot_dx_ref(x, w, group_offsets, dy),
+            ragged_dot_dw_ref(x, w, group_offsets, dy))
+
+
+def ragged_dot_dx_ref(x, w, group_offsets, dy) -> torch.Tensor:
+    """dx alone: dy w[g]^T for each row's group (`ragged_dot_bwd_ref`)."""
+    dx = torch.zeros_like(x)
+    dyf = dy.float()
+    for g, lo, hi in group_rows(group_offsets, x.shape[0]):
+        if hi > lo:
+            dx[lo:hi] = (dyf[lo:hi] @ w[g].to(x.dtype).float().T) \
+                .to(x.dtype)
+    return dx
+
+
+def ragged_dot_dw_ref(x, w, group_offsets, dy) -> torch.Tensor:
+    """dw alone: x[rows_g]^T dy[rows_g] for each group
+    (`ragged_dot_bwd_ref`)."""
+    dw = torch.zeros_like(w)
+    dyf = dy.float()
+    for g, lo, hi in group_rows(group_offsets, x.shape[0]):
+        if hi > lo:
+            dw[g] = (x[lo:hi].float().T @ dyf[lo:hi]).to(x.dtype)
+    return dw

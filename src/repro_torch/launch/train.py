@@ -8,19 +8,22 @@ device (``device=None`` means ``cuda``; the CPU only when asked for).
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
 ``--arch lm100m`` (the default) trains the ~100M-parameter dense model
-`LM100M`.  It trains on one card: `build` hands the planner the
-one-device mesh (`launch.mesh.make_smoke_mesh`), prints its plan and
-installs no sharding rules (`launch.dryrun` traces the production
-meshes' plans on the ``meta`` device).  On the
-card the Mamba2 layers' SSD scan runs its forward and backward kernels;
-the moe family (`ragged_dot`) and attention over more than 4096^2
-(query, key) pairs (flash attention) have no backward kernel yet and
-raise (ROADMAP Queue 2).
+`LM100M`; ``--layers N`` cuts a config to its first N layers at its
+published widths (what fits one card).  It trains on one card: `build`
+hands the planner the one-device mesh (`launch.mesh.make_smoke_mesh`),
+prints its plan and installs no sharding rules (`launch.dryrun` traces
+the production meshes' plans on the ``meta`` device).  Every family
+trains on the card through hand-written forward and backward kernels:
+the Mamba2 layers' SSD scan (`ssd`, `ssd_bwd`), the moe family's grouped
+products (`ragged_dot` and its dx/dw kernels) and attention over more
+than 4096^2 (query, key) pairs (flash attention and its dQ and dK/dV
+kernels); the rest is plain torch under autograd.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -67,6 +70,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="lm100m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced SMOKE_CONFIG")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -86,6 +91,8 @@ def main(argv=None):
         cfg = get_smoke_config(args.arch)
     else:
         cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     state, train_step, data, plan = build(
         cfg, batch=args.batch, seq=args.seq, lr=args.lr, steps=args.steps,

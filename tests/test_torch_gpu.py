@@ -28,9 +28,12 @@ threads.  Training: the SSD backward kernels (`ssd_bwd`: bf16 on the
 tensor cores, `csrc/ssd_bwd_tc.cu`; fp32 on the CUDA cores,
 `csrc/ssd_bwd.cu`) against autograd through the plain scan (tolerances
 at `SSD_BWD_GPU_CASES`), bit for bit from call to call, each dtype on
-its own library, behind `ops.ssd`'s autograd; flash
-attention and `ragged_dot` raise under autograd; and one train step of
-the zamba2 smoke model on the card against the CPU.
+its own library, behind `ops.ssd`'s autograd; the backward kernels of
+`ragged_dot` (`csrc/ragged_dot_bwd.cu`, at the forward's tolerances) and
+of flash attention (`csrc/flash_attention_bwd.cu`, 1e-5 max |ref| in
+fp32, 1e-2 in bf16) against their plain versions, bit for bit from call
+to call, behind the wrappers' autograd; and one train step of the zamba2
+smoke model on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -1063,21 +1066,194 @@ def test_ssd_autograd_on_the_card_takes_the_backward_kernel(cuda, dtype):
 
 
 def test_flash_and_ragged_dot_raise_under_grad(cuda):
+    """Under autograd on the card both wrappers no longer raise: each
+    call is an autograd Function whose forward launches the forward
+    kernel once and whose backward launches the backward kernels once;
+    with grad off (serving) no Function is made."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ragged_dot import ragged_dot
     q, k, v = _flash_case(1, 64, 64, 2, 2, 64, torch.bfloat16, cuda, 0)
-    before = dict(LAUNCHES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q.requires_grad_(), k, v)
     x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.randn(2, 64, 32, device=cuda, requires_grad=True)
     offsets = torch.tensor([0, 4, 8], dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ragged_dot(x, w, offsets)
-    assert LAUNCHES == before
-    with torch.no_grad():                  # serving: the kernels run
-        flash_attention(q, k, v)
-        ragged_dot(x, w, offsets)
+    before = dict(LAUNCHES)
+    out = flash_attention(q.requires_grad_(), k, v)
+    y = ragged_dot(x, w, offsets)
+    assert out.grad_fn is not None and y.grad_fn is not None
+    (out.float().sum() + y.float().sum()).backward()
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert moved["flash_attention"] == moved["flash_attention_bwd"] == 1
+    assert moved["ragged_dot"] == moved["ragged_dot_bwd"] == 1
+    assert q.grad is not None and w.grad is not None
+    with torch.no_grad():                  # serving: no Function
+        assert flash_attention(q, k, v).grad_fn is None
+        assert ragged_dot(x, w, offsets).grad_fn is None
+
+
+# ---------------------------------------------- the two backward pairs
+# ragged_dot's backward (csrc/ragged_dot_bwd.cu) against the plain
+# backward on the same inputs: bf16 within one bf16 ulp (1e-4 + 2^-7
+# |ref|: both sum in fp32 and round once), fp32 within 1e-4 + 1e-5 |ref|.
+RAGGED_BWD_CASES = [
+    (8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
+    (257, 64, 96, [257]), (129, 64, 128, [0, 0, 129, 0]),
+    (300, 70, 198, [0, 100, 0, 150, 40]),   # K, N off 8: plain loads
+    (200, 64, 100, [50] * 4), (1000, 256, 384, [100, 0, 300, 250, 0, 350]),
+    (600, 2048, 1408, [10] * 60 + [0] * 4),  # deepseek's widths
+    (520, 128, 4104, [300, 0, 220]), (50, 64, 64, [0, 0, 0])]
+
+
+def _ragged_bwd_ok(got, want, dtype) -> bool:
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    d = (got.float() - want.float()).abs()
+    return bool((d <= 1e-4 + rtol * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("route", ["bf16-fp32w", "bf16-bf16w", "fp32"])
+@pytest.mark.parametrize("case", RAGGED_BWD_CASES, ids=str)
+def test_ragged_dot_bwd_equals_plain_version(cuda, case, route):
+    """dx and dw against `ragged_dot_bwd_ref` (rows past the groups and
+    before them, empty groups, unaligned K and N, one group holding every
+    row, groups across tile edges), one counted launch on its route, and
+    the same bits from a second call."""
+    from repro_torch.kernels.ragged_dot import ops
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_bwd_ref
+    m, k, n, sizes = case
+    x, w, offs = _ragged(*case, cuda)
+    if route == "bf16-bf16w":
+        w = w.bfloat16()
+    elif route == "fp32":
+        x = x.float()
+    offs = offs + 3 if m > 3 + int(offs[-1]) else offs   # rows before
+    gen = torch.Generator().manual_seed(m)
+    dy = torch.randn((m, n), generator=gen).to(x.dtype).to(cuda)
+    before = _route_counts("ragged_dot_bwd")
+    dx, dw = ops.ragged_dot_bwd(x, w, offs, dy)
+    torch.cuda.synchronize()
+    assert _route_counts("ragged_dot_bwd") == _moved("ragged_dot_bwd",
+                                                     before, x.dtype)
+    want = ragged_dot_bwd_ref(x, w, offs, dy)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    assert _ragged_bwd_ok(dx, want[0], x.dtype)
+    assert _ragged_bwd_ok(dw, want[1], x.dtype)
+    again = ops.ragged_dot_bwd(x, w, offs, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+def test_ragged_dot_bwd_unaligned_bases(cuda):
+    """Inputs 2 elements into their storage take the plain loads."""
+    from repro_torch.kernels.ragged_dot import ops
+    from repro_torch.kernels.ragged_dot.ref import ragged_dot_bwd_ref
+    x, w, offs = _ragged(200, 64, 96, [50, 0, 150], cuda)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 2, dtype=t.dtype,
+                          device=cuda)[2:].view(t.shape)
+        return out.copy_(t)
+    dy = torch.randn(200, 96, device=cuda).bfloat16()
+    dx, dw = ops.ragged_dot_bwd(shifted(x), shifted(w), offs, shifted(dy))
+    want = ragged_dot_bwd_ref(x, w, offs, dy)
+    assert _ragged_bwd_ok(dx, want[0], torch.bfloat16)
+    assert _ragged_bwd_ok(dw, want[1], torch.bfloat16)
+
+
+# Flash attention's backward (csrc/flash_attention_bwd.cu) on the card's
+# own forward output and LSE, against the plain backward on fp32 copies
+# of the same inputs: each gradient within 1e-5 max |ref| in fp32 (the
+# orders of fp32 sums) and 1e-2 max |ref| in bf16 (the bf16 design's
+# tolerance, fixed by tests/test_torch_flash_bwd.py's emulation).
+FA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FA_BWD_CASES = [
+    (2, 128, 128, 4, 2, 64, None, 0), (1, 256, 256, 4, 4, 32, None, 0),
+    (2, 128, 384, 4, 1, 64, None, 256), (1, 256, 256, 8, 2, 64, 100, 0),
+    (1, 64, 64, 2, 2, 128, 16, 0), (1, 100, 70, 2, 1, 48, 0, 3),
+    (1, 96, 96, 2, 1, 32, None, -40),        # rows that see no key
+    (2, 300, 333, 8, 2, 128, None, 0), (1, 200, 260, 8, 2, 48, 70, 60),
+    (1, 777, 900, 4, 1, 64, 300, 123), (1, 150, 170, 4, 2, 5, None, 0),
+    (1, 200, 260, 8, 2, 44, 70, 60), (1, 300, 300, 8, 4, 256, None, 0),
+    (1, 300, 300, 8, 4, 256, 100, 0), (1, 200, 230, 4, 2, 192, 50, 30),
+    (1, 129, 129, 2, 1, 200, None, 0), (1, 1, 512, 4, 2, 64, None, 511)]
+
+
+def _flash_bwd_case(case, dtype, device, seed=0):
+    from repro_torch.kernels.flash_attention import ops
+    b, sq, sk, hq, hkv, d, win, off = case
+    q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, device, seed)
+    out, lse = ops._forward(q, k, v, off, win, 512, True)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn((b, sq, hq, d), generator=g).to(dtype).to(device)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_BWD_CASES, ids=str)
+def test_flash_bwd_equals_plain_version(cuda, case, dtype):
+    """dq, dk and dv against `flash_attention_bwd_ref` (GQA, windows,
+    q_offset on both sides of 0, D off 8 and 64, D up to 256), one
+    counted launch on its route, the same bits from a second call; and
+    the forward's LSE against the plain forward's."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    *_, win, off = case
+    args = _flash_bwd_case(case, dtype, cuda)
+    q, k, v, out, lse, do = args
+    _, want_lse = flash_attention_ref(q.float(), k.float(), v.float(),
+                                      q_offset=off, window=win,
+                                      return_lse=True)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert ((lse - want_lse)[fin].abs() <=
+            1e-5 + 1e-5 * want_lse[fin].abs()).all()
+    before = _route_counts("flash_attention_bwd")
+    got = ops.flash_attention_bwd(*args, q_offset=off, window=win)
+    torch.cuda.synchronize()
+    assert _route_counts("flash_attention_bwd") == _moved(
+        "flash_attention_bwd", before, dtype)
+    want = flash_attention_bwd_ref(*(t.float() for t in args), q_offset=off,
+                                   window=win)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == dtype, name
+        err = float((g_.float() - w_).abs().max())
+        assert err <= FA_BWD_TOL[dtype] * float(w_.abs().max()) + 1e-7, \
+            (name, err)
+    again = ops.flash_attention_bwd(*args, q_offset=off, window=win)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_the_same_with_and_without_the_lse(cuda, dtype):
+    """Writing the LSE changes no bit of the forward's output."""
+    from repro_torch.kernels.flash_attention import ops
+    for case in ((1, 300, 333, 8, 2, 128, None, 0),
+                 (1, 200, 260, 8, 4, 256, 70, 60),
+                 (1, 150, 170, 4, 2, 44, None, -20)):
+        b, sq, sk, hq, hkv, d, win, off = case
+        q, k, v = _flash_case(b, sq, sk, hq, hkv, d, dtype, cuda, 4)
+        plain, none = ops._forward(q, k, v, off, win, 512, False)
+        with_lse, lse = ops._forward(q, k, v, off, win, 512, True)
+        assert none is None and lse.shape == (b, hq, sq)
+        assert torch.equal(plain, with_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_card_matches_the_plain_autograd(cuda, dtype):
+    """`ops.flash_attention` under autograd on the card against autograd
+    through the plain forward on fp32 copies, at the same tolerances."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _flash_case(1, 300, 320, 8, 2, 64, dtype, cuda, 6)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, q_offset=20, window=128)
+    do = torch.randn_like(out.float()).to(dtype)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = flash_attention_ref(*ref_leaves, q_offset=20, window=128)
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    for g_, w_ in zip(got, want):
+        err = float((g_.float() - w_).abs().max())
+        assert err <= FA_BWD_TOL[dtype] * float(w_.abs().max()) + 1e-7
 
 
 def test_zamba2_smoke_train_step_on_the_card_equals_the_cpu(cuda):
