@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 It needs one CUDA GPU and the CUDA toolkit (``nvcc``); without a GPU,
 or outside a checkout of the repository, it exits non-zero and prints
 no result.  It imports nothing of JAX or of the JAX package.  Phases,
-each printed as one JSON line:
+each printed as one JSON line with its end as ``at_s``, the seconds since
+the script started:
 
 1. card: the GPU's name and power limit, torch and CUDA versions; then
    the port's kernels are built from ``src/repro_torch/kernels`` (one
@@ -216,15 +217,17 @@ each printed as one JSON line:
    (1 of 32 layers) and deepseek-v2-lite-16b (3 of 27) at (1, 4096), 4
    steps each, and gemma3-4b (6 of 34: 5 local, 1 global) at (1, 8192),
    3 steps (`TRAIN_RUNS`): finite falling losses; `ragged_dot_bwd` 3
-   times a MoE layer a step and `ragged_dot` twice as often (on TMA +
-   wgmma); `flash_attention_bwd` once a layer a step and
-   `flash_attention` twice; no plain version (`ref.*`) called on a CUDA
-   tensor.  Each run: tokens/s, the step wall, peak device memory, the
-   card's `nvidia-smi` name and power limit, its seconds; zamba2's last
-   step runs under `torch.profiler` (untimed): its top kernels and the
-   shares of `ssd_bwd`, the SSD forward, the GEMMs, the optimizer and
-   the elementwise kernels (`TRAIN_PROFILE_SHARES`).  The first
-   `ssd_bwd` call of zamba2's run, and each projection's first
+   times a MoE layer a step and `ragged_dot` twice as often (both on TMA
+   + wgmma, `ragged_dot_bwd_mma` never); `flash_attention_bwd` once a
+   layer a step and `flash_attention` twice; no plain version (`ref.*`)
+   called on a CUDA tensor.  Each run: tokens/s, the step wall, peak
+   device memory, the card's `nvidia-smi` name and power limit, its
+   seconds; the last step of zamba2's, mixtral's, deepseek's and
+   gemma3's runs is profiled under `torch.profiler` (untimed,
+   `TRAIN_PROFILED`): its top kernels, the shares of the three backward
+   kernels, the forward kernels, the GEMMs, the optimizer and the
+   elementwise kernels (`TRAIN_PROFILE_SHARES`), and the backward
+   kernels' share together.  The first `ssd_bwd` call of zamba2's run, and each projection's first
    `ragged_dot_bwd` call of the MoE runs, are captured for the next
    phases.
 25. ssd-bwd-vs-plain: the SSD backward kernel (`ssd_bwd`) against
@@ -245,17 +248,23 @@ each printed as one JSON line:
    MoE runs captured and at `RAGGED_BWD_EDGES` (unaligned K and N,
    rows outside the groups, empty groups, bf16 weights, the fp32
    route), within the forward's tolerances; two calls give the same
-   bits.  At the captured shapes: both kernels' ms and each alone, the
-   plain halves' ms, the bounds (`ragged_bwd_bound`) and
+   bits; bf16 takes the TMA + wgmma kernels wherever K and N are
+   multiples of 8 (every captured shape), mma.sync elsewhere, by
+   `LAUNCHES` key.  At the captured shapes: both kernels' ms and each
+   alone, the earlier mma.sync kernels' (`RAGGED_BWD_EARLIER_MS`,
+   quoted), the plain halves' ms, the bounds (`ragged_bwd_bound`) and
    `torch._grouped_mm` for dx and for dw on pre-cast weights.
 25c. flash-bwd-vs-plain: flash attention's backward
    (`flash_attention_bwd`: ``flash_bwd_dq`` and ``flash_bwd_dkdv``,
    csrc/flash_attention_bwd.cu) at every flash path shape the serving
    phases captured, in bf16 and fp32, against the plain backward one
    KV-head group at a time (`FA_BWD_TOL`); two calls give the same
-   bits, and the forward's output is the same with and without its LSE.
-   ms (both kernels and each alone), the plain halves' ms, the bounds
-   (`flash_bwd_bound`) and SDPA's backward (`flash_bwd_vs_plain`).
+   bits, and the forward's output is the same with and without its LSE;
+   each call is one launch on its dtype's route (bf16: the wgmma
+   kernels).  ms (both kernels and each alone), the earlier mma.sync
+   kernels' bf16 ms (`FA_BWD_EARLIER_MS`, quoted), the plain halves' ms,
+   the bounds (`flash_bwd_bound`) and SDPA's backward
+   (`flash_bwd_vs_plain`).
 26. train-card-vs-cpu: one fp32 `train_step` on the card and on the
    host from the same weights, for zamba2 at published widths cut to 6
    layers (one shared-attention invocation) at (1, 512) and for the
@@ -631,10 +640,34 @@ SSD_BWD_DA_TOL = 1e-3
 # so the kernels line leaves them out.
 SSD_BWD_EARLIER_MS = {"bfloat16": {"zamba2": 3.281, "mamba2": 8.353},
                       "float32": {"zamba2": 3.277, "mamba2": 8.373}}
-# The profiled zamba2 training step (train): each label's kernels by
-# name, for their share of the step's device time.
+# The bf16 times of the other two backward pairs before their redesign on
+# wgmma: the mma.sync kernels (the "before" of PERF.md section 6, row 4b
+# and the ragged_dot_dx/_dw rows), (both kernels, dq or dx alone, dkdv
+# or dw alone) by path shape.  Quoted in the phases' rows, never
+# measured here, so the kernels line leaves them out; the fp32 routes did
+# not change.
+FA_BWD_EARLIER_MS = {("zamba2-1.2b", "flash_long"): (5.134, 1.916, 3.218),
+                     ("gemma3-4b", "flash_local"): (3.172, 1.489, 1.661),
+                     ("gemma3-4b", "flash_global"): (11.56, 5.251, 6.306),
+                     ("mixtral-8x7b", "flash_long"): (7.695, 3.264, 4.317),
+                     ("qwen2-vl-72b", "flash_long"): (20.43, 8.437, 12.19)}
+RAGGED_BWD_EARLIER_MS = {
+    "mixtral-8x7b gate/up": (11.07, 6.666, 4.729),
+    "mixtral-8x7b down": (10.53, 6.432, 4.220),
+    "deepseek-v2-lite-16b gate/up": (2.184, 1.166, 1.023),
+    "deepseek-v2-lite-16b down": (2.112, 1.147, 0.964)}
+# The profiled training steps (train: the last step of each of
+# `TRAIN_PROFILED`): each label's kernels by name, for their share of the
+# step's device time; the backward kernels' labels first.
+TRAIN_PROFILED = ("zamba2-1.2b", "mixtral-8x7b", "deepseek-v2-lite-16b",
+                  "gemma3-4b")
+TRAIN_BWD_LABELS = ("ssd_bwd", "ragged_dot_bwd", "flash_attention_bwd")
 TRAIN_PROFILE_SHARES = {
     "ssd_bwd": ("ssd_bwd_",),
+    "ragged_dot_bwd": ("ragged_dx", "ragged_dw"),
+    "flash_attention_bwd": ("fa_bwd_",),
+    "ragged_dot forward": ("ragged_dot_tc_kernel", "ragged_dot_kernel"),
+    "flash forward": ("fa_tc_kernel",),
     "ssd forward": ("ssd_states", "ssd_scan", "ssd_out"),
     "gemm": ("gemm", "nvjet", "cutlass", "xmma"),
     "optimizer foreach": ("multi_tensor_apply",),
@@ -658,7 +691,12 @@ DRYRUN_TRAIN = ("zamba2-1.2b", 2, 2048)
 DRYRUN_LONG = ("mixtral-8x7b", {"n_layers": 4}, 8192)
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T_IMPORT)
     print(json.dumps(obj), flush=True)
 
 
@@ -2574,9 +2612,9 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
                           clone="host")
         step_s.clear()
         profiles.clear()
-        # zamba2's last step is profiled: no timed step follows it.
+        # The last step is profiled: no timed step follows it.
         profile_at[0] = int(argv[argv.index("--steps") + 1]) - 1 \
-            if arch == LLM_ARCH else None
+            if arch in TRAIN_PROFILED else None
         plain_on_card.clear()
         reset_launches()
         t0 = time.perf_counter()
@@ -2607,6 +2645,7 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
                                     else step_s))
         reduced = {"n_layers": int(argv[argv.index("--layers") + 1])} \
             if "--layers" in argv else {}
+        prof = profiles[0] if profiles else None
         runs[arch] = dict(
             argv=argv, card=card, reduced=reduced, wall_s=wall,
             loop_s=loop_s, steps_run=len(history), restarts=restarts,
@@ -2617,7 +2656,10 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
             first_loss=losses[0], last_loss=losses[-1],
             losses=losses, checkpoints_kept=kept, launches=launches,
             plain_on_card=dict(plain_on_card),
-            profile=profiles[0] if profiles else None,
+            profile=prof,
+            backward_kernels_share=sum(
+                prof["shares"][k] or 0.0 for k in TRAIN_BWD_LABELS)
+            if prof and prof["device_ms"] else None,
             lines=[ln for ln in lines if ln.startswith(("training", "step",
                                                         "done"))])
         check(all(map(np.isfinite, losses)), f"{arch}: a loss is not finite")
@@ -2656,6 +2698,8 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
                                ("ragged_dot_wgmma", 2 * rd),
                                ("ragged_dot_bwd", rd),
                                ("ragged_dot_bwd_bf16", rd),
+                               ("ragged_dot_bwd_wgmma", rd),
+                               ("ragged_dot_bwd_mma", 0),
                                ("flash_attention", 2 * fa),
                                ("flash_attention_bf16", 2 * fa),
                                ("flash_attention_bwd", fa),
@@ -2826,6 +2870,7 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ragged_dot import ops as rd_ops
     from repro_torch.kernels.ragged_dot.ref import (ragged_dot_bwd_ref,
                                                     ragged_dot_dw_ref,
@@ -2854,7 +2899,11 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
     for label, (x, w, offs, dy) in specs:
         m, k = x.shape
         groups, _, n = w.shape
+        before = {r: LAUNCHES[f"ragged_dot_bwd_{r}"]
+                  for r in ("wgmma", "mma", "fp32")}
         got = rd_ops.ragged_dot_bwd(x, w, offs, dy)
+        route = [r for r in before
+                 if LAUNCHES[f"ragged_dot_bwd_{r}"] > before[r]]
         again = rd_ops.ragged_dot_bwd(x, w, offs, dy)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2867,7 +2916,7 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
             errs[part] = float(d.max()) if d.numel() else 0.0
             ok &= bool((d <= RAGGED_ATOL + rtol * w_.float().abs()).all())
         row = dict(case=label, m=m, k=k, n=n, groups=groups,
-                   x=name, w=str(w.dtype).split(".")[1],
+                   x=name, w=str(w.dtype).split(".")[1], route=route,
                    max_abs_err=errs, bit_identical=same, within=ok)
         del got, again, want
         if not label.startswith("edge"):
@@ -2876,10 +2925,15 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
             reps = 10
             row["ms"] = cuda_ms(lambda: rd_ops.ragged_dot_bwd(x, w, offs,
                                                               dy), reps)
+            earlier = RAGGED_BWD_EARLIER_MS.get(label)
+            if earlier:
+                row.update(earlier_ms=earlier[0],
+                           earlier_ms_from=EARLIER_FROM)
             for bit, part, plain in ((1, "dx", ragged_dot_dx_ref),
                                      (2, "dw", ragged_dot_dw_ref)):
                 fn = lib[part]
                 row[part] = dict(
+                    earlier_ms=earlier[bit] if earlier else None,
                     ms=cuda_ms(lambda: rd_ops._launch_bwd(x, w, offs, dy,
                                                           parts=bit), reps),
                     plain_ms=cuda_ms(lambda: plain(x, w, offs, dy), 2),
@@ -2892,6 +2946,12 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
             row["groups_used"] = used
             del lib
         rows.append(row)
+        # bf16 takes the TMA + wgmma kernels wherever K and N are
+        # multiples of 8 (every captured shape), mma.sync elsewhere.
+        want_route = "fp32" if name == "float32" else \
+            "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma"
+        check(route == [want_route], f"ragged_dot_bwd {label}: took "
+                                     f"{route}, not {want_route}")
         check(same, f"ragged_dot_bwd {label}: two calls differ")
         check(ok, f"ragged_dot_bwd {label}: outside the tolerance ({errs})")
         del x, w, offs, dy
@@ -2932,6 +2992,7 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
     library yardstick, off the path."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_bwd_dkdv_ref, flash_bwd_dq_ref)
@@ -2955,7 +3016,10 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
             fwd_same = bool(torch.equal(out, plain_out))
             del plain_out
             do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            route = "fp32" if fp32 else "bf16"
+            before = LAUNCHES[f"flash_attention_bwd_{route}"]
             got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            routed = LAUNCHES[f"flash_attention_bwd_{route}"] == before + 1
             again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
             same = all(torch.equal(x, y) for x, y in zip(got, again))
@@ -2975,8 +3039,9 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
                     err[p] = max(err[p], float((g_.float() - w_).abs().max()))
                     ref_max[p] = max(ref_max[p], float(w_.abs().max()))
                 del want
-            ok = same and fwd_same and all(
+            ok = same and fwd_same and routed and all(
                 err[p] <= FA_BWD_TOL[name] * ref_max[p] for p in err)
+            earlier = None if fp32 else FA_BWD_EARLIER_MS.get((arch, label))
             nbytes = {
                 "bwd": 5 * q.numel() * q.element_size() + 4 * k.numel() *
                 k.element_size() + 4 * lse.numel(),
@@ -3011,7 +3076,11 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
                 lib_error = None
             row = dict(
                 arch=arch, label=label, shape=[b, sq, hq, d], kv_heads=hkv,
-                window=window, dtype=name, forward_bit_equal_with_lse=fwd_same,
+                window=window, dtype=name,
+                route="wgmma" if not fp32 else "cuda cores",
+                earlier_ms=earlier[0] if earlier else None,
+                earlier_ms_from=EARLIER_FROM if earlier else None,
+                forward_bit_equal_with_lse=fwd_same,
                 bit_identical=same, max_abs_err=err, max_abs_ref=ref_max,
                 within=ok, tolerance=FA_BWD_TOL[name],
                 ms=cuda_ms(lambda: fa_ops.flash_attention_bwd(
@@ -3029,6 +3098,7 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
             for bit, part, plain in ((1, "dq", flash_bwd_dq_ref),
                                      (2, "dkdv", flash_bwd_dkdv_ref)):
                 row[part] = dict(
+                    earlier_ms=earlier[bit] if earlier else None,
                     ms=cuda_ms(lambda: fa_ops._launch_bwd(
                         q, k, v, out, lse, do, q_offset, window, parts=bit,
                         delta=delta), reps),
@@ -3039,6 +3109,8 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
             rows.append(row)
             check(fwd_same, f"flash forward {arch} {label} {name}: the "
                             f"output differs with the LSE written")
+            check(routed, f"flash_attention_bwd {arch} {label} {name}: not "
+                          f"one launch on its {route} route")
             check(same, f"flash_attention_bwd {arch} {label} {name}: two "
                         f"calls differ")
             check(ok, f"flash_attention_bwd {arch} {label} {name}: "
@@ -3601,6 +3673,7 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
             "flash_attention_bwd" if flash else "ragged_dot_bwd", 0)
             for k, c in checks.items()},
         max_abs_err=err, ms=mine["ms"], ms_both_kernels=main["ms"],
+        kernels=main["route"],
         plain_ms=mine["plain_ms"], bound_ms=mine["bound_ms"],
         bound_by=mine["bound_by"],
         library_ms=main["library_ms"] if flash else mine["library_ms"],
@@ -3608,9 +3681,11 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
         else mine["library"],
         shape=shape,
         path_shapes=[dict(case=r.get("case") or f"{r['arch']} {r['label']}",
-                          dtype=r.get("dtype") or r["x"],
+                          dtype=r.get("dtype") or r["x"], kernels=r["route"],
                           ms=r[part]["ms"], bound_ms=r[part]["bound_ms"],
-                          plain_ms=r[part]["plain_ms"])
+                          plain_ms=r[part]["plain_ms"],
+                          library_ms=r["library_ms"] if flash else
+                          r[part]["library_ms"])
                      for r in rows])
 
 

@@ -31,8 +31,9 @@ and ``ops.py`` (the checked wrapper):
                     mma.sync, S in fp32 on the CUDA cores); head dims
                     up to 256 on both; and its backward,
                     ``flash_attention_bwd`` (the dq kernel, then the
-                    dk/dv kernel: mma.sync for bf16, the CUDA cores for
-                    fp32), fed the forward's row LSE, the training
+                    dk/dv kernel: wgmma for bf16, S and dP once per
+                    tile pair and block up to D = 256; the CUDA cores
+                    for fp32), fed the forward's row LSE, the training
                     path's past 4096^2 (query, key) pairs
 - ssd/              ``ssd``: the Mamba2 SSD chunked scan — every Mamba2
                     layer's prefill (replaces
@@ -63,8 +64,9 @@ and ``ops.py`` (the checked wrapper):
                     ``jax.lax.ragged_dot`` in
                     ``repro/models/moe.py::moe_ffn``, an XLA operation
                     with no Pallas kernel behind it; and its backward,
-                    ``ragged_dot_bwd`` (dx and dw on mma.sync for bf16
-                    x, the CUDA cores for fp32), the training path's
+                    ``ragged_dot_bwd`` (dx and dw on TMA and wgmma for
+                    bf16 x, mma.sync for shapes TMA cannot take, the
+                    CUDA cores for fp32), the training path's
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Under
@@ -79,8 +81,11 @@ wrapper call that launches adds one to ``LAUNCHES[name]`` through
 `count_launch`, so a run can show which kernels its path went through;
 a kernel with more than one route also adds one to the route it took:
 ``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]`` (flash
-attention, the SSD scan and its backward), ``LAUNCHES["ragged_dot_wgmma"]``,
-``["ragged_dot_mma"]`` or ``["ragged_dot_fp32"]``.  The counts are
+attention, the SSD scan and the three backwards),
+``LAUNCHES["ragged_dot_wgmma"]``, ``["ragged_dot_mma"]`` or
+``["ragged_dot_fp32"]``, and a bf16
+``ragged_dot_bwd`` to ``["ragged_dot_bwd_wgmma"]`` or
+``["ragged_dot_bwd_mma"]`` besides.  The counts are
 exact when several threads launch: every update holds one lock.
 
 A wrapper also tells the op counters of `launch.op_analysis` what its
@@ -112,20 +117,22 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "ragged_dot_mma": 0, "ragged_dot_fp32": 0,
                              "ragged_dot_bwd": 0, "ragged_dot_bwd_bf16": 0,
                              "ragged_dot_bwd_fp32": 0,
+                             "ragged_dot_bwd_wgmma": 0,
+                             "ragged_dot_bwd_mma": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_bf16": 0,
                              "flash_attention_bwd_fp32": 0}
 
 
-def count_launch(name: str, route: str | None = None) -> None:
-    """Add one to ``LAUNCHES[name]`` and, with a ``route`` (the kernel
-    that launched: "bf16" or "fp32", or ragged_dot's "wgmma", "mma" or
-    "fp32"), to ``LAUNCHES[f"{name}_{route}"]``, under one lock (a
-    ``+=`` on a dict entry is a read and a write that two threads can
-    interleave)."""
+def count_launch(name: str, *routes: str) -> None:
+    """Add one to ``LAUNCHES[name]`` and to ``LAUNCHES[f"{name}_{route}"]``
+    for each of ``routes`` (the kernel that launched: "bf16" or "fp32",
+    ragged_dot's "wgmma", "mma" or "fp32", or both of its backward's:
+    "bf16" and "wgmma" or "mma"), under one lock (a ``+=`` on a dict entry
+    is a read and a write that two threads can interleave)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
-        if route is not None:
+        for route in routes:
             LAUNCHES[f"{name}_{route}"] += 1
 
 

@@ -1,8 +1,8 @@
 // bf16 helpers for kernels that multiply tiles from shared memory on the
 // tensor cores' synchronous form: ldmatrix, plain and transposed, and
 // mma.sync m16n8k16 (bf16 operands, fp32 accumulators).  Included by
-// ragged_dot/csrc/ragged_dot.cu, ragged_dot/csrc/ragged_dot_bwd.cu and
-// flash_attention/csrc/flash_attention_bwd.cu.
+// ragged_dot/csrc/ragged_dot.cu and ragged_dot/csrc/ragged_dot_bwd.cu
+// (the routes for shapes TMA cannot take).
 
 #pragma once
 

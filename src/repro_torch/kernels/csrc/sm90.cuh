@@ -3,7 +3,8 @@
 // 128-byte swizzle and wgmma's shared-memory descriptors, and the wgmma
 // fence, commit and wait, mbarriers and TMA loads.  Included by
 // csrc/tf32_mma.cuh, sbts_step/csrc/wgmma_s32.cuh,
-// flash_attention/csrc/flash_attention_tc.cu and ragged_dot/csrc/ragged_dot.cu.
+// flash_attention/csrc/flash_attention_tc.cu and flash_attention_bwd.cu,
+// and ragged_dot/csrc/ragged_dot.cu and ragged_dot_bwd.cu.
 
 #pragma once
 

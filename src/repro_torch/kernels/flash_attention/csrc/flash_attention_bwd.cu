@@ -20,19 +20,21 @@
 // key head j's group too.  A row with no visible key (LSE = -inf) has
 // P = 0 and zero gradients.
 //
-// Two kernels a call, on one stream:
-// - fa_bwd_dq: grid (query block, Hq, B x column chunks).  Computes
-//   delta of its rows (written to scratch for the second kernel), walks
-//   only the key tiles visible from its rows (causal from q_offset, the
-//   window's edge), and for each: S = Q K^T and dP = dO V^T, then P and
-//   dS, then dQ += dS K; dQ is rounded once at the end.
-// - fa_bwd_dkdv: grid (key block, Hkv, B x column chunks).  Walks the g
-//   query heads of its group and, for each, the query tiles that see its
-//   keys, in a fixed order, accumulating dV += P^T dO and dK += dS^T Q:
-//   GQA's sum over heads is this loop, with no atomics, so two calls give
-//   the same bits.  Each kernel recomputes S and dP (7 products where
-//   the least is 5): the price of writing no fp32 dS and no dQ partials
-//   to device memory.
+// Two kernels a call, on one stream: dq, then dk/dv, rather than one
+// fused kernel that sums dQ partials across key blocks.  Each is
+// deterministic by construction, every gradient summed by one warpgroup
+// in a fixed order, with no atomics, no fp32 dQ partials in device memory
+// and no ordering between blocks; the price is S and dP computed in both
+// kernels, 7 products where the least is 5.
+// - fa_bwd_dq: grid (query block of 128, Hq, B), heaviest blocks first.
+//   Computes delta of its rows (written to scratch for the second
+//   kernel), walks only the key tiles visible from its rows (causal from
+//   q_offset, the window's edge), and for each: S = Q K^T and dP = dO V^T,
+//   then P and dS, then dQ += dS K; dQ is rounded once at the end.
+// - fa_bwd_dkdv: grid (key block, Hkv, B).  Walks the g query heads of
+//   its group and, for each, the query tiles of 64 that see its keys, in
+//   a fixed order, accumulating dV += P^T dO and dK += dS^T Q: GQA's sum
+//   over heads is this loop, so two calls give the same bits.
 //
 // Bound.  Five products of 2 D FLOP each per visible pair: 10 D FLOP a
 // pair (dq's own three, 6 D, and dkdv's four, 8 D, taken alone) at the
@@ -40,26 +42,51 @@
 // is 3.4e8 pairs, 8.6e11 FLOP, 0.87 ms at 989e12 FLOP/s, against ~0.2 GB
 // of bytes: operations bind.
 //
-// bf16 (every operand bf16, fp32 sums): mma.sync m16n8k16, 4 warps a
-// block, each warp 16 rows (dq: queries, dkdv: keys) of 64.  All
-// operands come from shared memory through ldmatrix (non-transposed for
-// S = Q K^T, where K's rows are mma's column-major B; .trans for the
-// products whose B is stored row by row: dQ += dS K, dV += P^T dO,
-// dK += dS^T Q), with rows padded by 16 bytes so that the 8 row
-// addresses of each ldmatrix hit distinct banks.  P and dS go from the
-// accumulators' registers to the next product's A operand directly (an
-// m16n8 accumulator pair is an m16k16 A fragment), each rounded to one
-// bf16 term: tests/test_torch_flash_bwd.py emulates these roundings and
-// finds them within 1e-2 max |ref| of every gradient at the repository's
-// shapes, where the SSD backward needed two terms.  D is zero-padded in
-// shared memory to a multiple of 64; the gradient's columns are split
-// into chunks of at most 128 (grid z), so that a warp's accumulators,
-// 16 rows x 128 columns (x2 in dkdv), stay in registers up to D = 256,
-// at the cost of computing S and dP once per chunk past D = 128.  K and
-// V tiles (dq) and Q and dO tiles (dkdv) stream through a two-stage
-// cp.async ring (plain loads where D % 8 != 0 or a base is off 16
-// bytes).  Query blocks of dq are issued heaviest first.  P = exp2(S c -
-// LSE log2 e) with c = scale log2 e, one FMA and one exp2 a score.
+// bf16 (every operand bf16, fp32 sums): wgmma, two warpgroups (256
+// threads) a block, S and dP computed once per (key tile, query tile)
+// pair and block at every D up to 256.
+// - Operands live in shared memory as 64-column panels of 128-byte rows
+//   under the 128-byte swizzle (D zero-padded to a multiple of 64), the
+//   layout wgmma's descriptors name: a tile is K-major B for S = Q K^T
+//   and dP = dO V^T (and K-major A for Q, dO, K or V) and MN-major B for
+//   the products that sum over its rows (dQ += dS K, dV += P^T dO,
+//   dK += dS^T Q).  S and dP come from wgmma with both operands in shared
+//   memory; P and dS go from the accumulator's registers to the next
+//   product's A operand (an accumulator of 64 x 16 columns is an A
+//   fragment), each rounded to one bf16 term: tests/test_torch_flash_bwd.py
+//   emulates these roundings and finds them within 1e-2 max |ref| of
+//   every gradient at the repository's shapes.
+// - dq: each warpgroup owns 64 query rows of the block and all D columns
+//   of their dQ (32 NP fp32 registers a thread); key tiles of 128 up to
+//   D = 64, 64 up to D = 128 and 32 past it, as many as S and dP fit
+//   beside the accumulator.
+// - dk/dv up to D = 128 (fa_bwd_dkdv_wide_kernel): 128 keys a block,
+//   each warpgroup computing every product for its own 64 keys.  A Q and
+//   dO tile, which every key block of the head streams from L2, then
+//   serves 128 keys.  Past D = 128 both gradients of 64 keys do not fit
+//   one warpgroup's registers (fa_bwd_dkdv_kernel): 64 keys a block,
+//   warpgroup 0 computes S^T, P^T and dV with all D columns, warpgroup 1
+//   dP^T, dS^T and dK, and P^T (fp32) goes from 0 to 1 through two
+//   shared-memory buffers on mbarriers, so that warpgroup 0 runs on into
+//   the next tile.
+// - The streamed tiles (K and V for dq; Q, dO and their rows' LSE and
+//   delta for dk/dv) go through a ring of up to four stages, as many as
+//   fit beside the resident tiles (two at D = 256 in dk/dv), with a full
+//   and an empty mbarrier a stage: every thread issues its share of a
+//   tile's 16-byte cp.async and arrives on the full barrier when they
+//   land (cp.async.mbarrier.arrive), so the warpgroups run at their own
+//   pace and a stage is refilled once both are done with it.  Where
+//   D % 8 != 0 or a base is off 16 bytes the same ring is filled by plain
+//   loads, so every shape takes this route.
+// - P = exp2(S c - LSE log2 e) with c = scale log2 e, one FMA and one
+//   exp2 a score, masked element by element only in tiles that cross Sk,
+//   Sq, the causal edge or the window's edge.
+// - What holds it back: every key block streams all its heads' Q and dO
+//   tiles, and every query block its K and V tiles, from L2 (the
+//   shared-memory budget caps the reuse: 128 keys a block up to D = 128,
+//   64 past it); exp2 on the MUFU units, one per score in each kernel;
+//   and a warpgroup's products wait for its scores, with only the other
+//   warpgroup to overlap them.
 //
 // fp32: the CUDA cores, blocks of 256 threads each holding one row
 // (query or key) and every fourth column of its gradients, fp32 FMAs from
@@ -77,8 +104,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/wgmma_bf16.cuh"
 
 namespace {
 
@@ -102,110 +129,132 @@ __device__ __forceinline__ bool sees(int qp, int key, int sk, int window) {
 }
 
 // ------------------------------------------------------------------ bf16
-constexpr int kThreads = 128;   // 4 warps, 16 rows each
-constexpr int kBQ = 64;         // dq: query rows a block
-constexpr int kBK = 64;         // dq: keys a tile
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kBQ = 128;        // dq: query rows a block, 64 a warpgroup
 constexpr int kBKV = 64;        // dkdv: keys a block
-constexpr int kBQT = 32;        // dkdv: queries a tile
+constexpr int kBQT = 64;        // dkdv: queries a tile
+constexpr int kWideNP = 2;      // dkdv: up to NP = 2 panels,
+constexpr int kBKW = 128;       // 128 keys a block (fa_bwd_dkdv_wide)
+constexpr int kMaxStages = 4;
+constexpr int kSmemBudget = 232448 - 1024 - 256;   // less alignment, barriers
 
-// NP 64-column panels of the padded head dim (D <= 64 NP).
+// The ring's stages: as many as fit beside `fixed` bytes, up to
+// kMaxStages.
+constexpr int ring_stages(int fixed, int stage) {
+  return (kSmemBudget - fixed) / stage < kMaxStages
+             ? (kSmemBudget - fixed) / stage
+             : kMaxStages;
+}
+
+// NP 64-column panels of the padded head dim (D <= 64 NP).  A panel is
+// R rows of 128 bytes under the 128-byte swizzle, the layout wgmma's
+// descriptors name; a tile is NP such panels.
 template <int NP>
 struct Cfg {
-  static constexpr int kP = 64 * NP + 8;   // shared row pitch, bf16
-  // Gradient columns a block computes (a multiple of 16), and the chunks.
-  static constexpr int kDC = NP <= 2 ? 64 * NP : 32 * NP;
-  static constexpr int kNC = 64 * NP / kDC;
-  static constexpr int kDqSmem = (2 * kBQ + 4 * kBK) * kP * 2 + 2 * kBQ * 4;
+  // dq: keys a tile, as many as S and dP (kBK / 2 registers each) fit
+  // beside the dQ accumulator (32 NP): 128 at NP = 1, 64 at 2, 32 past
+  // D = 128.
+  static constexpr int kBK = NP == 1 ? 128 : NP == 2 ? 64 : 32;
+  static constexpr int kQPanel = kBQ * 128, kKPanel = kBK * 128;
+  static constexpr int kVPanel = kBKV * 128, kTPanel = kBQT * 128;
+  // dq: Q, dO, LSE and delta, then the stages of K and V.
+  static constexpr int kDqFixed = 2 * NP * kQPanel + 2 * kBQ * 4;
+  static constexpr int kDqStage = 2 * NP * kKPanel;
+  static constexpr int kDqStages = ring_stages(kDqFixed, kDqStage);
+  static constexpr int kDqSmem = 1024 + kDqFixed + kDqStages * kDqStage;
+  // dkdv: K, V and two buffers of the handed-over P^T, then the stages of
+  // Q and dO (with their rows' LSE and delta).
+  static constexpr int kDkdvFixed = 2 * NP * kVPanel + 2 * kBKV * kBQT * 4;
+  static constexpr int kDkdvStage = 2 * NP * kTPanel + 2 * kBQT * 4;
+  static constexpr int kDkdvStages = ring_stages(kDkdvFixed, kDkdvStage);
   static constexpr int kDkdvSmem =
-      (2 * kBKV + 4 * kBQT) * kP * 2 + 4 * kBQT * 4;
+      1024 + kDkdvFixed + kDkdvStages * kDkdvStage;
+  // The wide dk/dv kernel: K and V of 128 keys, then the same stages.
+  static constexpr int kWPanel = kBKW * 128;
+  static constexpr int kWideFixed = 2 * NP * kWPanel;
+  static constexpr int kWideStages = ring_stages(kWideFixed, kDkdvStage);
+  static constexpr int kWideSmem =
+      1024 + kWideFixed + kWideStages * kDkdvStage;
+  static_assert(kDqStages >= 2 && kDkdvStages >= 2, "a ring of two");
 };
 
-// Rows [r0, r0 + R) of a (rows, d) bf16 matrix with row stride ld into
-// dst [R][kP]; rows >= nrows and columns >= d read as 0.  vec: 16-byte
-// cp.async (d % 8 == 0, 16-byte aligned bases), else plain loads.
-template <int R, int NP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+// 4 bytes by cp.async (its L1-allocating form, the only one that takes
+// 4), zeros where !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// Arrives on the mbarrier once every cp.async this thread issued so far
+// has landed (an arrival the barrier's count includes).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// Rows [r0, r0 + R) of a (rows, d) bf16 matrix with row stride ld into NP
+// swizzled panels of R rows at dst (panel p: columns 64 p .. 64 p + 63),
+// by the T threads t = 0 .. T - 1; rows >= nrows and columns >= d read
+// as 0.  vec: 16-byte cp.async (d % 8 == 0, 16-byte aligned bases), else
+// plain loads.
+template <int R, int NP, int T>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
                                           int64_t ld, int r0, int nrows,
-                                          int d, bool vec, int tid) {
-  constexpr int kP = Cfg<NP>::kP, kChunks = R * NP * 8;
-  for (int idx = tid; idx < kChunks; idx += kThreads) {
-    const int r = idx / (NP * 8), c = (idx - r * (NP * 8)) * 8;
-    const int row = r0 + r;
-    bf16* dp = dst + r * kP + c;
-    const bool in = row < nrows;
+                                          int d, bool vec, int t) {
+  constexpr int kChunks = R * NP * 8;
+#pragma unroll 4
+  for (int idx = t; idx < kChunks; idx += T) {
+    const int r = idx / (NP * 8), c = idx - r * (NP * 8);
+    uint8_t* dp = dst + (c >> 3) * (R * 128) + swz(r, c & 7);
+    const int row = r0 + r, col = c * 8;
+    const bool in_row = row < nrows;
     if (vec) {
-      const bool ok = in && c < d;
+      const bool ok = in_row && col < d;
       cp_async16(smem_u32(dp),
-                 ok ? src + static_cast<int64_t>(row) * ld + c : src, ok);
+                 ok ? src + static_cast<int64_t>(row) * ld + col : src, ok);
     } else {
-      __align__(16) bf16 t[8];
+      __align__(16) bf16 tmp[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        t[e] = in && c + e < d ? src[static_cast<int64_t>(row) * ld + c + e]
-                               : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(dp) = *reinterpret_cast<const uint4*>(t);
+        tmp[e] = in_row && col + e < d
+                     ? src[static_cast<int64_t>(row) * ld + col + e]
+                     : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(dp) = *reinterpret_cast<const uint4*>(tmp);
     }
   }
 }
 
-// An m16n8 accumulator pair (keys or queries 16 kk .. 16 kk + 15) as an
-// m16k16 bf16 A fragment.
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 2][4],
-                                     const float (&c)[N][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+// A thread's end of filling a stage: its copies complete `full`, whose
+// count is every thread: with vec, once the thread's cp.async have
+// landed; else (plain stores, and any cp.async) at once, fenced for the
+// async proxy.
+__device__ __forceinline__ void stage_filled(uint32_t full, bool vec) {
+  if (vec) {
+    cp_async_arrive(full);
+  } else {
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    mbar_arrive(full);
   }
 }
 
-// c (16 x 8 NT, fp32) += A (16 rows of a at row0, all 64 NP columns) B^T,
-// with B's 8 NT rows at b (row-major, contiguous columns): S = Q K^T.
-template <int NP, int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a,
-                                        const bf16* b, int lane) {
-  constexpr int kP = Cfg<NP>::kP;
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kd = 0; kd < 64 * NP; kd += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, smem_u32(a + (lane & 15) * kP + kd + (lane >> 4) * 8));
-#pragma unroll
-    for (int j2 = 0; j2 < NT / 2; ++j2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, smem_u32(b + (j2 * 16 + (mi >> 1) * 8 + (lane & 7)) * kP +
-                           kd + (mi & 1) * 8));
-      mma16816(c[2 * j2], af, bf[0], bf[1]);
-      mma16816(c[2 * j2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// c (16 x DC, fp32) += A (16 x 16 KK, fragments) B, with B's 16 KK rows
-// at b (row-major, columns [c0, c0 + DC)): dQ += dS K, dV += P^T dO.
-template <int NP, int KK, int DC>
-__device__ __forceinline__ void mma_ab(float (&c)[DC / 8][4],
-                                       const uint32_t (&a)[KK][4],
-                                       const bf16* b, int c0, int lane) {
-  constexpr int kP = Cfg<NP>::kP;
-  const int mi = lane >> 3;
+// A wgmma accumulator of 64 rows x 16 KK columns as KK A fragments of
+// bf16 (the fragment's layout is the accumulator's).
+template <int KK>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[KK][4],
+                                         const float (&c)[8 * KK]) {
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-    for (int pr = 0; pr < DC / 16; ++pr) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, smem_u32(b + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kP +
-                             c0 + pr * 16 + (mi >> 1) * 8));
-      mma16816(c[2 * pr], a[kk], bf[0], bf[1]);
-      mma16816(c[2 * pr + 1], a[kk], bf[2], bf[3]);
-    }
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
 }
 
 template <int NP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ o,
                  const float* __restrict__ lse, const bf16* __restrict__ dout,
@@ -213,19 +262,21 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int sk, int hq, int hkv, int d, int q_offset, int window,
                  float scale, float scale_log2, int vec) {
   using C = Cfg<NP>;
-  constexpr int kP = C::kP, kDC = C::kDC;
-  extern __shared__ float4 smem4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem4);   // [kBQ][kP]
-  bf16* sdO = sQ + kBQ * kP;                   // [kBQ][kP]
-  bf16* sKV = sdO + kBQ * kP;                  // 2 stages x (K, V) [kBK][kP]
-  float* sLse = reinterpret_cast<float*>(sKV + 4 * kBK * kP);   // x log2(e)
+  constexpr int kBK = C::kBK, kQPanel = C::kQPanel, kKPanel = C::kKPanel;
+  constexpr int kStage = C::kDqStage, kStages = C::kDqStages;   // K, then V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                         // NP panels of kBQ rows
+  uint8_t* sdO = sQ + NP * kQPanel;           // NP panels of kBQ rows
+  uint8_t* sKV = sdO + NP * kQPanel;          // kStages stages
+  float* sLse = reinterpret_cast<float*>(sKV + kStages * kStage);  // x log2 e
   float* sDelta = sLse + kBQ;
+  __shared__ uint64_t bars[2 * kStages];      // full, then empty
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, quad = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z / C::kNC;
-  const int chunk = blockIdx.z % C::kNC, c0 = chunk * kDC;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const int64_t q_row = static_cast<int64_t>(hq) * d;
   const int64_t k_row = static_cast<int64_t>(hkv) * d;
@@ -241,27 +292,43 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), kThreads);
+      mbar_init(smem_u32(&bars[kStages + s]), kThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // Tile t's K and V into its stage, every thread its share, once every
+  // thread is done with the tile the stage held (t - kStages).
   auto load_kv = [&](int t) {
-    bf16* st = sKV + (t & 1) * 2 * kBK * kP;
+    const int s = t % kStages;
+    mbar_wait(smem_u32(&bars[kStages + s]), ((t / kStages) & 1) ^ 1);
+    uint8_t* st = sKV + s * kStage;
     const int j0 = k_begin + t * kBK;
-    load_rows<kBK, NP>(st, k + k_base, k_row, j0, sk, d, vec, tid);
-    load_rows<kBK, NP>(st + kBK * kP, v + k_base, k_row, j0, sk, d, vec, tid);
+    load_tile<kBK, NP, kThreads>(st, k + k_base, k_row, j0, sk, d, vec, tid);
+    load_tile<kBK, NP, kThreads>(st + NP * kKPanel, v + k_base, k_row, j0,
+                                 sk, d, vec, tid);
+    stage_filled(smem_u32(&bars[s]), vec);
   };
-  load_rows<kBQ, NP>(sQ, q + q_base, q_row, q0, sq, d, vec, tid);
-  load_rows<kBQ, NP>(sdO, dout + q_base, q_row, q0, sq, d, vec, tid);
-  if (n_tiles > 0) load_kv(0);
+  load_tile<kBQ, NP, kThreads>(sQ, q + q_base, q_row, q0, sq, d, vec, tid);
+  load_tile<kBQ, NP, kThreads>(sdO, dout + q_base, q_row, q0, sq, d, vec,
+                               tid);
   cp_async_commit();
+  for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) load_kv(t);
 
   // delta and LSE of the block's rows, 8 lanes a row, 4 rows a pass.
 #pragma unroll
   for (int pass = 0; pass < 4; ++pass) {
-    const int r = warp * 16 + pass * 4 + (lane >> 3), qi = q0 + r;
+    const int r = (tid >> 5) * 16 + pass * 4 + (lane >> 3), qi = q0 + r;
     float acc = 0.f;
     if (qi < sq) {
       const bf16* orow = o + q_base + static_cast<int64_t>(qi) * q_row;
       const bf16* drow = dout + q_base + static_cast<int64_t>(qi) * q_row;
       for (int c = lane & 7; c < d; c += 8)
-        acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(drow[c]), acc);
+        acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(drow[c]),
+                   acc);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -270,74 +337,133 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sDelta[r] = acc;
       // Rows past Sq: P = 2^(s c - inf) = 0.
       sLse[r] = qi < sq ? lse[r_base + qi] * kLog2e : INFINITY;
-      if (chunk == 0 && qi < sq) delta[r_base + qi] = acc;
+      if (qi < sq) delta[r_base + qi] = acc;
     }
   }
+  cp_async_wait<0>();   // Q and dO have landed (the tiles complete on
+  __syncthreads();      // their barriers); so have LSE and delta
 
-  const int qp_lo = q_offset + q0 + warp * 16 + g;   // rows g and g + 8
-  const int w_first = q_offset + q0 + warp * 16, w_last = w_first + 15;
-  float acc[kDC / 8][4];
+  // This thread's rows of its warpgroup's 64: r and r + 8.
+  const int r_lo = wg * 64 + warp * 16 + g;
+  const int qp_lo = q_offset + q0 + r_lo;
+  const int wg_first = q_offset + q0 + wg * 64, wg_last = wg_first + 63;
+  const bool wg_rows = q0 + wg * 64 < sq;   // a row of the warpgroup is real
+  const float lse2[2] = {sLse[r_lo], sLse[r_lo + 8]};
+  const float dl[2] = {sDelta[r_lo], sDelta[r_lo + 8]};
+  const uint32_t sKV_u = smem_u32(sKV);
+  // A: this warpgroup's 64 rows of Q and dO (K-major); B: K and V (K-major
+  // for S and dP, MN-major for dQ += dS K).
+  const uint64_t q_desc = desc(smem_u32(sQ) + wg * 64 * 128, 16, 1024);
+  const uint64_t do_desc = desc(smem_u32(sdO) + wg * 64 * 128, 16, 1024);
+  const uint64_t kv_desc = desc(sKV_u, 16, 1024);
+  const uint64_t kt_desc = desc(sKV_u, kKPanel, 1024);
+  float acc[NP][32], s[kBK / 2], dp[kBK / 2];
 #pragma unroll
-  for (int i = 0; i < kDC / 8; ++i)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s[i] = dp[i] = 0.f;
 
+  // Each warpgroup walks the tiles at its own pace: a stage is refilled
+  // once both are done with it.
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();   // tile t has landed
-    __syncthreads();      // and every warp is done with tile t - 1
-    if (t + 1 < n_tiles) load_kv(t + 1);
-    cp_async_commit();
+    if (t + kStages - 1 < n_tiles) load_kv(t + kStages - 1);
+    const int stage = t % kStages;
+    mbar_wait(smem_u32(&bars[stage]), (t / kStages) & 1);   // tile t landed
+    fence_proxy_async();
     const int j0 = k_begin + t * kBK;
-    if (j0 > w_last || (window > 0 && w_first - (j0 + kBK - 1) >= window))
-      continue;   // no row of this warp sees a key of the tile
-    const bf16* tK = sKV + (t & 1) * 2 * kBK * kP;
-    const bf16* tV = tK + kBK * kP;
-    float s[kBK / 8][4], dp[kBK / 8][4];
+    const uint32_t st = stage * kStage;
+    const bool work = wg_rows && j0 <= wg_last &&
+                      (window <= 0 || wg_first - (j0 + kBK - 1) < window);
+    if (work) {
+      fence_acc(s);
+      fence_acc(dp);
+      wg_fence();
 #pragma unroll
-    for (int i = 0; i < kBK / 8; ++i)
+      for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    mma_abt<NP>(s, sQ + warp * 16 * kP, tK, lane);
-    mma_abt<NP>(dp, sdO + warp * 16 * kP, tV, lane);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a = p * kQPanel + kk * 32;
+          const uint32_t bo = st + p * kKPanel + kk * 32;
+          const uint64_t bk = kv_desc + (bo >> 4);
+          const uint64_t bv = kv_desc + ((bo + NP * kKPanel) >> 4);
+          Wgmma<kBK>::template ss<0, 0>(s, q_desc + (a >> 4), bk,
+                                        (p | kk) != 0);
+          Wgmma<kBK>::template ss<0, 0>(dp, do_desc + (a >> 4), bv,
+                                        (p | kk) != 0);
+        }
+      wg_commit();
+    }
+    if (work) {
+      wg_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
 
-    const float lse2[2] = {sLse[warp * 16 + g], sLse[warp * 16 + g + 8]};
-    const float dl[2] = {sDelta[warp * 16 + g], sDelta[warp * 16 + g + 8]};
-    const bool full = j0 + kBK <= sk && j0 + kBK - 1 <= w_first &&
-                      (window <= 0 || w_last - j0 < window);
+      // Every key of the tile is visible from every row of the warpgroup
+      // unless the tile crosses Sk, the causal edge or the window's edge.
+      const bool full = j0 + kBK <= sk && j0 + kBK - 1 <= wg_first &&
+                        (window <= 0 || wg_last - j0 < window);
+      if (full) {
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
+        for (int i = 0; i < kBK / 2; ++i)
+          s[i] = ex2(fmaf(s[i], scale_log2, -lse2[(i >> 1) & 1])) *
+                 (dp[i] - dl[(i >> 1) & 1]);   // dS
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + 8 * nt + 2 * tq + (e & 1);
-        const bool ok = full || sees(qp_lo + 8 * (e >> 1), key, sk, window);
-        const float p =
-            ok ? ex2(fmaf(s[nt][e], scale_log2, -lse2[e >> 1])) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);   // dS
+        for (int i = 0; i < kBK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + 8 * i + 2 * quad + (e & 1);
+            const bool ok = sees(qp_lo + 8 * (e >> 1), key, sk, window);
+            const float pv =
+                ok ? ex2(fmaf(s[4 * i + e], scale_log2, -lse2[e >> 1])) : 0.f;
+            s[4 * i + e] = pv * (dp[4 * i + e] - dl[e >> 1]);   // dS
+          }
       }
-    uint32_t ds[kBK / 16][4];
-    to_a<kBK / 8>(ds, s);
-    mma_ab<NP, kBK / 16, kDC>(acc, ds, tK, c0, lane);
+      uint32_t ds[kBK / 16][4];
+      to_frags<kBK / 16>(ds, s);
+      pin_frags(ds);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          Wgmma<64>::template rs<1>(
+              acc[p], ds[kk],
+              kt_desc + ((st + p * kKPanel + kk * 16 * 128) >> 4), 1);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+    }
+    mbar_arrive(smem_u32(&bars[kStages + stage]));
   }
   cp_async_wait<0>();
 
   bf16* dqb = dq + q_base;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
+    const int qi = q0 + r_lo + 8 * r;
     if (qi >= sq) continue;
     bf16* row = dqb + static_cast<int64_t>(qi) * q_row;
 #pragma unroll
-    for (int nt = 0; nt < kDC / 8; ++nt)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + 8 * nt + 2 * tq + e;
-        if (col < d) row[col] = __float2bfloat16_rn(acc[nt][2 * r + e] * scale);
-      }
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 64 * p + 8 * i + 2 * quad + e;
+          if (col < d)
+            row[col] = __float2bfloat16_rn(acc[p][4 * i + 2 * r + e] * scale);
+        }
   }
 }
 
 template <int NP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ lse,
                    const bf16* __restrict__ dout,
@@ -346,28 +472,47 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    int d, int q_offset, int window, float scale,
                    float scale_log2, int vec) {
   using C = Cfg<NP>;
-  constexpr int kP = C::kP, kDC = C::kDC;
-  extern __shared__ float4 smem4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem4);   // [kBKV][kP]
-  bf16* sV = sK + kBKV * kP;                   // [kBKV][kP]
-  bf16* sQD = sV + kBKV * kP;                  // 2 stages x (Q, dO) [kBQT][kP]
-  float* sLse = reinterpret_cast<float*>(sQD + 4 * kBQT * kP);   // [2][kBQT]
-  float* sDelta = sLse + 2 * kBQT;                               // [2][kBQT]
+  constexpr int kVPanel = C::kVPanel, kTPanel = C::kTPanel;
+  constexpr int kStage = 2 * NP * kTPanel;   // Q, then dO
+  constexpr int kStages = C::kDkdvStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;                         // NP panels of kBKV rows
+  uint8_t* sV = sK + NP * kVPanel;            // NP panels of kBKV rows
+  uint8_t* sQD = sV + NP * kVPanel;           // kStages stages
+  // Two buffers of P^T, [8][128] float4 each.
+  float4* sP = reinterpret_cast<float4*>(sQD + kStages * kStage);
+  // The rows' LSE (natural log) and delta, [kStages][kBQT] each.
+  float* sLse = reinterpret_cast<float*>(sP + 2 * kBKV * kBQT / 4);
+  float* sDelta = sLse + kStages * kBQT;
+  // Stages full, stages empty, P^T buffers full, P^T buffers empty.
+  __shared__ uint64_t bars[2 * kStages + 4];
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int kb0 = blockIdx.x * kBKV;
-  const int hk = blockIdx.y, b = blockIdx.z / C::kNC;
-  const int chunk = blockIdx.z % C::kNC, c0 = chunk * kDC;
+  const int tid = threadIdx.x, role = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, quad = lane & 3;
+  const int kb0 = blockIdx.x * kBKV;   // the first blocks see most queries
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int heads = hq / hkv;
   const int64_t q_row = static_cast<int64_t>(hq) * d;
   const int64_t k_row = static_cast<int64_t>(hkv) * d;
   const int64_t k_base = static_cast<int64_t>(b) * sk * k_row +
                          static_cast<int64_t>(hk) * d;
 
-  load_rows<kBKV, NP>(sK, k + k_base, k_row, kb0, sk, d, vec, tid);
-  load_rows<kBKV, NP>(sV, v + k_base, k_row, kb0, sk, d, vec, tid);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), kThreads);
+      mbar_init(smem_u32(&bars[kStages + s]), kThreads);
+    }
+    for (int i = 0; i < 4; ++i)
+      mbar_init(smem_u32(&bars[2 * kStages + i]), 128);
+    mbar_fence_init();
+  }
+  load_tile<kBKV, NP, kThreads>(sK, k + k_base, k_row, kb0, sk, d, vec, tid);
+  load_tile<kBKV, NP, kThreads>(sV, v + k_base, k_row, kb0, sk, d, vec, tid);
   cp_async_commit();
+  cp_async_wait<0>();   // K and V have landed
+  fence_proxy_async();
+  __syncthreads();
 
   // The queries that see a key of the block: [q_lo, q_hi).
   const int kb_last = min(kb0 + kBKV, sk) - 1;
@@ -380,71 +525,359 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_qt = q_hi > q_lo ? (q_hi - q_lo + kBQT - 1) / kBQT : 0;
   const int n_it = heads * n_qt;
 
-  // Iteration it: head hk heads + it / n_qt, query tile it % n_qt.
+  // Iteration it's Q and dO tiles (head hk heads + it / n_qt, query tile
+  // it % n_qt) with their rows' LSE and delta into its stage, every thread
+  // its share, once every thread is done with the tile the stage held.
   auto load_q = [&](int it) {
+    const int st = it % kStages;
+    mbar_wait(smem_u32(&bars[kStages + st]), ((it / kStages) & 1) ^ 1);
     const int h = hk * heads + it / n_qt, qq0 = q_lo + (it % n_qt) * kBQT;
-    const int st = it & 1;
     const int64_t q_base = static_cast<int64_t>(b) * sq * q_row +
                            static_cast<int64_t>(h) * d;
     const int64_t r_base = (static_cast<int64_t>(b) * hq + h) * sq;
-    bf16* tQ = sQD + st * 2 * kBQT * kP;
-    load_rows<kBQT, NP>(tQ, q + q_base, q_row, qq0, sq, d, vec, tid);
-    load_rows<kBQT, NP>(tQ + kBQT * kP, dout + q_base, q_row, qq0, sq, d, vec,
-                        tid);
-    for (int i = tid; i < kBQT; i += kThreads) {
-      const int qi = qq0 + i;
-      sLse[st * kBQT + i] = qi < sq ? lse[r_base + qi] * kLog2e : INFINITY;
-      sDelta[st * kBQT + i] = qi < sq ? delta[r_base + qi] : 0.f;
+    uint8_t* tQ = sQD + st * kStage;
+    load_tile<kBQT, NP, kThreads>(tQ, q + q_base, q_row, qq0, sq, d, vec,
+                                  tid);
+    load_tile<kBQT, NP, kThreads>(tQ + NP * kTPanel, dout + q_base, q_row,
+                                  qq0, sq, d, vec, tid);
+    // Rows past Sq read as 0: the mask sets their P to 0.
+    if (tid < 2 * kBQT) {
+      const int i = tid & (kBQT - 1), qi = qq0 + i;
+      const int64_t src = r_base + (qi < sq ? qi : 0);
+      cp_async4(smem_u32((tid < kBQT ? sLse : sDelta) + st * kBQT + i),
+                (tid < kBQT ? lse : delta) + src, qi < sq);
     }
+    stage_filled(smem_u32(&bars[st]), vec);
   };
-  if (n_it > 0) load_q(0);
-  cp_async_commit();
+  for (int it = 0; it < kStages - 1 && it < n_it; ++it) load_q(it);
 
-  const int key_lo = kb0 + warp * 16 + g;   // keys g and g + 8
-  const int wk_first = kb0 + warp * 16, wk_last = wk_first + 15;
-  float ak[kDC / 8][4], av[kDC / 8][4];
+  // Warpgroup 0 computes S^T = K Q^T, P^T, and dV += P^T dO; warpgroup 1
+  // dP^T = V dO^T, dS^T = P^T (dP^T - delta) from warpgroup 0's P^T, and
+  // dK += dS^T Q.  Both hold all D columns of their gradient.
+  const int key_lo = kb0 + warp * 16 + g;   // keys key_lo and key_lo + 8
+  const uint64_t a_desc = desc(smem_u32(role == 0 ? sK : sV), 16, 1024);
+  const uint32_t sQD_u = smem_u32(sQD);
+  const uint64_t t_desc = desc(sQD_u, 16, 1024);        // K-major B
+  const uint64_t tt_desc = desc(sQD_u, kTPanel, 1024);  // MN-major B
+  const uint32_t first_b = role == 0 ? 0 : NP * kTPanel;    // Q or dO
+  const uint32_t second_b = role == 0 ? NP * kTPanel : 0;   // dO or Q
+  const uint32_t p_full = smem_u32(&bars[2 * kStages]);
+  const uint32_t p_empty = smem_u32(&bars[2 * kStages + 2]);
+  float acc[NP][32], s[32];
 #pragma unroll
-  for (int i = 0; i < kDC / 8; ++i)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ak[i][e] = av[i][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<0>();   // tile it has landed
-    __syncthreads();      // and every warp is done with tile it - 1
-    if (it + 1 < n_it) load_q(it + 1);
-    cp_async_commit();
-    const int qq0 = q_lo + (it % n_qt) * kBQT, qp0 = q_offset + qq0;
-    if (wk_first > qp0 + kBQT - 1 ||
-        (window > 0 && qp0 - wk_last >= window))
-      continue;   // no key of this warp is seen by a query of the tile
-    const int st = it & 1;
-    const bf16* tQ = sQD + st * 2 * kBQT * kP;
-    const bf16* tD = tQ + kBQT * kP;
-    const float* tl = sLse + st * kBQT;
-    const float* td = sDelta + st * kBQT;
-    float s[kBQT / 8][4], dp[kBQT / 8][4];
+    if (it + kStages - 1 < n_it) load_q(it + kStages - 1);
+    const int stage = it % kStages;
+    mbar_wait(smem_u32(&bars[stage]), (it / kStages) & 1);   // tile landed
+    fence_proxy_async();
+    const int qq0 = q_lo + (it % n_qt) * kBQT;
+    const uint32_t st = stage * kStage;
+    const float* tl = sLse + stage * kBQT;
+    const float* td = sDelta + stage * kBQT;
+    fence_acc(s);
+    wg_fence();
 #pragma unroll
-    for (int i = 0; i < kBQT / 8; ++i)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    mma_abt<NP>(s, sK + warp * 16 * kP, tQ, lane);    // S^T = K Q^T
-    mma_abt<NP>(dp, sV + warp * 16 * kP, tD, lane);   // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < kBQT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * nt + 2 * tq + (e & 1), qi = qq0 + qc;
-        const bool ok = (qi < sq) &
-                        sees(q_offset + qi, key_lo + 8 * (e >> 1), sk, window);
-        const float p = ok ? ex2(fmaf(s[nt][e], scale_log2, -tl[qc])) : 0.f;
-        s[nt][e] = p;                          // P^T
-        dp[nt][e] = p * (dp[nt][e] - td[qc]);  // dS^T
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b =
+            t_desc + ((st + first_b + p * kTPanel + kk * 32) >> 4);
+        Wgmma<64>::template ss<0, 0>(
+            s, a_desc + ((p * kVPanel + kk * 32) >> 4), b, (p | kk) != 0);
       }
-    uint32_t pa[kBQT / 16][4], da[kBQT / 16][4];
-    to_a<kBQT / 8>(pa, s);
-    to_a<kBQT / 8>(da, dp);
-    mma_ab<NP, kBQT / 16, kDC>(av, pa, tD, c0, lane);   // dV += P^T dO
-    mma_ab<NP, kBQT / 16, kDC>(ak, da, tQ, c0, lane);   // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    // P^T goes to warpgroup 1 through one of two buffers: buffer pb of
+    // iteration it, used for the (it / 2)-th time.
+    const int pb = it & 1;
+    const uint32_t pph = (it >> 1) & 1;
+    float4* buf = sP + pb * (kBKV * kBQT / 4);
+    if (role == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * quad + (e & 1), qi = qq0 + qc;
+          const bool ok = (qi < sq) & sees(q_offset + qi, key_lo + 8 * (e >> 1),
+                                           sk, window);
+          s[4 * j + e] = ok ? ex2(fmaf(s[4 * j + e], scale_log2,
+                                       -(tl[qc] * kLog2e)))
+                            : 0.f;   // P^T
+        }
+      mbar_wait(p_empty + 8 * pb, pph ^ 1);   // warpgroup 1 has read it
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        buf[j * 128 + tid] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      mbar_arrive(p_full + 8 * pb);
+    } else {
+      mbar_wait(p_full + 8 * pb, pph);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pv = buf[j * 128 + tid - 128];
+        const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * quad + (e & 1);
+          s[4 * j + e] = pe[e] * (s[4 * j + e] - td[qc]);   // dS^T
+        }
+      }
+      mbar_arrive(p_empty + 8 * pb);
+    }
+    uint32_t fr[4][4];
+    to_frags<4>(fr, s);
+    pin_frags(fr);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        Wgmma<64>::template rs<1>(
+            acc[p], fr[kk],
+            tt_desc + ((st + second_b + p * kTPanel + kk * 16 * 128) >> 4), 1);
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+    mbar_arrive(smem_u32(&bars[kStages + stage]));
+  }
+  cp_async_wait<0>();
+
+  bf16* out = role == 0 ? dv : dk;
+  const float mul = role == 0 ? 1.f : scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= sk) continue;
+    bf16* row = out + k_base + static_cast<int64_t>(key) * k_row;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 64 * p + 8 * i + 2 * quad + e;
+          if (col < d)
+            row[col] = __float2bfloat16_rn(acc[p][4 * i + 2 * r + e] * mul);
+        }
+  }
+}
+
+// dk/dv for NP <= kWideNP: 128 keys a block, each warpgroup computing
+// every product for its own 64 (S^T, dP^T, P^T, dS^T, dV and dK), so a
+// Q and dO tile serves twice the keys of fa_bwd_dkdv_kernel's 64 and no
+// P^T is handed over.  Its registers (S^T, dP^T and both gradients of
+// 64 rows) stop at NP = 2.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkdv_wide_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ lse,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
+                        int sk, int hq, int hkv, int d, int q_offset,
+                        int window, float scale, float scale_log2, int vec) {
+  using C = Cfg<NP>;
+  constexpr int kWPanel = C::kWPanel, kTPanel = C::kTPanel;
+  constexpr int kStage = 2 * NP * kTPanel;   // Q, then dO
+  constexpr int kStages = C::kWideStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;                         // NP panels of kBKW rows
+  uint8_t* sV = sK + NP * kWPanel;            // NP panels of kBKW rows
+  uint8_t* sQD = sV + NP * kWPanel;           // kStages stages
+  // The rows' LSE (natural log) and delta, [kStages][kBQT] each.
+  float* sLse = reinterpret_cast<float*>(sQD + kStages * kStage);
+  float* sDelta = sLse + kStages * kBQT;
+  __shared__ uint64_t bars[2 * kStages];      // full, then empty
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, quad = lane & 3;
+  const int kb0 = blockIdx.x * kBKW;   // the first blocks see most queries
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int heads = hq / hkv;
+  const int64_t q_row = static_cast<int64_t>(hq) * d;
+  const int64_t k_row = static_cast<int64_t>(hkv) * d;
+  const int64_t k_base = static_cast<int64_t>(b) * sk * k_row +
+                         static_cast<int64_t>(hk) * d;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), kThreads);
+      mbar_init(smem_u32(&bars[kStages + s]), kThreads);
+    }
+    mbar_fence_init();
+  }
+  load_tile<kBKW, NP, kThreads>(sK, k + k_base, k_row, kb0, sk, d, vec, tid);
+  load_tile<kBKW, NP, kThreads>(sV, v + k_base, k_row, kb0, sk, d, vec, tid);
+  cp_async_commit();
+  cp_async_wait<0>();   // K and V have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  // The queries that see a key of the block: [q_lo, q_hi).
+  const int kb_last = min(kb0 + kBKW, sk) - 1;
+  const int q_lo = max(0, kb0 - q_offset);
+  const int q_hi = window > 0 ? static_cast<int>(max(0LL, min(
+                                   static_cast<long long>(sq),
+                                   static_cast<long long>(kb_last) + window -
+                                       q_offset)))
+                             : sq;
+  const int n_qt = q_hi > q_lo ? (q_hi - q_lo + kBQT - 1) / kBQT : 0;
+  const int n_it = heads * n_qt;
+
+  // Iteration it's Q and dO tiles (head hk heads + it / n_qt, query tile
+  // it % n_qt) with their rows' LSE and delta into its stage, every thread
+  // its share, once every thread is done with the tile the stage held.
+  auto load_q = [&](int it) {
+    const int st = it % kStages;
+    mbar_wait(smem_u32(&bars[kStages + st]), ((it / kStages) & 1) ^ 1);
+    const int h = hk * heads + it / n_qt, qq0 = q_lo + (it % n_qt) * kBQT;
+    const int64_t q_base = static_cast<int64_t>(b) * sq * q_row +
+                           static_cast<int64_t>(h) * d;
+    const int64_t r_base = (static_cast<int64_t>(b) * hq + h) * sq;
+    uint8_t* tQ = sQD + st * kStage;
+    load_tile<kBQT, NP, kThreads>(tQ, q + q_base, q_row, qq0, sq, d, vec,
+                                  tid);
+    load_tile<kBQT, NP, kThreads>(tQ + NP * kTPanel, dout + q_base, q_row,
+                                  qq0, sq, d, vec, tid);
+    // Rows past Sq read as 0: the mask sets their P to 0.
+    if (tid < 2 * kBQT) {
+      const int i = tid & (kBQT - 1), qi = qq0 + i;
+      const int64_t src = r_base + (qi < sq ? qi : 0);
+      cp_async4(smem_u32((tid < kBQT ? sLse : sDelta) + st * kBQT + i),
+                (tid < kBQT ? lse : delta) + src, qi < sq);
+    }
+    stage_filled(smem_u32(&bars[st]), vec);
+  };
+  for (int it = 0; it < kStages - 1 && it < n_it; ++it) load_q(it);
+
+  const int kw0 = kb0 + wg * 64;               // the warpgroup's first key
+  const int key_lo = kw0 + warp * 16 + g;      // keys key_lo and key_lo + 8
+  const uint32_t sQD_u = smem_u32(sQD);
+  const uint64_t k_desc = desc(smem_u32(sK) + wg * 64 * 128, 16, 1024);
+  const uint64_t v_desc = desc(smem_u32(sV) + wg * 64 * 128, 16, 1024);
+  const uint64_t t_desc = desc(sQD_u, 16, 1024);        // K-major B
+  const uint64_t tt_desc = desc(sQD_u, kTPanel, 1024);  // MN-major B
+  float ak[NP][32], av[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ak[p][i] = av[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + kStages - 1 < n_it) load_q(it + kStages - 1);
+    const int stage = it % kStages;
+    mbar_wait(smem_u32(&bars[stage]), (it / kStages) & 1);   // tile landed
+    fence_proxy_async();
+    const int qq0 = q_lo + (it % n_qt) * kBQT, qp0 = q_offset + qq0;
+    const uint32_t st = stage * kStage;
+    const bool work = kw0 < sk && kw0 <= qp0 + kBQT - 1 &&
+                      (window <= 0 || qp0 - (kw0 + 63) < window);
+    if (work) {
+      fence_acc(s);
+      fence_acc(dp);
+      wg_fence();
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a = (p * kWPanel + kk * 32) >> 4;
+          const uint32_t bo = st + p * kTPanel + kk * 32;
+          Wgmma<64>::template ss<0, 0>(s, k_desc + a, t_desc + (bo >> 4),
+                                       (p | kk) != 0);
+          Wgmma<64>::template ss<0, 0>(
+              dp, v_desc + a, t_desc + ((bo + NP * kTPanel) >> 4),
+              (p | kk) != 0);
+        }
+      wg_commit();
+    }
+    if (work) {
+      const float* tl = sLse + stage * kBQT;
+      const float* td = sDelta + stage * kBQT;
+      wg_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      // Every (key, query) pair of the tile is visible unless it crosses
+      // Sq, Sk, the causal edge or the window's edge.
+      const bool full = qq0 + kBQT <= sq && kw0 + 64 <= sk &&
+                        kw0 + 63 <= qp0 &&
+                        (window <= 0 || qp0 + kBQT - 1 - kw0 < window);
+      float l2[8][2], dl[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          l2[j][c] = tl[8 * j + 2 * quad + c] * kLog2e;
+          dl[j][c] = td[8 * j + 2 * quad + c];
+        }
+      if (full) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pv = ex2(fmaf(s[4 * j + e], scale_log2, -l2[j][e & 1]));
+            s[4 * j + e] = pv;                                      // P^T
+            dp[4 * j + e] = pv * (dp[4 * j + e] - dl[j][e & 1]);    // dS^T
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qq0 + 8 * j + 2 * quad + (e & 1);
+            const bool ok = (qi < sq) & sees(q_offset + qi,
+                                             key_lo + 8 * (e >> 1), sk,
+                                             window);
+            const float pv =
+                ok ? ex2(fmaf(s[4 * j + e], scale_log2, -l2[j][e & 1]))
+                   : 0.f;
+            s[4 * j + e] = pv;
+            dp[4 * j + e] = pv * (dp[4 * j + e] - dl[j][e & 1]);
+          }
+      }
+      uint32_t pf[4][4], df[4][4];
+      to_frags<4>(pf, s);
+      to_frags<4>(df, dp);
+      pin_frags(pf);
+      pin_frags(df);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_acc(av[p]);
+        fence_acc(ak[p]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const uint32_t bo = st + p * kTPanel + kk * 16 * 128;
+          Wgmma<64>::template rs<1>(av[p], pf[kk],
+                                    tt_desc + ((bo + NP * kTPanel) >> 4), 1);
+          Wgmma<64>::template rs<1>(ak[p], df[kk], tt_desc + (bo >> 4), 1);
+        }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_acc(av[p]);
+        fence_acc(ak[p]);
+      }
+    }
+    mbar_arrive(smem_u32(&bars[kStages + stage]));
   }
   cp_async_wait<0>();
 
@@ -454,15 +887,18 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (key >= sk) continue;
     const int64_t off = k_base + static_cast<int64_t>(key) * k_row;
 #pragma unroll
-    for (int nt = 0; nt < kDC / 8; ++nt)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + 8 * nt + 2 * tq + e;
-        if (col < d) {
-          dk[off + col] = __float2bfloat16_rn(ak[nt][2 * r + e] * scale);
-          dv[off + col] = __float2bfloat16_rn(av[nt][2 * r + e]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 64 * p + 8 * i + 2 * quad + e;
+          if (col < d) {
+            dk[off + col] =
+                __float2bfloat16_rn(ak[p][4 * i + 2 * r + e] * scale);
+            dv[off + col] = __float2bfloat16_rn(av[p][4 * i + 2 * r + e]);
+          }
         }
-      }
   }
 }
 
@@ -753,6 +1189,27 @@ int launch_f32(const Args& a, cudaStream_t s) {
 
 }  // namespace f32
 
+using DkdvKernel = void (*)(const bf16*, const bf16*, const bf16*,
+                           const float*, const bf16*, const float*, bf16*,
+                           bf16*, int, int, int, int, int, int, int, float,
+                           float, int);
+
+template <int kKeys, int kSmem>
+int launch_dkdv(DkdvKernel kernel, const Args& a, float scale_log2,
+                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.sk + kKeys - 1) / kKeys, a.hkv, a.b);
+  kernel<<<grid, kThreads, kSmem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const float*>(a.lse),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk, a.hq,
+      a.hkv, a.d, a.q_offset, a.window, a.scale, scale_log2, a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NP>
 int launch_bf16(const Args& a, cudaStream_t s) {
   using C = Cfg<NP>;
@@ -762,7 +1219,7 @@ int launch_bf16(const Args& a, cudaStream_t s) {
         fa_bwd_dq_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::kDqSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((a.sq + kBQ - 1) / kBQ, a.hq, a.b * C::kNC);
+    const dim3 grid((a.sq + kBQ - 1) / kBQ, a.hq, a.b);
     fa_bwd_dq_kernel<NP><<<grid, kThreads, C::kDqSmem, s>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
@@ -773,17 +1230,12 @@ int launch_bf16(const Args& a, cudaStream_t s) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if ((a.parts & 2) && a.sk > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dkdv_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kDkdvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((a.sk + kBKV - 1) / kBKV, a.hkv, a.b * C::kNC);
-    fa_bwd_dkdv_kernel<NP><<<grid, kThreads, C::kDkdvSmem, s>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const float*>(a.lse),
-        static_cast<const bf16*>(a.dout), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk, a.hq,
-        a.hkv, a.d, a.q_offset, a.window, a.scale, scale_log2, a.vec);
+    if constexpr (NP <= kWideNP)
+      return launch_dkdv<kBKW, C::kWideSmem>(fa_bwd_dkdv_wide_kernel<NP>, a,
+                                             scale_log2, s);
+    else
+      return launch_dkdv<kBKV, C::kDkdvSmem>(fa_bwd_dkdv_kernel<NP>, a,
+                                             scale_log2, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,9 @@ each row's log-sum-exp (B, Hq, Sq) fp32, and saves q, k, v, the output
 and the LSE; its backward is `flash_attention_bwd`: on the CPU the plain
 version (`ref.flash_attention_bwd_ref`), on the card the two kernels of
 ``csrc/flash_attention_bwd.cu`` (``flash_bwd_dq``, then
-``flash_bwd_dkdv``): bf16 on mma.sync, fp32 on the CUDA cores.  Each
+``flash_bwd_dkdv``): bf16 on wgmma for every shape (D off 8 and
+unaligned bases through plain loads into the same tiles), fp32 on the
+CUDA cores.  Each
 backward call adds one to ``LAUNCHES["flash_attention_bwd"]`` and to
 ``["flash_attention_bwd_bf16"]`` or ``["flash_attention_bwd_fp32"]``.
 Under per-block remat the forward runs twice a step (the recomputed one

@@ -109,7 +109,9 @@
 
 #include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/wgmma_bf16.cuh"
 #include "ragged_items.cuh"
+#include "ragged_tc.cuh"
 
 namespace {
 
@@ -272,12 +274,10 @@ __global__ void __launch_bounds__(THREADS)
 // ------------------------------------------ the TMA + wgmma route
 namespace tc {
 
-constexpr int kBW = 128;             // w columns of an item: 64 a warpgroup
 constexpr int kBK = 64;              // K of a ring stage (128 bytes of x)
 constexpr int kSteps = kBK / 16;     // wgmma k-steps a stage
 constexpr int kConsumers = 256;      // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
-constexpr int kMaxGroups = 1024;
 constexpr int kPanelBytes = kBK * 128;      // one weight box, 8 KB
 constexpr int kRingBudget = 220 * 1024;     // of the 227 KB a block may use
 
@@ -293,136 +293,6 @@ struct Cfg {
       kRingBudget / kStageBytes < 8 ? kRingBudget / kStageBytes : 8;
   static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
 };
-
-// d (64 x N, fp32) += A (64 x 16 bf16, registers) * B (16 x N bf16,
-// shared memory, K-major, 128-byte swizzle), N = 256 or 64.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Orders the compiler's accesses of the accumulator around wgmma.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Ties A fragments to this point: computed before it, so that no
-// instruction defining a wgmma's input falls between the wgmma of a
-// stage (ptxas would serialise them).
-template <int S>
-__device__ __forceinline__ void pin(uint32_t (&a)[S][4]) {
-#pragma unroll
-  for (int i = 0; i < 4 * S; ++i)
-    asm volatile("" : "+r"(a[i >> 2][i & 3])::"memory");
-}
-
-// Two weights of a stage's tile (lower k first) as one register of bf16
-// pairs; fp32 rounds to nearest even.
-__device__ __forceinline__ uint32_t pack2(const float* p0, const float* p1) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(*p0, *p1);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(const bf16* p0, const bf16* p1) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p0)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p1))
-          << 16);
-}
-
-struct Item {
-  int seg, r0, r_end, n0;   // segment, rows [r0, r_end), columns n0..+127
-};
-
-// Item i: the segment s with cum[s] <= i < cum[s + 1] (binary search;
-// segment s is the rows [start(s), end(s)) below), then the column tile
-// and the row tile of BX rows, row tile fastest.
-template <int BX>
-__device__ __forceinline__ Item item_at(int i, const int* cum,
-                                        const int* edge, int groups, int m) {
-  int lo = 0, hi = groups + 2;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (cum[mid] <= i) lo = mid;
-    else hi = mid;
-  }
-  const int start = lo == 0 ? 0 : edge[lo - 1];
-  const int end = lo <= groups ? edge[lo] : m;
-  const int row_tiles = (end - start + BX - 1) / BX;
-  const int local = i - cum[lo];
-  const int ct = local / row_tiles, rt = local - ct * row_tiles;
-  Item it;
-  it.seg = lo;
-  it.r0 = start + rt * BX;
-  it.r_end = min(it.r0 + BX, end);
-  it.n0 = ct * kBW;
-  return it;
-}
 
 template <typename TW, int BX>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -455,38 +325,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   if (tid < 32) {   // scans of 32 at a time: the running max, then cum
-    int carry = 0;
-    for (int base = 0; base <= groups; base += 32) {
-      const int j = base + lane;
-      int v = j <= groups ? edge[j] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v = max(v, u);
-      }
-      v = max(v, carry);
-      if (j <= groups) edge[j] = min(v, m);
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-    __syncwarp();
-    int total = 0;
-    for (int base = 0; base < groups + 2; base += 32) {
-      const int s = base + lane;
-      int c = 0;
-      if (s < groups + 2) {
-        const int lo = s == 0 ? 0 : edge[s - 1];
-        const int hi = s <= groups ? edge[s] : m;
-        c = (hi - lo + BX - 1) / BX * col_tiles;
-      }
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, c, o);
-        if (lane >= o) c += u;
-      }
-      if (s < groups + 2) cum[s + 1] = total + c;
-      total += __shfl_sync(0xffffffffu, c, 31);
-    }
-    if (lane == 0) cum[0] = 0;
+    scan_edges(edge, groups, m, lane);
+    count_items<BX>(edge, cum, groups, m, col_tiles, lane);
   }
   __syncthreads();
   const int items = cum[groups + 2];
@@ -570,11 +410,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       db[s] = x_desc + ((stage * C::kStageBytes + s * 32) >> 4);
       asm volatile("" : "+l"(db[s])::"memory");
     }
-    pin(a);
+    pin_frags(a);
     fence_acc(acc);
     wg_fence();
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) wgmma_rs<BX>(acc, a[s], db[s]);
+    for (int s = 0; s < kSteps; ++s)
+      Wgmma<BX>::template rs<0>(acc, a[s], db[s], 1);
     wg_commit();
 
     wg_wait<0>();
@@ -624,26 +465,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                   : __floats2bfloat162_rn(v0, other);
       }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <typename TW, int BX>
@@ -750,20 +571,12 @@ extern "C" int ragged_dot_tc_launch(const void* x, const void* w,
   memset(&tmx, 0, sizeof(tmx));
   memset(&tmw, 0, sizeof(tmw));
   if (k > 0) {   // with k == 0 no item loads: every row is zero
-    const EncodeTiled enc = encoder();
-    if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-    const cuuint32_t ones[3] = {1, 1, 1};
     const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(m)};
     const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(k) * 2};
     const cuuint32_t xbox[2] = {kBK, static_cast<cuuint32_t>(bx)};
-    CUresult r = enc(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     const_cast<void*>(x), xdim, xstride, xbox, ones,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+    int r = encode(&tmx, x, false, 2, xdim, xstride, xbox);
+    if (r != 0) return 100000 + r;
     if (groups > 0) {
       const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(n),
                                   static_cast<cuuint64_t>(k),
@@ -773,14 +586,8 @@ extern "C" int ragged_dot_tc_launch(const void* x, const void* w,
           static_cast<cuuint64_t>(k) * n * esz};
       const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(128 / esz), kBK,
                                   1};
-      r = enc(&tmw,
-              w_fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-              3, const_cast<void*>(w), wdim, wstride, wbox, ones,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-      if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+      r = encode(&tmw, w, w_fp32 != 0, 3, wdim, wstride, wbox);
+      if (r != 0) return 100000 + r;
     }
   }
   int dev = 0, sms = 0;

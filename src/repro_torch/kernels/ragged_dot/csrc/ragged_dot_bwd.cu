@@ -23,42 +23,76 @@
 // group) at the bf16 tensor-core rate, against its bytes (dx: dy, the
 // weights of the used groups, dx; dw: x, dy, dw).  mixtral's gate/up
 // backward at M = 8192, K = 4096, N = 14336 is 9.6e11 FLOP each, 0.97 ms
-// at 989e12 FLOP/s, against ~0.5 GB: operations bind.
+// at 989e12 FLOP/s, against ~0.5 GB: operations bind.  deepseek's at
+// (24576, 2048, 1408; 64 groups) is bound by bytes (the fp32 dw of every
+// group, 0.74 GB).
 //
-// Design of the bf16 route (x bf16; w bf16, or fp32 rounded on load):
-// mma.sync m16n8k16 with fp32 accumulators, a block of 8 warps computing
-// a 128 x 128 output tile, each warp 32 x 64, from a two-stage ring of
-// 32-deep slices (cp.async for whole 16-byte chunks; plain loads for
-// ragged rows and for fp32 weights, which are rounded as they are
-// stored to shared memory).
+// Design of the bf16 route for K and N multiples of 8, x, dy and w on 16
+// bytes and G <= 1024 (every model path's shape): TMA and wgmma, with a
+// persistent grid of one block an SM, each block a producer warpgroup
+// (40 registers a thread, setmaxnreg) whose one thread issues TMA loads
+// into a ring of stages with full and empty mbarriers, and two consumer
+// warpgroups (232) on wgmma; the producer runs on into the next work
+// item while the consumers store the last one.
+// - dx (ragged_dx_tc_kernel) is the forward's kernel (ragged_dot.cu,
+//   ragged_dot_tc_kernel) with dy in x's place: operands swapped, an item
+//   computes dx^T = w[g] dy^T over (segment, 256-row tile, 128-column
+//   tile of K) items that start at their group's first row (ragged_tc.cuh:
+//   segments before the first group and past the last write zeros).  The
+//   weights' 128 (K) x 64 (N) slice lands as boxes of 128 bytes a row and
+//   is wgmma's A from registers: K-major, so each A register is one 8-byte
+//   (fp32, rounded with cvt.rn.bf16x2.f32) or 4-byte (bf16) load of two
+//   adjacent n; dy's rows are B, K-major as TMA lays them out.
+// - dw (ragged_dw_tc_kernel): an item is (group, 128 rows of K, 256
+//   columns of N), k tiles fastest, so that the blocks that run together
+//   read one group's rows.  A stage is 64 of the group's rows, from its
+//   first: x's as two 64-column boxes (A, MN-major: the transposed
+//   operand, which wgmma takes for bf16) and dy's as four (B, MN-major),
+//   and each consumer warpgroup issues wgmma.m64n256k16 with both from
+//   shared memory.  A box that runs past the group's last row holds other
+//   groups' rows (or zeros past M): the consumers zero those rows of both
+//   operands in shared memory before the product, since dw sums over the
+//   rows.  Each block walks its group's rows in order and writes its tile
+//   once: no atomics and no split over the rows, so two calls give the
+//   same bits; an empty group's tiles are written as zeros.
+// Other bf16 inputs (K or N off a multiple of 8, a base off 16 bytes,
+// more than 1024 groups) take the mma.sync kernels, counted apart
+// (ops.py: LAUNCHES["ragged_dot_bwd_mma"]): mma.sync m16n8k16 with fp32
+// accumulators, a block of 8 warps computing a 128 x 128 output tile,
+// each warp 32 x 64, from a two-stage ring of 32-deep slices (cp.async
+// for whole 16-byte chunks; plain loads for ragged rows and for fp32
+// weights, which are rounded as they are stored to shared memory).
 // - dx: the forward's work items ((group, 128-row tile) pairs whose rows
 //   meet, found by walking the offsets; rows of other groups zeroed on
 //   load and left out of the store), the output's columns over K, the
 //   slices over N.  A = dy's rows (ldmatrix); B = w[g]'s rows k as they
-//   are stored, n contiguous, which is mma's column-major B, so plain
-//   ldmatrix serves the transposed weights.
+//   are stored, n contiguous, which is mma's column-major B.
 // - dw: grid (N tile, K tile, group); each block walks its group's rows
-//   in ascending order, 32 a slice, from the group's first row (so no
-//   slice is shared with another group), and writes its tile once: no
-//   atomics and no split over the rows across blocks (mixtral's gate/up
-//   has 112 x 32 x 8 tiles).  A = x^T and B = dy, both stored row by row
-//   as they are in memory, and ldmatrix .trans transposes the A slice.
+//   in ascending order, 32 a slice, and writes its tile once.  A = x^T
+//   and B = dy, both stored row by row, ldmatrix .trans for A.
 // fp32 (x and w fp32): the CUDA cores, 64 x 64 outputs a block of 256
 // threads, 4 x 4 a thread, fp32 FMAs in the reduction's order from
 // 16-deep slices in shared memory (plain loads): the fp32 compute mode's
 // route, not a fast one.
 //
-// Both are deterministic: every output is summed by one thread in a
-// fixed order.  The launchers are plain C functions (no PyTorch headers)
-// that return cudaGetLastError, so a refused launch is reported.
+// Every route is deterministic: every output is summed by one thread in
+// a fixed order.  The launchers are plain C functions (no PyTorch
+// headers) that return cudaGetLastError, so a refused launch is reported;
+// the TMA routes' tensor maps are encoded on the host for each call
+// (ragged_tc.cuh).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/wgmma_bf16.cuh"
 #include "ragged_items.cuh"
+#include "ragged_tc.cuh"
 
 namespace {
 
@@ -354,6 +388,366 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
+// ------------------------------------------ the TMA + wgmma route, bf16
+namespace tc {
+
+constexpr int kBK = 64;              // reduction depth of a ring stage
+constexpr int kSteps = kBK / 16;     // wgmma k-steps a stage
+constexpr int kConsumers = 256;      // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kRingBudget = 220 * 1024;     // of the 227 KB a block may use
+
+// dx: BX rows of dy an item (wgmma's N: 256, or 64 when M <= 64), the
+// weights of type TW; a stage holds dy's BX x 64 box and the weights'
+// 128 (K) x 64 (N) as boxes of 128 bytes a row.
+template <typename TW, int BX>
+struct DxCfg {
+  static constexpr int kDyBytes = BX * kBK * 2;
+  static constexpr int kPanelCols = 128 / static_cast<int>(sizeof(TW));
+  static constexpr int kPanels = kBK / kPanelCols;
+  static constexpr int kPanelBytes = kBW * 128;
+  static constexpr int kStageBytes = kDyBytes + kPanels * kPanelBytes;
+  static constexpr int kStages =
+      kRingBudget / kStageBytes < 8 ? kRingBudget / kStageBytes : 8;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+};
+
+template <typename TW, int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    ragged_dx_tc_kernel(const __grid_constant__ CUtensorMap tmdy,
+                        const __grid_constant__ CUtensorMap tmw,
+                        const int* __restrict__ offsets,
+                        bf16* __restrict__ dx, int m, int k, int n,
+                        int groups) {
+  using C = DxCfg<TW, BX>;
+  constexpr int kAcc = BX / 2;   // accumulator registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[2 * C::kStages];   // full, then empty
+  __shared__ int edge[kMaxGroups + 1];
+  __shared__ int cum[kMaxGroups + 3];         // items before segment s
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int col_tiles = (k + kBW - 1) / kBW;
+  const int ktiles = (n + kBK - 1) / kBK;     // slices of the reduction
+
+  for (int j = tid; j <= groups; j += kThreads) edge[j] = offsets[j];
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[C::kStages + s]), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) {
+    scan_edges(edge, groups, m, lane);
+    count_items<BX>(edge, cum, groups, m, col_tiles, lane);
+  }
+  __syncthreads();
+  const int items = cum[groups + 2];
+
+  if (tid >= kConsumers) {   // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const Item it = item_at<BX>(i, cum, edge, groups, m);
+        if (it.seg == 0 || it.seg > groups) continue;   // zeros: no loads
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(smem_u32(&bars[C::kStages + stage]), phase ^ 1);
+          const uint32_t full = smem_u32(&bars[stage]);
+          const uint32_t st = smem_u32(smem + stage * C::kStageBytes);
+          mbar_expect_tx(full, C::kStageBytes);
+          tma_load_2d(st, &tmdy, full, kt * kBK, it.r0);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p)
+            tma_load_3d(st + C::kDyBytes + p * C::kPanelBytes, &tmw, full,
+                        kt * kBK + p * C::kPanelCols, it.n0, it.seg - 1);
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  // A consumer: warpgroup wg owns the K columns [64 wg, 64 wg + 64) of
+  // an item's 128, warp w of it 16; the thread's A rows are the K columns
+  // c0 and c0 + 8 (rows of w[g]), its reduction indices 2 t, 2 t + 1,
+  // 2 t + 8 and 2 t + 9 of each 16-deep step: pairs of adjacent n, one
+  // 8-byte (fp32) or 4-byte (bf16) load each from the swizzled box.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int c0 = wg * 64 + warp * 16 + g;
+  uint32_t col_off[kSteps][2];   // (step, +8) -> byte offset in a row
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nc = 16 * s + 2 * t + 8 * h;
+      const int byte = (nc % C::kPanelCols) * static_cast<int>(sizeof(TW));
+      // Row c0 (and c0 + 8) is 7 (mod 8) at g: the swizzle XORs chunk g.
+      col_off[s][h] = C::kDyBytes + (nc / C::kPanelCols) * C::kPanelBytes +
+                      ((((byte >> 4) ^ g) << 4) | (byte & 15));
+    }
+  const uint64_t dy_desc = desc(smem_u32(smem), 16, 1024);
+
+  float acc[kAcc];
+  uint32_t a[kSteps][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  // One slice of the reduction: the stage's A fragments, its kSteps
+  // wgmma, and the stage released once they are done.
+  auto step = [&]() {
+    mbar_wait(smem_u32(&bars[stage]), phase);
+    const uint8_t* st = smem + stage * C::kStageBytes;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint8_t* p = st + (c0 + 8 * (e & 1)) * 128 + col_off[s][e >> 1];
+        a[s][e] = pack2(reinterpret_cast<const TW*>(p),
+                        reinterpret_cast<const TW*>(p) + 1);
+      }
+    uint64_t db[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      db[s] = dy_desc + ((stage * C::kStageBytes + s * 32) >> 4);
+      asm volatile("" : "+l"(db[s])::"memory");
+    }
+    pin_frags(a);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+      Wgmma<BX>::template rs<0>(acc, a[s], db[s], 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(smem_u32(&bars[C::kStages + stage]));
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_at<BX>(i, cum, edge, groups, m);
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+    // Rows outside the groups (segments 0 and groups + 1) store zeros.
+    if (it.seg >= 1 && it.seg <= groups)
+      for (int kt = 0; kt < ktiles; ++kt) step();
+
+    // acc[4 j + 2 h + e] is (K column c0 + 8 h, row 8 j + 2 t + e) of
+    // the item.  Lane g ^ 1 holds the neighbouring column: an even g
+    // stores row 2 t, columns (c, c + 1), an odd g row 2 t + 1, columns
+    // (c - 1, c).
+    const bool odd = g & 1;
+    const int col_base = it.n0 + c0 - (odd ? 1 : 0);
+#pragma unroll
+    for (int j = 0; j < BX / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const int row = it.r0 + 8 * j + 2 * t + (odd ? 1 : 0);
+        const int col = col_base + 8 * h;
+        if (row < it.r_end && col < k)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dx + static_cast<int64_t>(row) * k + col) =
+              odd ? __floats2bfloat162_rn(other, v1)
+                  : __floats2bfloat162_rn(v0, other);
+      }
+  }
+}
+
+// dw: an item is (group, 128-row tile of K, 256-column tile of N); a
+// stage holds 64 of the group's rows: x's as two 64-column boxes (K) and
+// dy's as four (N), each 64 rows of 128 bytes, 48 KB.
+constexpr int kDwRows = 64;
+constexpr int kDwN = 256;
+constexpr int kDwBox = kDwRows * 128;
+constexpr int kDwXBytes = 2 * kDwBox;
+constexpr int kDwStageBytes = kDwXBytes + 4 * kDwBox;
+constexpr int kDwStages = kRingBudget / kDwStageBytes;
+constexpr int kDwSmem = kDwStages * kDwStageBytes + 1024;
+
+// A sum rounded once to bf16, then written in dw's type: two adjacent
+// columns.
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<float2*>(p) = __bfloat1622float2(r);
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(kThreads, 1)
+    ragged_dw_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                        const __grid_constant__ CUtensorMap tmdy,
+                        const int* __restrict__ offsets, TW* __restrict__ dw,
+                        int m, int k, int n, int groups) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[2 * kDwStages];   // full, then empty
+  __shared__ int edge[kMaxGroups + 1];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k_tiles = (k + kBW - 1) / kBW, n_tiles = (n + kDwN - 1) / kDwN;
+  const int items = groups * k_tiles * n_tiles;
+
+  for (int j = tid; j <= groups; j += kThreads) edge[j] = offsets[j];
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[kDwStages + s]), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) scan_edges(edge, groups, m, lane);
+  __syncthreads();
+  // Item i: group i / (k_tiles n_tiles), then the N tile, then the K
+  // tile, fastest: the blocks that run together read one group's rows.
+  auto item = [&](int i, int& grp, int& k0, int& n0) {
+    grp = i / (k_tiles * n_tiles);
+    const int rest = i - grp * k_tiles * n_tiles;
+    n0 = rest / k_tiles * kDwN;
+    k0 = (rest % k_tiles) * kBW;
+  };
+
+  if (tid >= kConsumers) {   // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        int grp, k0, n0;
+        item(i, grp, k0, n0);
+        for (int r0 = edge[grp]; r0 < edge[grp + 1]; r0 += kDwRows) {
+          mbar_wait(smem_u32(&bars[kDwStages + stage]), phase ^ 1);
+          const uint32_t full = smem_u32(&bars[stage]);
+          const uint32_t st = smem_u32(smem + stage * kDwStageBytes);
+          mbar_expect_tx(full, kDwStageBytes);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            tma_load_2d(st + p * kDwBox, &tmx, full, k0 + 64 * p, r0);
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            tma_load_2d(st + kDwXBytes + p * kDwBox, &tmdy, full,
+                        n0 + 64 * p, r0);
+          if (++stage == kDwStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  // A consumer: warpgroup wg owns the K rows [64 wg, 64 wg + 64) of an
+  // item's 128 (x's box wg, MN-major A) and all 256 columns (dy's four
+  // boxes, MN-major B, 8 KB apart).
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const uint32_t base = smem_u32(smem);
+  const uint64_t x_desc = desc(base + wg * kDwBox, kDwBox, 1024);
+  const uint64_t dy_desc = desc(base + kDwXBytes, kDwBox, 1024);
+  float acc[kDwN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int grp, k0, n0;
+    item(i, grp, k0, n0);
+    const int lo = edge[grp], hi = edge[grp + 1];
+#pragma unroll
+    for (int j = 0; j < kDwN / 2; ++j) acc[j] = 0.f;
+    for (int r0 = lo; r0 < hi; r0 += kDwRows) {
+      mbar_wait(smem_u32(&bars[stage]), phase);
+      uint8_t* st = smem + stage * kDwStageBytes;
+      if (hi - r0 < kDwRows) {
+        // The box runs past the group's last row: those rows are other
+        // groups' (or past M, read as zeros); zero them in both operands,
+        // since dw sums over the rows.
+        const int keep = hi - r0;
+        for (int e = tid; e < 6 * (kDwRows - keep) * 8; e += kConsumers) {
+          const int box = e / ((kDwRows - keep) * 8);
+          const int rest = e - box * (kDwRows - keep) * 8;
+          *reinterpret_cast<uint4*>(st + box * kDwBox +
+                                    (keep + (rest >> 3)) * 128 +
+                                    (rest & 7) * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      }
+      const uint32_t so = stage * kDwStageBytes;
+      fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < kDwRows / 16; ++s)
+        Wgmma<kDwN>::template ss<1, 1>(acc, x_desc + ((so + s * 2048) >> 4),
+                                       dy_desc + ((so + s * 2048) >> 4), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(smem_u32(&bars[kDwStages + stage]));
+      if (++stage == kDwStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // acc[4 j + 2 h + e] is (K row 64 wg + 16 warp + g + 8 h, column
+    // 8 j + 2 t + e) of the item.
+    TW* out = dw + static_cast<int64_t>(grp) * k * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = k0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (kr >= k) continue;
+      TW* orow = out + static_cast<int64_t>(kr) * n;
+#pragma unroll
+      for (int j = 0; j < kDwN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < n) store2(orow + col, acc[4 * j + 2 * h],
+                            acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+template <typename TW, int BX>
+int launch_dx(const CUtensorMap& tmdy, const CUtensorMap& tmw,
+              const int* offsets, bf16* dx, int m, int k, int n, int groups,
+              int sms, cudaStream_t s) {
+  const long long items =
+      ((m + BX - 1LL) / BX + groups + 2) * ((k + kBW - 1) / kBW);
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ragged_dx_tc_kernel<TW, BX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DxCfg<TW, BX>::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ragged_dx_tc_kernel<TW, BX><<<blocks, kThreads, DxCfg<TW, BX>::kSmem, s>>>(
+      tmdy, tmw, offsets, dx, m, k, n, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 // ---------------------------------------------------------------- fp32
 constexpr int F_TILE = 64;   // output rows and columns a block computes
 constexpr int F_BK = 16;     // the reduction slice in shared memory
@@ -563,5 +957,118 @@ extern "C" int ragged_dot_dw_launch(const void* x, const void* dy,
     dw_bf16<float>(grid, s, x, dy, op, dw, m, k, n, groups, vec);
   else
     dw_bf16<bf16>(grid, s, x, dy, op, dw, m, k, n, groups, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA + wgmma routes (bf16 x and dy): dx (m, k) bf16 from dy (m, n)
+// and w (groups, k, n) fp32 (w_fp32 != 0, rounded on load) or bf16; dw
+// (groups, k, n) in w's type from x (m, k) and dy.  k and n multiples of
+// 8, x, dy and w on 16 bytes, groups <= 1024 (ops.TC_MAX_GROUPS).
+// Return the launch's CUDA error (0 on success), or 100000 plus the
+// CUresult of a tensor map that could not be encoded.
+extern "C" int ragged_dot_dx_tc_launch(const void* dy, const void* w,
+                                       const void* offsets, void* dx, int m,
+                                       int k, int n, int groups, int w_fp32,
+                                       void* stream) {
+  using namespace tc;
+  if (m <= 0 || k <= 0) return 0;
+  const int esz = w_fp32 ? 4 : 2;
+  if (n < 0 || groups < 0 || groups > kMaxGroups || k % 8 != 0 ||
+      n % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(w)) %
+              16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 64-row items when every group fits in one, else 256.
+  const int bx = m <= 64 ? 64 : 256;
+  CUtensorMap tmdy, tmw;
+  memset(&tmdy, 0, sizeof(tmdy));
+  memset(&tmw, 0, sizeof(tmw));
+  if (n > 0) {   // with n == 0 no item loads: every row is zero
+    const cuuint64_t ddim[2] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t dstride[1] = {static_cast<cuuint64_t>(n) * 2};
+    const cuuint32_t dbox[2] = {kBK, static_cast<cuuint32_t>(bx)};
+    int r = encode(&tmdy, dy, false, 2, ddim, dstride, dbox);
+    if (r != 0) return 100000 + r;
+    if (groups > 0) {
+      const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(n),
+                                  static_cast<cuuint64_t>(k),
+                                  static_cast<cuuint64_t>(groups)};
+      const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(n) * esz,
+                                     static_cast<cuuint64_t>(k) * n * esz};
+      const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(128 / esz), kBW,
+                                  1};
+      r = encode(&tmw, w, w_fp32 != 0, 3, wdim, wstride, wbox);
+      if (r != 0) return 100000 + r;
+    }
+  }
+  int sms = 0;
+  const int e = sm_count(&sms);
+  if (e != 0) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<const int*>(offsets);
+  auto* dxp = static_cast<bf16*>(dx);
+  if (bx == 64)
+    return w_fp32 ? launch_dx<float, 64>(tmdy, tmw, op, dxp, m, k, n, groups,
+                                         sms, s)
+                  : launch_dx<bf16, 64>(tmdy, tmw, op, dxp, m, k, n, groups,
+                                        sms, s);
+  return w_fp32 ? launch_dx<float, 256>(tmdy, tmw, op, dxp, m, k, n, groups,
+                                        sms, s)
+                : launch_dx<bf16, 256>(tmdy, tmw, op, dxp, m, k, n, groups,
+                                       sms, s);
+}
+
+extern "C" int ragged_dot_dw_tc_launch(const void* x, const void* dy,
+                                       const void* offsets, void* dw, int m,
+                                       int k, int n, int groups, int w_fp32,
+                                       void* stream) {
+  using namespace tc;
+  if (groups <= 0 || k <= 0 || n <= 0) return 0;
+  if (m < 0 || groups > kMaxGroups || k % 8 != 0 || n % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) %
+              16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmx, tmdy;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmdy, 0, sizeof(tmdy));
+  if (m > 0) {   // with m == 0 every group is empty: dw is zero
+    const cuuint32_t box[2] = {64, kDwRows};
+    const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(k) * 2};
+    int r = encode(&tmx, x, false, 2, xdim, xstride, box);
+    if (r != 0) return 100000 + r;
+    const cuuint64_t ddim[2] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t dstride[1] = {static_cast<cuuint64_t>(n) * 2};
+    r = encode(&tmdy, dy, false, 2, ddim, dstride, box);
+    if (r != 0) return 100000 + r;
+  }
+  const long long items = static_cast<long long>(groups) *
+                          ((k + kBW - 1) / kBW) * ((n + kDwN - 1) / kDwN);
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int e = sm_count(&sms);
+  if (e != 0) return e;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<const int*>(offsets);
+  cudaError_t err;
+  if (w_fp32) {
+    err = cudaFuncSetAttribute(ragged_dw_tc_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDwSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ragged_dw_tc_kernel<float><<<blocks, kThreads, kDwSmem, s>>>(
+        tmx, tmdy, op, static_cast<float*>(dw), m, k, n, groups);
+  } else {
+    err = cudaFuncSetAttribute(ragged_dw_tc_kernel<bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDwSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ragged_dw_tc_kernel<bf16><<<blocks, kThreads, kDwSmem, s>>>(
+        tmx, tmdy, op, static_cast<bf16*>(dw), m, k, n, groups);
+  }
   return static_cast<int>(cudaGetLastError());
 }

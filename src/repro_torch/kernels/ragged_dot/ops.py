@@ -27,11 +27,14 @@ Under autograd (grad enabled and x or w requiring it) a call is one
 `ragged_dot_bwd`: on the CPU the plain version
 (`ref.ragged_dot_bwd_ref`), on the card the two kernels of
 ``csrc/ragged_dot_bwd.cu`` (``ragged_dot_dx``: dx = dy w[g]^T,
-``ragged_dot_dw``: dw[g] = x[rows_g]^T dy[rows_g]): bf16 x on mma.sync
-(fp32 weights rounded on load, dw rounded to bf16 and written in w's
-type), fp32 on the CUDA cores.  Each backward call adds one to
-``LAUNCHES["ragged_dot_bwd"]`` and to ``["ragged_dot_bwd_bf16"]`` or
-``["ragged_dot_bwd_fp32"]``.
+``ragged_dot_dw``: dw[g] = x[rows_g]^T dy[rows_g]): bf16 x on TMA and
+wgmma where K and N are multiples of 8 from 16-byte bases (`bwd_tc_route`:
+every model path's shape), on mma.sync elsewhere (fp32 weights rounded
+on load, dw rounded to bf16 and written in w's type), fp32 on the CUDA
+cores.  Each backward call adds one to ``LAUNCHES["ragged_dot_bwd"]``
+and to ``["ragged_dot_bwd_bf16"]`` or ``["ragged_dot_bwd_fp32"]``, and a
+bf16 call to its kernels' route, ``["ragged_dot_bwd_wgmma"]`` or
+``["ragged_dot_bwd_mma"]``.
 
 On the ``meta`` device (the dry run's) a call takes the CUDA route's
 checks and returns outputs of the right shapes and types, computing
@@ -212,9 +215,9 @@ class _RaggedDot(torch.autograd.Function):
         return dx if need_x else None, dw if need_w else None, None, None
 
 
-def _bwd_launcher(symbol: str):
+def _bwd_launcher(symbol: str, n_ints: int):
     fn = getattr(load(_BWD), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -244,10 +247,21 @@ def ragged_dot_bwd(x, w, group_offsets, dy):
         return _launch_bwd(x, w, group_offsets, dy)
 
 
+def bwd_tc_route(x, w, dy) -> bool:
+    """Whether a bfloat16 backward takes the TMA + wgmma kernels: TMA
+    copies rows of whole 16-byte units of x, dy and w from 16-byte
+    bases."""
+    k, n = x.shape[1], w.shape[2]
+    return (k % 8 == 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+            and w.shape[0] <= TC_MAX_GROUPS)
+
+
 def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
     """(dx, dw): both kernels (``parts`` 3), or the dx kernel alone (1)
     or the dw kernel alone (2), for timing each (the one not launched is
-    left unwritten)."""
+    left unwritten).  bf16 x takes the TMA + wgmma kernels where
+    `bwd_tc_route` allows, else the mma.sync ones."""
     m, k = x.shape
     groups, _, n = w.shape
     dx, dw = torch.empty_like(x), torch.empty_like(w)
@@ -255,25 +269,37 @@ def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
         return dx, dw
     dy = dy.to(x.dtype).contiguous()
     fp32 = x.dtype == torch.float32
+    route = None if fp32 else "wgmma" if bwd_tc_route(x, w, dy) else "mma"
     ptrs = (x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dw.data_ptr())
-    # cp.async moves 16 bytes: rows of whole chunks of 8 from 16-byte
-    # bases (fp32 weights then load as pairs of float4).
-    vec = int(k % 8 == 0 and n % 8 == 0 and all(p % 16 == 0 for p in ptrs))
-    args = (m, k, n, groups, vec, int(fp32), int(w.dtype == torch.float32))
     x_p, w_p, o_p, dy_p, dx_p, dw_p = ptrs
+    w_fp32 = int(w.dtype == torch.float32)
     err = 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if parts & 1:
-            err = _bwd_launcher("ragged_dot_dx_launch")(
-                dy_p, w_p, o_p, dx_p, *args, stream)
-        if err == 0 and parts & 2:
-            err = _bwd_launcher("ragged_dot_dw_launch")(
-                x_p, dy_p, o_p, dw_p, *args, stream)
-    route = "fp32" if fp32 else "bf16"
+        if route == "wgmma":
+            if parts & 1:
+                err = _bwd_launcher("ragged_dot_dx_tc_launch", 5)(
+                    dy_p, w_p, o_p, dx_p, m, k, n, groups, w_fp32, stream)
+            if err == 0 and parts & 2:
+                err = _bwd_launcher("ragged_dot_dw_tc_launch", 5)(
+                    x_p, dy_p, o_p, dw_p, m, k, n, groups, w_fp32, stream)
+        else:
+            # cp.async moves 16 bytes: rows of whole chunks of 8 from
+            # 16-byte bases (fp32 weights then load as pairs of float4).
+            vec = int(k % 8 == 0 and n % 8 == 0 and
+                      all(p % 16 == 0 for p in ptrs))
+            args = (m, k, n, groups, vec, int(fp32), w_fp32)
+            if parts & 1:
+                err = _bwd_launcher("ragged_dot_dx_launch", 7)(
+                    dy_p, w_p, o_p, dx_p, *args, stream)
+            if err == 0 and parts & 2:
+                err = _bwd_launcher("ragged_dot_dw_launch", 7)(
+                    x_p, dy_p, o_p, dw_p, *args, stream)
+    kind = "fp32" if fp32 else "bf16"
     if err != 0:
-        raise RuntimeError(f"{_BWD} ({route}) launch failed: error {err}")
+        raise RuntimeError(f"{_BWD} ({kind}, {route or 'cuda cores'}) "
+                           f"launch failed: error {err}")
     if parts == 3:
-        count_launch(_BWD, route)
+        count_launch(_BWD, kind, *(() if fp32 else (route,)))
     return dx, dw

@@ -1101,7 +1101,13 @@ RAGGED_BWD_CASES = [
     (300, 70, 198, [0, 100, 0, 150, 40]),   # K, N off 8: plain loads
     (200, 64, 100, [50] * 4), (1000, 256, 384, [100, 0, 300, 250, 0, 350]),
     (600, 2048, 1408, [10] * 60 + [0] * 4),  # deepseek's widths
+    # deepseek's widths, group edges inside dw's 64-row boxes
+    (1000, 2048, 1408, [100, 37, 250, 13, 150, 0, 443]),
     (520, 128, 4104, [300, 0, 220]), (50, 64, 64, [0, 0, 0])]
+
+
+def _bwd_kernel_routes(name):
+    return tuple(LAUNCHES[f"{name}_{r}"] for r in ("wgmma", "mma"))
 
 
 def _ragged_bwd_ok(got, want, dtype) -> bool:
@@ -1115,8 +1121,11 @@ def _ragged_bwd_ok(got, want, dtype) -> bool:
 def test_ragged_dot_bwd_equals_plain_version(cuda, case, route):
     """dx and dw against `ragged_dot_bwd_ref` (rows past the groups and
     before them, empty groups, unaligned K and N, one group holding every
-    row, groups across tile edges), one counted launch on its route, and
-    the same bits from a second call."""
+    row, groups across tile edges and inside dw's row boxes), one counted
+    launch on its route: bf16 on the TMA + wgmma kernels where K and N
+    are multiples of 8 (every model path's shape), on the mma.sync ones
+    (``ragged_dot_bwd_mma``) elsewhere; and the same bits from a second
+    call."""
     from repro_torch.kernels.ragged_dot import ops
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_bwd_ref
     m, k, n, sizes = case
@@ -1129,10 +1138,15 @@ def test_ragged_dot_bwd_equals_plain_version(cuda, case, route):
     gen = torch.Generator().manual_seed(m)
     dy = torch.randn((m, n), generator=gen).to(x.dtype).to(cuda)
     before = _route_counts("ragged_dot_bwd")
+    kernels = _bwd_kernel_routes("ragged_dot_bwd")
     dx, dw = ops.ragged_dot_bwd(x, w, offs, dy)
     torch.cuda.synchronize()
     assert _route_counts("ragged_dot_bwd") == _moved("ragged_dot_bwd",
                                                      before, x.dtype)
+    tma = k % 8 == 0 and n % 8 == 0
+    want_kernels = (kernels if route == "fp32" else
+                    (kernels[0] + tma, kernels[1] + (not tma)))
+    assert _bwd_kernel_routes("ragged_dot_bwd") == want_kernels
     want = ragged_dot_bwd_ref(x, w, offs, dy)
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     assert _ragged_bwd_ok(dx, want[0], x.dtype)
@@ -1142,7 +1156,8 @@ def test_ragged_dot_bwd_equals_plain_version(cuda, case, route):
 
 
 def test_ragged_dot_bwd_unaligned_bases(cuda):
-    """Inputs 2 elements into their storage take the plain loads."""
+    """Inputs 2 elements into their storage, which TMA cannot take, go to
+    the mma.sync kernels and their plain loads."""
     from repro_torch.kernels.ragged_dot import ops
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_bwd_ref
     x, w, offs = _ragged(200, 64, 96, [50, 0, 150], cuda)
@@ -1152,7 +1167,10 @@ def test_ragged_dot_bwd_unaligned_bases(cuda):
                           device=cuda)[2:].view(t.shape)
         return out.copy_(t)
     dy = torch.randn(200, 96, device=cuda).bfloat16()
+    before = _bwd_kernel_routes("ragged_dot_bwd")
     dx, dw = ops.ragged_dot_bwd(shifted(x), shifted(w), offs, shifted(dy))
+    assert _bwd_kernel_routes("ragged_dot_bwd") == (before[0],
+                                                    before[1] + 1)
     want = ragged_dot_bwd_ref(x, w, offs, dy)
     assert _ragged_bwd_ok(dx, want[0], torch.bfloat16)
     assert _ragged_bwd_ok(dw, want[1], torch.bfloat16)
@@ -1173,7 +1191,9 @@ FA_BWD_CASES = [
     (1, 777, 900, 4, 1, 64, 300, 123), (1, 150, 170, 4, 2, 5, None, 0),
     (1, 200, 260, 8, 2, 44, 70, 60), (1, 300, 300, 8, 4, 256, None, 0),
     (1, 300, 300, 8, 4, 256, 100, 0), (1, 200, 230, 4, 2, 192, 50, 30),
-    (1, 129, 129, 2, 1, 200, None, 0), (1, 1, 512, 4, 2, 64, None, 511)]
+    (1, 129, 129, 2, 1, 200, None, 0), (1, 1, 512, 4, 2, 64, None, 511),
+    # the path's widths: gemma3's global layer, mixtral's window
+    (1, 1024, 1024, 8, 4, 256, None, 0), (1, 1024, 1024, 32, 8, 128, 512, 0)]
 
 
 def _flash_bwd_case(case, dtype, device, seed=0):
@@ -1190,9 +1210,11 @@ def _flash_bwd_case(case, dtype, device, seed=0):
 @pytest.mark.parametrize("case", FA_BWD_CASES, ids=str)
 def test_flash_bwd_equals_plain_version(cuda, case, dtype):
     """dq, dk and dv against `flash_attention_bwd_ref` (GQA, windows,
-    q_offset on both sides of 0, D off 8 and 64, D up to 256), one
-    counted launch on its route, the same bits from a second call; and
-    the forward's LSE against the plain forward's."""
+    q_offset on both sides of 0, D off 8 and 64, D up to 256, the path's
+    widths), one counted launch on its route (bf16: the wgmma kernels,
+    which take every shape, D off 8 through plain loads), the same bits
+    from a second call; and the forward's LSE against the plain
+    forward's."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
