@@ -237,11 +237,11 @@ the script started:
    and with one; mamba2's (2, 2048, 80, 64), N = 128; S off the chunk;
    P = 130 and N = 12; chunk 1024), each in bf16 and fp32, within
    `SSD_BWD_TOL`; two calls give the same bits.  bf16 runs
-   `ssd_bwd_tc.cu` (tensor cores), fp32 `ssd_bwd.cu` (CUDA cores).  At
-   zamba2's and mamba2's shapes the kernel's ms, its stages' device
-   times, PR 25's times (`SSD_BWD_EARLIER_MS`, quoted), the plain
-   version's and the bound (`ssd_bwd_bound`, with its count before the
-   head fold beside it).
+   `ssd_bwd_tc.cu` (bf16 tensor cores), fp32 `ssd_bwd.cu` (TF32 tensor
+   cores, three passes a product).  At zamba2's and mamba2's shapes the
+   kernel's ms, its stages' device times, the first (CUDA-core) design's
+   times (`SSD_BWD_EARLIER_MS`, quoted), the plain version's and the bound
+   (`ssd_bwd_bound`, with its count before the head fold beside it).
 25b. ragged-dot-bwd-vs-plain: the grouped product's backward
    (`ragged_dot_bwd`: ``ragged_dot_dx`` and ``ragged_dot_dw``,
    csrc/ragged_dot_bwd.cu) against its plain version at the shapes the
@@ -253,7 +253,12 @@ the script started:
    `LAUNCHES` key.  At the captured shapes: both kernels' ms and each
    alone, the earlier mma.sync kernels' (`RAGGED_BWD_EARLIER_MS`,
    quoted), the plain halves' ms, the bounds (`ragged_bwd_bound`) and
-   `torch._grouped_mm` for dx and for dw on pre-cast weights.
+   `torch._grouped_mm` for dx and for dw on pre-cast weights.  Then the
+   fp32 route (the CUDA cores) at mixtral's captured gate/up shape with
+   x and dy cast to fp32 and at the smoke shapes the fp32 step feeds it
+   (`FP32_RAGGED_SMOKE`): each kernel's ms, its bounds at the CUDA
+   cores' rate and at three TF32 passes, and a library time
+   (`ragged_fp32_row`).
 25c. flash-bwd-vs-plain: flash attention's backward
    (`flash_attention_bwd`: ``flash_bwd_dq`` and ``flash_bwd_dkdv``,
    csrc/flash_attention_bwd.cu) at every flash path shape the serving
@@ -261,10 +266,11 @@ the script started:
    KV-head group at a time (`FA_BWD_TOL`); two calls give the same
    bits, and the forward's output is the same with and without its LSE;
    each call is one launch on its dtype's route (bf16: the wgmma
-   kernels).  ms (both kernels and each alone), the earlier mma.sync
-   kernels' bf16 ms (`FA_BWD_EARLIER_MS`, quoted), the plain halves' ms,
-   the bounds (`flash_bwd_bound`) and SDPA's backward
-   (`flash_bwd_vs_plain`).
+   kernels; fp32: mma.sync on the TF32 tensor cores).  ms (both kernels
+   and each alone), the kernels' ms before their redesign
+   (`FA_BWD_EARLIER_MS`, quoted: the first mma.sync bf16 kernels and the
+   first CUDA-core fp32 ones), the plain halves' ms, the bounds
+   (`flash_bwd_bound`) and SDPA's backward (`flash_bwd_vs_plain`).
 26. train-card-vs-cpu: one fp32 `train_step` on the card and on the
    host from the same weights, for zamba2 at published widths cut to 6
    layers (one shared-attention invocation) at (1, 512) and for the
@@ -304,12 +310,21 @@ the script started:
    point) on the card, `SERVICE_TRACE` requests at 8x8 with
    `SERVICE_WORKERS` workers and a cold in-memory cache: no crash
    outcome, no serve-crash event, every ok result valid.  Requests/s,
-   p50/p95/p99 latency, sources, hit rates, the slowest requests.
+   p50/p95/p99 latency, sources, hit rates, the slowest requests.  One
+   request of the trace maps for minutes on the host, so the phase runs
+   in a process of its own (``chip_smoke.py --map-trace``), started
+   after phase 9 and read here, beside phases 10-29.  While the
+   script times the card (`cuda_ms`, `device_profile`, `StepClock`, the
+   training runs) that process is stopped, so that the two never share
+   the card by time slices; its row gives when it started
+   (`started_at_s`) and the seconds it was stopped (`stopped_s`), which
+   its walls and latencies include.
 31. explain: traced and recorded maps (C4K8@8x8 busmap, C5K5 bandmap)
    with their span walls by name (`obs.export.to_json`) and
    `MappingResult.explain()`'s report.
 Each of phases 28-31 resets the launch counts just before it and reads
-them just after: `selection_counts` must have launched.
+them just after (phase 30 in its own process, whose counts start at 0):
+`selection_counts` must have launched.
 
 The last lines are the kernel table (JSON), the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``.
@@ -317,10 +332,12 @@ reports it, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -377,6 +394,15 @@ OPS_PER_OUT_WORD = 2
 # (1-2 workers, the engine's K-way parallelism inside each map).
 SERVICE_TRACE = 64
 SERVICE_WORKERS = 2
+# The map-trace process's limit, s: the script's own limit is 1200 s.
+TRACE_CHILD_TIMEOUT_S = 1000
+# Processes the script started (the map-trace phase's), killed on exit.
+_CHILDREN: list = []
+# Seconds the children were stopped while the card was timed, and how
+# deep the timing sections are nested.
+_STOPPED = dict(seconds=0.0, depth=0)
+# Seconds a stopped child's queued kernels are given to drain.
+DRAIN_S = 0.005
 # The co-mapping cases: the tier-1 cases of tests/test_comap.py (which
 # the host settles: the certificate stage or the constructive starts
 # place every op) and one pair of the 8x8 serve catalog whose regions
@@ -574,6 +600,17 @@ RAGGED_BWD_EDGES = [(300, 70, 198, [0, 100, 0, 150, 40], "bf16", "fp32", 0),
                      "fp32", 20),
                     (4096, 4096, 1024, [1000, 0, 2000, 1096], "fp32",
                      "fp32", 0)]
+# ragged-dot-path and ragged-dot-bwd-vs-plain time the fp32 route (fp32 x
+# and weights, the fp32 compute mode's: the CUDA cores) at
+# `FP32_RAGGED_ARCH`'s captured prefill gate/up shape, x (and dy) cast
+# to fp32, and at the smoke shapes train-card-vs-cpu's fp32 step feeds
+# it, (arch, (batch, seq)): gate/up (batch seq top_k, d_model, moe_d_ff)
+# and down (batch seq top_k, moe_d_ff, d_model), rows routed uniformly
+# at random; `FP32_RAGGED_REPS` timed calls each.
+FP32_RAGGED_ARCH = "mixtral-8x7b"
+FP32_RAGGED_SMOKE = (("mixtral-8x7b", (2, 256)),
+                     ("deepseek-v2-lite-16b", (2, 256)))
+FP32_RAGGED_REPS = 3
 # flash-bwd-vs-plain: the backward pair at each flash path shape the
 # serving phases captured (zamba2's (1, 8192, 32, 64); gemma3's (1, 8192,
 # 8, 256) with 4 KV heads, local and global; mixtral's (1, 8192, 32,
@@ -634,23 +671,33 @@ SSD_BWD_CASES = [("zamba2 train step", "captured", False),
 SSD_BWD_TOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 SSD_BWD_ATOL = 1e-5
 SSD_BWD_DA_TOL = 1e-3
-# ssd-bwd-vs-plain's times before the bf16 route's tensor-core redesign:
-# PR 25's ssd_bwd.cu, both dtypes on the CUDA cores (PERF.md section 6,
-# chip run 1, PR 25).  Quoted in the phase's rows, never measured here,
-# so the kernels line leaves them out.
+# ssd-bwd-vs-plain's times before each route's tensor-core redesign: the
+# first ssd_bwd.cu, both dtypes on the CUDA cores (PERF.md section 6, row
+# 5b's "before").  Quoted in the phase's rows, never measured here, so
+# the kernels line leaves them out.
 SSD_BWD_EARLIER_MS = {"bfloat16": {"zamba2": 3.281, "mamba2": 8.353},
                       "float32": {"zamba2": 3.277, "mamba2": 8.373}}
-# The bf16 times of the other two backward pairs before their redesign on
-# wgmma: the mma.sync kernels (the "before" of PERF.md section 6, row 4b
-# and the ragged_dot_dx/_dw rows), (both kernels, dq or dx alone, dkdv
-# or dw alone) by path shape.  Quoted in the phases' rows, never
-# measured here, so the kernels line leaves them out; the fp32 routes did
-# not change.
-FA_BWD_EARLIER_MS = {("zamba2-1.2b", "flash_long"): (5.134, 1.916, 3.218),
-                     ("gemma3-4b", "flash_local"): (3.172, 1.489, 1.661),
-                     ("gemma3-4b", "flash_global"): (11.56, 5.251, 6.306),
-                     ("mixtral-8x7b", "flash_long"): (7.695, 3.264, 4.317),
-                     ("qwen2-vl-72b", "flash_long"): (20.43, 8.437, 12.19)}
+# The times of the other two backward pairs before their redesign, (both
+# kernels, dq or dx alone, dkdv or dw alone) by path shape: bf16, the
+# first mma.sync kernels (the "before" of PERF.md section 6, row 4b and
+# the ragged_dot_dx/_dw rows; now on wgmma); flash's fp32, the first
+# CUDA-core kernels (row 4b's fp32 "before"; now on the TF32 tensor
+# cores).  Quoted in the phases' rows, never measured here, so the
+# kernels line leaves them out.
+FA_BWD_EARLIER_MS = {
+    "bfloat16": {("zamba2-1.2b", "flash_long"): (5.134, 1.916, 3.218),
+                 ("gemma3-4b", "flash_local"): (3.172, 1.489, 1.661),
+                 ("gemma3-4b", "flash_global"): (11.56, 5.251, 6.306),
+                 ("mixtral-8x7b", "flash_long"): (7.695, 3.264, 4.317),
+                 ("qwen2-vl-72b", "flash_long"): (20.43, 8.437, 12.19)},
+    "float32": {("zamba2-1.2b", "flash_long"): (80.40, 33.31, 47.89),
+                ("gemma3-4b", "flash_local"): (21.91, 10.33, 11.56),
+                ("gemma3-4b", "flash_global"): (85.05, 41.44, 43.70),
+                ("mixtral-8x7b", "flash_long"): (122.9, 53.79, 69.40),
+                ("qwen2-vl-72b", "flash_long"): (323.5, 142.5, 180.9)}}
+FA_BWD_EARLIER_FROM = {
+    "bfloat16": "the first mma.sync kernels, quoted",
+    "float32": "the first CUDA-core kernels, quoted"}
 RAGGED_BWD_EARLIER_MS = {
     "mixtral-8x7b gate/up": (11.07, 6.666, 4.729),
     "mixtral-8x7b down": (10.53, 6.432, 4.220),
@@ -705,8 +752,36 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+@contextlib.contextmanager
+def card_to_itself():
+    """Stop the script's running children (SIGSTOP) for the block and let
+    them go on after it (SIGCONT): two processes' kernels share the card
+    by time slices, which would add to every time taken meanwhile."""
+    procs = [] if _STOPPED["depth"] else \
+        [p for p in _CHILDREN if p.poll() is None]
+    for proc in procs:
+        proc.send_signal(signal.SIGSTOP)
+    t0 = time.perf_counter()
+    _STOPPED["depth"] += 1
+    try:
+        if procs:
+            time.sleep(DRAIN_S)
+        yield
+    finally:
+        _STOPPED["depth"] -= 1
+        for proc in procs:
+            proc.send_signal(signal.SIGCONT)
+        if procs:
+            _STOPPED["seconds"] += time.perf_counter() - t0
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card, after a warm-up."""
+    with card_to_itself():
+        return _cuda_ms(fn, reps)
+
+
+def _cuda_ms(fn, reps: int) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
@@ -734,8 +809,8 @@ def device_profile(fn, calls: int | None = None, top: int = 6,
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_to_itself(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = sorted(
@@ -1128,7 +1203,7 @@ def by_projection(args, kwargs):
 
 class StepClock:
     """Wall seconds (with a device sync at the end of each call) of every
-    call to ``module.name`` while entered."""
+    call to ``module.name`` while entered, with the card to itself."""
 
     def __init__(self, module, name: str) -> None:
         self.module, self.name = module, name
@@ -1136,6 +1211,8 @@ class StepClock:
 
     def __enter__(self) -> "StepClock":
         import torch
+        self.quiet = card_to_itself()
+        self.quiet.__enter__()
         self.orig = getattr(self.module, self.name)
 
         def timed(*args, **kwargs):
@@ -1150,6 +1227,7 @@ class StepClock:
 
     def __exit__(self, *exc) -> None:
         setattr(self.module, self.name, self.orig)
+        self.quiet.__exit__(*exc)
 
 
 def top2_margin(logits):
@@ -1702,6 +1780,103 @@ def ragged_bound(m, k, n, groups_used, groups, w_bytes=4) -> dict:
                 flop=flop, bytes=nbytes)
 
 
+def ragged_fp32_smoke(dev, gen) -> list:
+    """(label, x, w, offsets, dy) of each grouped product of
+    `FP32_RAGGED_SMOKE`'s smoke configs, fp32."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    out = []
+    for arch, (batch, seq) in FP32_RAGGED_SMOKE:
+        cfg = get_smoke_config(arch)
+        m, groups = batch * seq * cfg.top_k, cfg.n_experts
+        sizes = torch.multinomial(torch.ones(groups, device=dev), m,
+                                  replacement=True, generator=gen)
+        sizes = sizes.bincount(minlength=groups)
+        offs = torch.cat([sizes.new_zeros(1), sizes.cumsum(0)]).int()
+        for label, k, n in (("gate/up", cfg.d_model, cfg.moe_d_ff),
+                            ("down", cfg.moe_d_ff, cfg.d_model)):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((groups, k, n), generator=gen,
+                            device=dev) * k ** -0.5
+            dy = torch.randn((m, n), generator=gen, device=dev)
+            out.append((f"{arch} smoke {label}", x, w, offs, dy))
+    return out
+
+
+def ragged_fp32_library(part: str, x, w, offs, dy):
+    """``torch._grouped_mm`` computing ``part`` ("fwd", "dx" or "dw") of
+    the fp32 grouped product on the fp32 operands, a yardstick off the
+    path (the card's torch takes fp32 operands)."""
+    import torch
+    ends = offs[1:]
+    return {"fwd": lambda: torch._grouped_mm(x, w, offs=ends),
+            "dx": lambda: torch._grouped_mm(dy, w.transpose(-2, -1),
+                                            offs=ends),
+            "dw": lambda: torch._grouped_mm(x.t(), dy, offs=ends)}[part]
+
+
+def ragged_fp32_row(label: str, part: str, x, w, offs, dy) -> tuple:
+    """``part`` ("fwd", "dx" or "dw") of the fp32 route at one shape: its
+    error against the plain version (checked), ms, the plain version's
+    ms, bounds (2 m k n FLOP at three TF32 passes, the least the card
+    could take for an fp32 result, and at the CUDA cores' fp32 rate, the
+    route's own arithmetic; each against the bytes moved once) and the
+    library's ms and error (`ragged_fp32_library`).  Returns (the row, the
+    kernel launches it made)."""
+    import torch
+    from repro_torch.kernels.ragged_dot import ops as rd_ops
+    from repro_torch.kernels.ragged_dot.ref import (ragged_dot_dw_ref,
+                                                    ragged_dot_dx_ref,
+                                                    ragged_dot_ref)
+    m, k = x.shape
+    groups, _, n = w.shape
+    used = int((offs.diff() > 0).sum())
+    if part == "fwd":
+        def kernel():
+            return rd_ops.ragged_dot(x, w, offs)
+
+        def plain():
+            return ragged_dot_ref(x, w, offs)
+        nbytes = 4 * (m * k + m * n + used * k * n + groups + 1)
+    else:
+        bit = 1 if part == "dx" else 2
+
+        def kernel():
+            return rd_ops._launch_bwd(x, w, offs, dy, parts=bit)[bit - 1]
+
+        def plain():
+            return (ragged_dot_dx_ref if bit == 1 else ragged_dot_dw_ref)(
+                x, w, offs, dy)
+        nbytes = ragged_bwd_bound(part, m, k, n, used, groups, 4,
+                                  4)["bytes"]
+    got, want = kernel(), plain()
+    d = (got - want).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    ok = bool((d <= RAGGED_ATOL + RAGGED_RTOL["float32"] * want.abs()).all())
+    check(ok, f"ragged_dot fp32 {part} at {label}: max |d| {err}")
+    lib = ragged_fp32_library(part, x, w, offs, dy)
+    d = (lib() - want).abs()
+    lib_err = float(d.max()) if d.numel() else 0.0
+    del got, want, d
+    flop = 2 * m * k * n
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_tf32, t_fp32 = 3 * flop / PEAK_TF32_S, flop / PEAK_OPS_S
+    row = dict(case=label, part=part, m=m, k=k, n=n, groups=groups,
+               groups_used=used, x="float32", w="float32", route="fp32",
+               max_abs_err=err,
+               ms=cuda_ms(kernel, FP32_RAGGED_REPS),
+               plain_ms=cuda_ms(plain, 1),
+               bound_ms=1e3 * max(t_tf32, t_bytes),
+               bound_by="operations" if t_tf32 >= t_bytes else "bytes",
+               bound_fp32_rate_ms=1e3 * max(t_fp32, t_bytes),
+               flop=flop, bytes=nbytes,
+               library_ms=cuda_ms(lib, FP32_RAGGED_REPS),
+               library=f"torch._grouped_mm on the fp32 operands, allow_tf32 "
+                       f"{torch.backends.cuda.matmul.allow_tf32}",
+               library_max_abs_err=lib_err)
+    return row, 2 + FP32_RAGGED_REPS
+
+
 def ragged_path(arch: str, cfg, caps: dict) -> list:
     """`ragged_dot` at each grouped product the arch's path gave (the
     serving waves' prefill and decode, the long forward's; gate and up
@@ -1721,7 +1896,8 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ragged_dot.ref import ragged_dot_ref
-    rows, calls = [], {"wgmma": 0, "mma": 0}
+    rows, calls = [], {"wgmma": 0, "mma": 0, "fp32": 0}
+    first = None
     reset_launches()
     for source, cap in caps.items():
         for (m, k, n), (args, _) in cap.calls.items():
@@ -1729,6 +1905,8 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
             stage = source if source == "long" else \
                 ("decode" if m <= SERVE_SLOTS * cfg.top_k else "prefill")
             label = f"{stage} {'gate/up' if k == cfg.d_model else 'down'}"
+            if label == "prefill gate/up" and first is None:
+                first = (x, w, offs)
             got = ragged_dot(x, w, offs)
             err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
             check(ok, f"ragged_dot at {arch}'s {label} ({m}, {k}, {n}): "
@@ -1791,11 +1969,20 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
                        bound_bf16_weights_by=bf16_bound["bound_by"])
             del wb
             rows.append(row)
+    fp32_rows = []
+    if arch == FP32_RAGGED_ARCH:
+        gen = torch.Generator(device=first[0].device).manual_seed(30)
+        x, w, offs = first
+        for label, *args in [(f"{arch} prefill gate/up", x.float(), w, offs,
+                              None)] + ragged_fp32_smoke(x.device, gen):
+            row, made = ragged_fp32_row(label, "fwd", *args)
+            fp32_rows.append(row)
+            calls["fp32"] += made
     launched = {r: LAUNCHES[f"ragged_dot_{r}"] for r in calls}
     check(launched == calls and LAUNCHES["ragged_dot"] == sum(calls.values()),
           f"{arch}: ragged_dot launched {LAUNCHES['ragged_dot']} times, "
           f"{launched} by route, in {calls} calls")
-    return rows
+    return rows, fp32_rows
 
 
 def moe_capacity(cfg, model, dev) -> dict:
@@ -1842,7 +2029,7 @@ def llm_moe(dev, card: str, captured: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as llm
-    out = dict(serve={}, long={}, ragged=[], capacity=None)
+    out = dict(serve={}, long={}, ragged=[], ragged_fp32=[], capacity=None)
     for arch in MOE_ARCHS:
         reduced = MOE_REDUCED[arch]
         cfg = dataclasses.replace(get_config(arch), **reduced)
@@ -1867,10 +2054,11 @@ def llm_moe(dev, card: str, captured: dict) -> dict:
             out["capacity"] = moe_capacity(cfg, model, dev)
             emit(dict(phase="llm-moe-capacity", card=card,
                       **out["capacity"]))
-        rows = ragged_path(arch, cfg, caps)
+        rows, fp32_rows = ragged_path(arch, cfg, caps)
         emit(dict(phase="ragged-dot-path", card=card, arch=arch,
-                  reduced=reduced, runs=rows))
+                  reduced=reduced, runs=rows, fp32_x=fp32_rows))
         out["ragged"] += rows
+        out["ragged_fp32"] += fp32_rows
         del model, caps
         free_model()
     return out
@@ -2620,7 +2808,7 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
         t0 = time.perf_counter()
         M.make_train_step = timed_make_step
         try:
-            with cap, moe_cap, watch_plain(), \
+            with cap, moe_cap, watch_plain(), card_to_itself(), \
                     contextlib.redirect_stdout(out):
                 history = train.main(argv + ["--ckpt", ckpt])
         finally:
@@ -2955,7 +3143,17 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
         check(same, f"ragged_dot_bwd {label}: two calls differ")
         check(ok, f"ragged_dot_bwd {label}: outside the tolerance ({errs})")
         del x, w, offs, dy
+    # The fp32 route at the first projection's captured shape (mixtral's
+    # gate/up), x and dy cast to fp32, and at the fp32 step's smoke shapes.
+    fp32_rows = []
+    label, (x, w, offs, dy) = next(
+        (lb, a) for lb, a in specs if lb == f"{FP32_RAGGED_ARCH} gate/up")
+    for label, *args in [(label, x.float(), w, offs, dy.float())] + \
+            ragged_fp32_smoke(x.device, gen):
+        for part in ("dx", "dw"):
+            fp32_rows.append(ragged_fp32_row(label, part, *args)[0])
     return dict(phase="ragged-dot-bwd-vs-plain", cases=rows,
+                fp32_x=fp32_rows,
                 tolerance=dict(atol=RAGGED_ATOL, rtol=RAGGED_RTOL),
                 seconds=time.perf_counter() - t_phase)
 
@@ -3041,7 +3239,7 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
                 del want
             ok = same and fwd_same and routed and all(
                 err[p] <= FA_BWD_TOL[name] * ref_max[p] for p in err)
-            earlier = None if fp32 else FA_BWD_EARLIER_MS.get((arch, label))
+            earlier = FA_BWD_EARLIER_MS[name].get((arch, label))
             nbytes = {
                 "bwd": 5 * q.numel() * q.element_size() + 4 * k.numel() *
                 k.element_size() + 4 * lse.numel(),
@@ -3077,9 +3275,10 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
             row = dict(
                 arch=arch, label=label, shape=[b, sq, hq, d], kv_heads=hkv,
                 window=window, dtype=name,
-                route="wgmma" if not fp32 else "cuda cores",
+                route="wgmma" if not fp32 else "tf32 mma.sync",
                 earlier_ms=earlier[0] if earlier else None,
-                earlier_ms_from=EARLIER_FROM if earlier else None,
+                earlier_ms_from=EARLIER_FROM + "; " + FA_BWD_EARLIER_FROM[
+                    name] if earlier else None,
                 forward_bit_equal_with_lse=fwd_same,
                 bit_identical=same, max_abs_err=err, max_abs_ref=ref_max,
                 within=ok, tolerance=FA_BWD_TOL[name],
@@ -3223,6 +3422,8 @@ def ssd_bwd_vs_plain(dev, capture) -> dict:
                     earlier_from="PR 25's ssd_bwd.cu (CUDA cores), quoted "
                                  "from PERF.md section 6, not measured in "
                                  "this run",
+                    route="bf16 mma.sync" if dtype == torch.bfloat16 else
+                    "tf32 mma.sync",
                     plain_ms=cuda_ms(lambda: ssd_chunked_bwd(
                         *args, d_final, chunk=chunk), 3),
                     library_ms=None,
@@ -3590,6 +3791,52 @@ def service_trace(dev) -> dict:
     return row
 
 
+def start_trace_child():
+    """Start the map-trace phase in a process of its own, its standard
+    output to a temporary file; `_CHILDREN` holds it until it is read."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--map-trace"], stdout=out, cwd=ROOT)
+    _CHILDREN.append(proc)
+    return proc, out, time.perf_counter() - _T_IMPORT
+
+
+def read_trace_child(child) -> dict:
+    """Wait for the map-trace process and return its row."""
+    proc, out, started = child
+    rc = proc.wait(timeout=TRACE_CHILD_TIMEOUT_S)
+    _CHILDREN.remove(proc)
+    out.seek(0)
+    lines = out.read().strip().splitlines()
+    out.close()
+    check(rc == 0 and lines, f"the map-trace process exited with {rc}")
+    return dict(json.loads(lines[-1]), started_at_s=started,
+                stopped_s=_STOPPED["seconds"])
+
+
+def trace_main() -> int:
+    """``chip_smoke.py --map-trace``: phase 30 alone, its row printed as
+    the last line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps(service_trace(torch.device("cuda"))), flush=True)
+    return 0
+
+
+def stop_children() -> None:
+    """Kill every process the script started and has not read."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    _CHILDREN.clear()
+
+
 def service_explain(dev) -> dict:
     """Traced and recorded maps on the card: C4K8@8x8 busmap (the host
     settles it) and C5K5 bandmap (the golden case the portfolio
@@ -3626,6 +3873,27 @@ def service_explain(dev) -> dict:
     return dict(phase="explain", launches=launches, runs=runs)
 
 
+def fp32_ragged(rows: list, part: str, checks: dict) -> dict:
+    """The kernel table's fp32-route entry of `ragged_dot` (``part``
+    "fwd") or one half of its backward ("dx", "dw"): its row at
+    `FP32_RAGGED_ARCH`'s captured gate/up shape, the smoke shapes' rows
+    beside, and its launches in train-card-vs-cpu's fp32 steps."""
+    mine = [r for r in rows if r["part"] == part]
+    key = "ragged_dot_fp32" if part == "fwd" else "ragged_dot_bwd_fp32"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_rate_ms",
+            "library_ms", "library", "max_abs_err")
+    return dict({k: mine[0][k] for k in keys},
+                source="src/repro_torch/kernels/ragged_dot/csrc/" + (
+                    "ragged_dot.cu" if part == "fwd" else
+                    "ragged_dot_bwd.cu"),
+                shape=[mine[0][k] for k in ("m", "k", "n", "groups")],
+                launches_card_vs_cpu={name: c["launches"].get(key, 0)
+                                      for name, c in checks["runs"].items()},
+                path_shapes=[{k: r[k] for k in ("case", "m", "k", "n",
+                                                "groups") + keys}
+                             for r in mine])
+
+
 def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
                  checks: dict) -> dict:
     """The kernel table's row of one backward kernel: its time, bound,
@@ -3635,6 +3903,7 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
     in the training run that took it, and its largest error."""
     flash = name.startswith("flash")
     part = name.rsplit("_", 1)[1]
+    extra = {}
     if flash:
         rows = fa_bwd["cases"]
         main = next(r for r in rows if r["arch"] == "gemma3-4b" and
@@ -3650,6 +3919,14 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
                     "flash_attention_ref)")
         shape = (f"{tuple(main['shape'])} Hkv {main['kv_heads']} bf16 "
                  f"causal (gemma3-4b's global layer)")
+        f32 = next(r for r in rows if r["arch"] == main["arch"] and
+                   r["label"] == main["label"] and r["dtype"] == "float32")
+        extra = dict(fp32=dict(
+            {k: f32[part][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+            route=f32["route"], library_ms=f32["library_ms"],
+            max_abs_err=max(f32["max_abs_err"][p] for p in (
+                ("dq",) if part == "dq" else ("dk", "dv")))))
     else:
         rows = [r for r in rd_bwd["cases"] if "ms" in r]
         main = next(r for r in rows
@@ -3663,6 +3940,8 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
                     "pl.pallas_call)")
         shape = (f"({main['m']}, {main['k']}, {main['n']}; {main['groups']} "
                  f"groups) bf16 x, fp32 w (mixtral-8x7b gate/up)")
+        extra = dict(fp32=fp32_ragged(rd_bwd["fp32_x"], part,
+                                      dict(runs=checks)))
     mine = main[part]
     return dict(
         name=name, route="cuda", source="src/repro_torch/kernels/" + source,
@@ -3686,7 +3965,7 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
                           plain_ms=r[part]["plain_ms"],
                           library_ms=r["library_ms"] if flash else
                           r[part]["library_ms"])
-                     for r in rows])
+                     for r in rows], **extra)
 
 
 def main() -> int:
@@ -4011,6 +4290,9 @@ def main() -> int:
                         "on operands that stay put; 2 m n k operations "
                         "an instruction (k in bits for .b1)",
               runs=times, conflict_runs=conflict_times))
+    # Phase 30 from here on, in a process of its own: phases 2-9 time the
+    # mapper's host-bound lock-steps, which a second process slows.
+    trace_child = start_trace_child()
 
     # ---- 10-16. the LLM paths: zamba2-1.2b, mamba2-2.7b and gemma3-4b
     # at their published widths, each served and run long, then freed;
@@ -4106,8 +4388,8 @@ def main() -> int:
     # ---- 28-31. the service tier: race, co-mapping, the serve tier
     # behind --map-trace, and traced maps with their explain reports
     service = {}
-    for run in (service_race, service_comap, service_trace,
-                service_explain):
+    for run in (service_race, service_comap,
+                lambda _dev: read_trace_child(trace_child), service_explain):
         row = run(dev)
         service[row["phase"]] = row["launches"]
         emit(dict(row, card=card))
@@ -4243,6 +4525,7 @@ def main() -> int:
                    f"({rd_row['groups']}, {rd_row['k']}, {rd_row['n']}) "
                    f"fp32 ({MOE_ARCHS[0]} "
                    f"prefill gate/up)",
+             fp32=fp32_ragged(moe["ragged_fp32"], "fwd", check_row),
              path_shapes=[dict({k: r[k] for k in rd_keys}, arch=r["arch"],
                                label=r["label"],
                                shape=[r["m"], r["k"], r["n"], r["groups"]])
@@ -4266,9 +4549,10 @@ def main() -> int:
              shape=f"{tuple(bwd_main['shape'])} N={bwd_main['n']} "
                    f"chunk={bwd_main['chunk']} bf16 ({LLM_ARCH} train "
                    f"step)",
-             fp32={key: bwd32[key] for key in (
+             fp32=dict({key: bwd32[key] for key in (
                  "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                 "bound_per_head_bc_ms", "fp32_rate_bound_ms")},
+                 "bound_per_head_bc_ms", "fp32_rate_bound_ms", "route")}, launches_card_vs_cpu=check_row["runs"][
+                     LLM_ARCH]["launches"].get("ssd_bwd_fp32", 0)),
              path_shapes=[{k: r[k] for k in (
                  "case", "dtype", "shape", "n", "chunk", "ms", "plain_ms",
                  "bound_ms", "bound_by", "max_abs_err")}
@@ -4285,4 +4569,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # A run stopped by SIGTERM still stops the processes it started.
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        sys.exit(trace_main() if sys.argv[1:] == ["--map-trace"]
+                 else main())
+    finally:
+        stop_children()

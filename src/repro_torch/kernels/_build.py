@@ -54,7 +54,11 @@ HEADERS = {
                        "csrc/wgmma_bf16.cuh",
                        "ragged_dot/csrc/ragged_items.cuh",
                        "ragged_dot/csrc/ragged_tc.cuh"),
-    "flash_attention_bwd": ("csrc/sm90.cuh", "csrc/wgmma_bf16.cuh"),
+    "flash_attention_bwd": ("csrc/sm90.cuh", "csrc/tf32_mma.cuh",
+                            "csrc/wgmma_bf16.cuh"),
+    "ssd_bwd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh",
+                "ssd/csrc/ssd_bwd_common.cuh"),
+    "ssd_bwd_tc": ("csrc/sm90.cuh", "ssd/csrc/ssd_bwd_common.cuh"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

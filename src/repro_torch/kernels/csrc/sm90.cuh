@@ -4,7 +4,8 @@
 // fence, commit and wait, mbarriers and TMA loads.  Included by
 // csrc/tf32_mma.cuh, sbts_step/csrc/wgmma_s32.cuh,
 // flash_attention/csrc/flash_attention_tc.cu and flash_attention_bwd.cu,
-// and ragged_dot/csrc/ragged_dot.cu and ragged_dot_bwd.cu.
+// ragged_dot/csrc/ragged_dot.cu and ragged_dot_bwd.cu, and
+// ssd/csrc/ssd_bwd_common.cuh.
 
 #pragma once
 

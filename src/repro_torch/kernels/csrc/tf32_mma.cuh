@@ -1,6 +1,7 @@
-// Helpers shared by the fp32 kernels (flash_attention/csrc/flash_attention.cu,
-// ssd/csrc/ssd.cu), whose products run on the TF32 tensor cores in a
-// 3xTF32 split: each fp32 operand x as hi = tf32(x), lo = tf32(x - hi),
+// Helpers shared by the fp32 kernels (flash_attention/csrc/flash_attention.cu
+// and flash_attention_bwd.cu, ssd/csrc/ssd.cu and ssd_bwd.cu), whose
+// products run on the TF32 tensor cores in a 3xTF32 split: each fp32
+// operand x as hi = tf32(x), lo = tf32(x - hi),
 // and each product as hi hi + (hi lo + lo hi), hi hi and the small terms in
 // separate fp32 accumulators.  mma.sync.m16n8k8 takes operands from
 // registers; wgmma.m64n64k8 takes B (and A, or A from registers) from
@@ -33,6 +34,30 @@ __device__ __forceinline__ void store_split(uint8_t* base, uint32_t off,
   split(v.w, hi.w, lo.w);
   *reinterpret_cast<uint4*>(base + off) = hi;
   *reinterpret_cast<uint4*>(base + off + lo_off) = lo;
+}
+
+// Four 8 x 4 fp32 tiles of shared memory as mma.m16n8k8 fragments, one
+// ldmatrix (its b16 form: a row of 8 b16 is a row of 4 fp32): lane l gives
+// the address of row l % 8 of tile l / 8 (16-byte aligned), and r[i]
+// receives element (lane / 4, lane % 4) of tile i.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// The A fragment (16 x 8) of [m][k] storage at t = (m0, k0), and the B
+// fragments (8 x 8) of two 8-row blocks of [n][k] storage at t = (n0,
+// k0) (b[0], b[1] of rows n0.., b[2], b[3] of rows n0 + 8..), each by one
+// ldmatrix; rows 16-byte aligned, pitch ld floats.
+__device__ __forceinline__ void ldsm_a(uint32_t (&r)[4], const float* t,
+                                       int ld, int lane) {
+  ldsm4(r, t + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 4);
+}
+__device__ __forceinline__ void ldsm_b2(uint32_t (&r)[4], const float* t,
+                                        int ld, int lane) {
+  ldsm4(r, t + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld +
+               ((lane >> 3) & 1) * 4);
 }
 
 // c (16 x 8, fp32) += a (16 x 8, tf32) b (8 x 8, tf32).
@@ -82,6 +107,23 @@ __device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
 
+#define TF32_D16                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define TF32_R16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, fp32) (+)= A (64 x 8 tf32, smem) B^T (32 x 8 tf32, smem).
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " TF32_R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : TF32_D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 // d (64 x 64, fp32) (+)= A (64 x 8 tf32, smem) B^T (64 x 8 tf32, smem).
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {

@@ -22,8 +22,10 @@ and the LSE; its backward is `flash_attention_bwd`: on the CPU the plain
 version (`ref.flash_attention_bwd_ref`), on the card the two kernels of
 ``csrc/flash_attention_bwd.cu`` (``flash_bwd_dq``, then
 ``flash_bwd_dkdv``): bf16 on wgmma for every shape (D off 8 and
-unaligned bases through plain loads into the same tiles), fp32 on the
-CUDA cores.  Each
+unaligned bases through plain loads into the same tiles), fp32 on
+mma.sync's TF32 tensor cores, every product split into three (S and dP
+too), within 1e-5 of each gradient's max |ref| where one TF32 product
+misses it by 93x.  Each
 backward call adds one to ``LAUNCHES["flash_attention_bwd"]`` and to
 ``["flash_attention_bwd_bf16"]`` or ``["flash_attention_bwd_fp32"]``.
 Under per-block remat the forward runs twice a step (the recomputed one
@@ -249,9 +251,10 @@ def _launch_bwd(q, k, v, out, lse, dout, q_offset: int, window, *,
     lse = lse.float().contiguous()
     tensors = (q, k, v, out, lse, dout, dq, dk, dv, delta)
     ptrs = [t.data_ptr() for t in tensors]
-    # cp.async (the bf16 kernels) moves 16 bytes: D % 8 == 0 from 16-byte
-    # aligned bases; otherwise plain loads.
-    vec = int(not fp32 and d % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    # cp.async moves 16 bytes: rows of D % 8 == 0 bf16 or D % 4 == 0 fp32
+    # values from 16-byte aligned bases; otherwise plain loads.
+    vec = int(d % (16 // q.element_size()) == 0 and
+              all(p % 16 == 0 for p in ptrs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_launcher()(*ptrs, b, sq, sk, hq, hkv, d, int(q_offset),

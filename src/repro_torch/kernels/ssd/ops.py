@@ -21,7 +21,9 @@ backward `ssd_bwd`, hand-written kernels chosen by dtype (one group, N
 ``csrc/ssd_bwd_tc.cu`` (five kernels, the products on the bf16 tensor
 cores with each fp32 operand in two bf16 terms, dB and dC summed over
 groups of heads before their products), float32 to ``csrc/ssd_bwd.cu``
-(fp32 arithmetic on the CUDA cores).  `ssd_bwd` on CPU
+(the same five kernels on the TF32 tensor cores, each product split
+into three TF32 products, which holds the fp32 tolerances that one or
+two miss).  `ssd_bwd` on CPU
 tensors is the plain version, `ref.ssd_chunked_bwd` (autograd through
 `ref.ssd_chunked`), which is also how a CPU call of `ssd` is
 differentiated.  Every backward launch adds one to
@@ -48,9 +50,10 @@ _NAME = "ssd"
 _TC = "ssd_tc"     # the bf16 stages' library
 _BWD = "ssd_bwd"   # the fp32 backward's library
 _BWD_TC = "ssd_bwd_tc"   # the bf16 backward's library
-# ssd_bwd_tc.cu's kGroup (heads whose dB and dC one block sums) and
-# kTermsH, kTermsDS (bf16 terms of the states H and dS it reads).
-_TC_GROUP, _TC_TERMS_H, _TC_TERMS_DS = 8, 2, 2
+# The backward kernels' kGroup (heads whose dB and dC one block sums,
+# both routes), and ssd_bwd_tc.cu's kTermsH, kTermsDS (bf16 terms of the
+# states H and dS it reads).
+_GROUP, _TC_TERMS_H, _TC_TERMS_DS = 8, 2, 2
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -225,7 +228,7 @@ def _bwd_launcher(bf16: bool):
             ctypes.c_void_p]
     else:
         fn = load(_BWD).ssd_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -284,42 +287,37 @@ def _launch_bwd(x, dt, a_log, b, c, dy, d_final, chunk: int):
         return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
     nc = -(-s // chunk)
     bf16 = x.dtype == torch.bfloat16
+    # Scratch of both routes: cum and dt in fp32; the chunk states S and
+    # R (dS is written over R, and on the fp32 route H over S); each
+    # warp's part of <dS, H>; the four per-position sums; dB and dC per
+    # group of heads; each chunk's part of d_a_log; a counter per head.
+    # The bf16 route also reads H and dS as bf16 terms.
+    ng = -(-h // _GROUP)
+    nw = 8 * -(-(p * n) // 256)
     cum = torch.empty((bsz, nc, h, chunk), **f32)
+    sr = torch.empty((2, bsz, nc, h, p, n), **f32)
+    dhp = torch.empty((bsz * h, nc, nw), **f32)
     sc = torch.empty((4, bsz, nc, h, chunk), **f32)
+    dbp = torch.empty((bsz, s, ng, n), **f32)
+    dcp = torch.empty_like(dbp)
     dap = torch.empty((bsz, nc, h), **f32)
+    cnt = torch.empty((h,), dtype=torch.int32, device=dev)
     head = [x, dt, a_log, b, c, dy, d_final, dx, ddt, da, db, dc]
     if bf16:
-        # Scratch: cum and dt in fp32; the chunk states S and R (dS is
-        # written over R);
-        # H and dS as bf16 terms; each warp's part of <dS, H>; the four
-        # per-position sums; dB and dC per group of heads; each chunk's
-        # part of d_a_log; a counter per head.
-        ng = -(-h // _TC_GROUP)
-        nw = 8 * -(-(p * n) // 256)
-        sr = torch.empty((2, bsz, nc, h, p, n), **f32)
         planes = torch.empty((_TC_TERMS_H + _TC_TERMS_DS, bsz, nc, h, p, n),
                              dtype=x.dtype, device=dev)
-        dhp = torch.empty((bsz * h, nc, nw), **f32)
-        dbp = torch.empty((bsz, s, ng, n), **f32)
-        dcp = torch.empty_like(dbp)
-        cnt = torch.empty((h,), dtype=torch.int32, device=dev)
-        scratch = [cum, torch.empty_like(cum), sr, planes[:_TC_TERMS_H],
-                   planes[_TC_TERMS_H:], dhp, sc, dbp, dcp, dap, cnt]
+        mid = [planes[:_TC_TERMS_H], planes[_TC_TERMS_H:]]
     else:
-        # Scratch: cum, the four per-position sums, the state before each
-        # chunk and dS (written over the two chunk products), the per-head
-        # dB and dC, and each chunk's part of d_a_log.
-        hst = torch.empty((bsz, nc, h, p, n), **f32)
-        dbp = torch.empty((bsz, s, h, n), **f32)
-        scratch = [cum, hst, torch.empty_like(hst), dbp,
-                   torch.empty_like(dbp), sc, dap]
+        mid = []
+    scratch = [cum, torch.empty_like(cum), sr, *mid, dhp, sc, dbp, dcp, dap,
+               cnt]
     ptrs = [0 if t is None else t.data_ptr() for t in head + scratch]
-    args = [bsz, s, h, p, n, chunk]
-    if bf16:
-        # cp.async moves 16 bytes: P and N multiples of 8 from 16-byte
-        # aligned bases; otherwise plain loads.
-        args.append(int(p % 8 == 0 and n % 8 == 0 and
-                        all(q % 16 == 0 for q in ptrs if q)))
+    # cp.async moves 16 bytes: P and N multiples of 8 bf16 or 4 fp32
+    # values, from 16-byte aligned bases; otherwise plain loads.
+    per16 = 16 // x.element_size()
+    args = [bsz, s, h, p, n, chunk,
+            int(p % per16 == 0 and n % per16 == 0 and
+                all(q % 16 == 0 for q in ptrs if q))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_launcher(bf16)(*ptrs, *args, stream)

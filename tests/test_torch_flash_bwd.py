@@ -5,7 +5,8 @@ against ``jax.vjp`` of the reference's ``flash_attention_ref`` (what
 ``jax.grad`` differentiates when the reference trains past 4096^2
 pairs); a plain model of the bf16 backward kernels' roundings
 (``csrc/flash_attention_bwd.cu``), which fixes the tolerance the card's
-comparison uses; and one fp32 train step of a smoke config at S = 4160,
+comparison uses, and of the fp32 kernels' split-TF32 products, which
+fixes their passes; and one fp32 train step of a smoke config at S = 4160,
 past 4096^2 (query, key) pairs, against the reference's ``jax.grad``.
 Inputs are made with numpy from a seed and handed to both packages.
 
@@ -26,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref  # noqa: E402
+from _tf32 import split_mm  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -253,6 +255,186 @@ def test_bf16_single_terms_cost_little_beyond_the_final_rounding(case):
     assert errs[1] <= 2 * errs[0], errs
     assert errs[2] <= 1.1 * errs[0], errs
     assert errs[1] <= BF16_TOL / 2, errs
+
+
+# ---- the fp32 kernels' split-TF32 design (csrc/flash_attention_bwd.cu)
+
+def _kernel_tiles(d):
+    """The fp32 kernels' (keys a dq tile, queries a dk/dv tile) at head
+    dimension ``d``: 32 and 32 on wgmma (D <= 64) and on mma.sync up to
+    D = 192, 16 and 16 past it (`f32::Cfg<NP>` and `f32::wg` in
+    csrc/flash_attention_bwd.cu)."""
+    return (32, 32) if d <= 192 else (16, 16)
+
+
+def _tf32_design(q, k, v, o, lse, do, *, q_offset=0, window=None,
+                 passes=3, s_plain=False):
+    """The fp32 backward kernels' arithmetic in plain torch: every product
+    split into ``passes`` TF32 products (`split_mm`; S and dP too, unless
+    ``s_plain``, which sums them in fp32 as the plain version does); Q
+    scaled by D^-0.5 in fp32 first, P = exp(S - LSE) (exp, not exp2),
+    delta = rowsum(dO O) in fp32.  The tiles are the kernels'
+    (`_kernel_tiles`).  dq: dQ summed over key tiles, each tile's product
+    formed afresh and added in fp32, times D^-0.5 at the end.  dk/dv: the
+    group's heads in order and, for each, its query tiles in order, each
+    tile's dV += P^T dO and dK += dS^T (q D^-0.5) formed afresh and added
+    in fp32, as the kernels walk them."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    bk, bqt = _kernel_tiles(d)
+
+    def mm(eq, a, c):
+        return split_mm(eq, a, c, passes)
+
+    qs = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)                         # (B, Sq, Hq)
+    prod = torch.einsum if s_plain else mm
+    s = prod("bqhd,bkhd->bhqk", qs, kf)
+    dp = prod("bqhd,bkhd->bhqk", dof, vf)
+    qp = q_offset + torch.arange(sq)
+    kp = torch.arange(sk)
+    mask = qp[:, None] >= kp[None, :]
+    if window:
+        mask &= (qp[:, None] - kp[None, :]) < window
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (dp - delta.transpose(1, 2)[..., None])
+    dq = torch.zeros((b, hq, sq, d))
+    for j0 in range(0, sk, bk):
+        dq = dq + mm("bhqk,bkhd->bhqd", ds[..., j0:j0 + bk],
+                     kf[:, j0:j0 + bk])
+    dq = (dq * scale).transpose(1, 2)
+    dk = torch.zeros((b, hkv, sk, d))
+    dv = torch.zeros((b, hkv, sk, d))
+    pg, dsg = (t.reshape(b, hkv, g, sq, sk) for t in (p, ds))
+    dog, qsg = (t.reshape(b, sq, hkv, g, d) for t in (dof, qs))
+    for hg in range(g):
+        for i0 in range(0, sq, bqt):
+            rows = slice(i0, i0 + bqt)
+            dv = dv + mm("bhqk,bqhd->bhkd", pg[:, :, hg, rows],
+                         dog[:, rows, :, hg])
+            dk = dk + mm("bhqk,bqhd->bhkd", dsg[:, :, hg, rows],
+                         qsg[:, rows, :, hg])
+    return dq, dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+_FP32_CASES: dict = {}
+_FP32_DESIGNS: dict = {}
+
+
+def _fp32_case(case, seed=7):
+    """fp32 inputs, the plain forward's output and LSE, dO, and
+    ``jax.vjp``'s gradients of the same values (kept for the tests that
+    share a case)."""
+    if (case, seed) not in _FP32_CASES:
+        _, _, _, _, _, _, win, off = case
+        q, k, v, do = (torch.from_numpy(a) for a in _inputs(case, seed))
+        o, lse = flash_attention_ref(q, k, v, q_offset=off, window=win,
+                                     return_lse=True)
+        _, want = _jax_vjp(*(a.numpy() for a in (q, k, v, do)), win, off)
+        _FP32_CASES[case, seed] = (q, k, v, o, lse, do), want
+    return _FP32_CASES[case, seed]
+
+
+def _design_ratios(case, **kw):
+    """Each gradient's max |error| / max |ref| of `_tf32_design` with
+    ``kw`` on the case's inputs (kept for the tests that share one)."""
+    key = (case, tuple(sorted(kw.items())))
+    if key not in _FP32_DESIGNS:
+        _, _, _, _, _, _, win, off = case
+        args, want = _fp32_case(case)
+        _FP32_DESIGNS[key] = _ratios(
+            _tf32_design(*args, q_offset=off, window=win, **kw), want)
+    return _FP32_DESIGNS[key]
+
+
+def _ratios(got, want):
+    return [float(np.abs(g.numpy() - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+#: gemma3's global layer (D = 256, GQA 8:4) at 1024 tokens, where S past
+#: D = 64 is settled.
+FP32_WIDE = (1, 1024, 1024, 8, 4, 256, None, 0)
+
+
+@pytest.mark.parametrize("case", CASES + [
+    FP32_WIDE, (1, 768, 768, 4, 2, 128, 128, 0),
+    (1, 1024, 1024, 2, 1, 64, None, 0)], ids=str)
+def test_split_tf32_backward_design_meets_the_fp32_tolerance(case):
+    """The fp32 design (three TF32 products per fp32 product, S and dP
+    included at every D) within 1e-5 of each gradient's max |ref| against
+    ``jax.vjp`` in fp32 (`FP32_TOL`)."""
+    ratios = _design_ratios(case)
+    print(f"{case}: max |err| / max |ref| " + ", ".join(
+        f"{name} {r:.2e}" for name, r in zip(("dq", "dk", "dv"), ratios)))
+    assert max(ratios) <= FP32_TOL, (case, ratios)
+
+
+def test_split_s_past_d64_is_as_close_as_the_plain_order():
+    """Why S and dP take three TF32 passes past D = 64 too: at D = 256 the
+    design (2.9e-6 of max |ref| here) stays within half the fp32
+    tolerance, and within 2x of the same design with S and dP summed in
+    fp32 in the plain version's order (1.6e-6): most of its error is
+    fp32's own.  (The forward's 2e-6 on its output is what a split S
+    missed; the backward's gradients are held at 1e-5 of their max.)"""
+    split = max(_design_ratios(FP32_WIDE))
+    plain = max(_design_ratios(FP32_WIDE, s_plain=True))
+    print(f"D = 256: split S {split:.2e}, plain-order S {plain:.2e}")
+    assert split <= FP32_TOL / 2 and plain <= FP32_TOL / 2, (split, plain)
+    assert split <= 2 * plain, (split, plain)
+
+
+@pytest.mark.parametrize("case", [FP32_WIDE,
+                                  (1, 1024, 1024, 2, 1, 64, None, 0)],
+                         ids=str)
+def test_one_tf32_pass_misses_the_fp32_backward_tolerance(case):
+    """One TF32 product (hi hi) per fp32 product misses the 1e-5
+    tolerance by over 10x: three is the fewest the bound counts (two,
+    hi hi + hi lo, drop an error of the same size as one)."""
+    one = max(_design_ratios(case, passes=1))
+    two = max(_design_ratios(case, passes=2))
+    print(f"{case}: one pass {one:.2e}, two {two:.2e}")
+    assert one > 10 * FP32_TOL, one
+    assert two > FP32_TOL, two
+
+
+def test_fp32_backward_passes_match_the_kernel_source():
+    """The fp32 backward kernels take their products from the shared
+    TF32 header at its three passes, the count chip_smoke.py's fp32
+    bound of the backward uses, in the tiles `_kernel_tiles` emulates."""
+    import importlib.util
+    import pathlib
+    import re
+    kernels = pathlib.Path(ops.__file__).parents[1]
+    src = (kernels / "flash_attention" / "csrc" /
+           "flash_attention_bwd.cu").read_text()
+    assert '#include "../../csrc/tf32_mma.cuh"' in src
+    header = (kernels / "csrc" / "tf32_mma.cuh").read_text()
+    passes = int(re.search(r"constexpr int kPasses = (\d+);",
+                           header).group(1))
+    assert passes == 3
+    assert src.count("static_assert(kPasses == 3") >= 2   # both kernels
+    # Tiles: f32::Cfg<NP> (NP = ceil(D / 64)) past D = 64, f32::wg below.
+    assert "static constexpr int kBK = NP <= 3 ? 32 : 16;" in src
+    assert "static constexpr int kBQT = NP == 4 ? 16 : 32;" in src
+    wg = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
+    assert "constexpr int kBK = 32;" in wg and "constexpr int kBQT = 32;" in wg
+    assert [_kernel_tiles(d) for d in (48, 64, 128, 192, 193, 256)] == (
+        [(32, 32)] * 4 + [(16, 16)] * 2)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.FA_PASSES_FP32 == passes
+    bound = smoke.flash_bwd_bound("bwd", 1, 64, 64, 2, 1, 64, 0, fp32=True)
+    assert bound["bound_ms"] == pytest.approx(
+        1e3 * passes * bound["flop"] / smoke.PEAK_TF32_S)
 
 
 # ---- one train step past 4096^2 pairs

@@ -25,7 +25,7 @@ layer a forward, on the TMA kernel.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
 threads.  Training: the SSD backward kernels (`ssd_bwd`: bf16 on the
-tensor cores, `csrc/ssd_bwd_tc.cu`; fp32 on the CUDA cores,
+tensor cores, `csrc/ssd_bwd_tc.cu`; fp32 on the TF32 tensor cores,
 `csrc/ssd_bwd.cu`) against autograd through the plain scan (tolerances
 at `SSD_BWD_GPU_CASES`), bit for bit from call to call, each dtype on
 its own library, behind `ops.ssd`'s autograd; the backward kernels of
@@ -1024,9 +1024,9 @@ def test_ssd_bwd_is_deterministic(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_takes_its_dtypes_library(cuda, dtype, monkeypatch):
-    """A bf16 call builds and launches the tensor-core library
-    (``ssd_bwd_tc``) and not the CUDA-core one; an fp32 call the CUDA-core
-    library (``ssd_bwd``): the libraries the call loads, and its route's
+    """A bf16 call builds and launches the bf16 library (``ssd_bwd_tc``)
+    and not the fp32 one; an fp32 call the fp32 library (``ssd_bwd``, on
+    the TF32 tensor cores): the libraries the call loads, and its route's
     launch count."""
     from repro_torch.kernels.ssd import ops
     loaded = []
@@ -1242,6 +1242,37 @@ def test_flash_bwd_equals_plain_version(cuda, case, dtype):
             (name, err)
     again = ops.flash_attention_bwd(*args, q_offset=off, window=win)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,shift", [(64, True), (130, False), (256, True)],
+                         ids=["d64-unaligned-q", "d130", "d256-unaligned-q"])
+def test_flash_bwd_plain_loads(cuda, d, shift, dtype):
+    """The backward kernels' plain loads on both routes: q 2 elements off
+    16-byte alignment (fp32 at D = 64 takes the wgmma kernels, at D = 256
+    the mma.sync ones), or D = 130, off a multiple of 4 and of 8; one
+    counted launch on the dtype's route and the gradients within
+    `FA_BWD_TOL`."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    q, k, v, out, lse, do = _flash_bwd_case((1, 200, 230, 4, 2, d, 50, 30),
+                                            dtype, cuda, seed=d)
+    if shift:
+        q = _at_offset(q)
+        assert q.data_ptr() % 16 != 0
+    before = _route_counts("flash_attention_bwd")
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, q_offset=30,
+                                  window=50)
+    torch.cuda.synchronize()
+    assert _route_counts("flash_attention_bwd") == _moved(
+        "flash_attention_bwd", before, dtype)
+    want = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out)), lse,
+                                   do.float(), q_offset=30, window=50)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        err = float((g_.float() - w_).abs().max())
+        assert err <= FA_BWD_TOL[dtype] * float(w_.abs().max()) + 1e-7, \
+            (name, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

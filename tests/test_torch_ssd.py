@@ -464,18 +464,47 @@ def test_plain_backward_matches_jax_vjp(case, with_final, dtype):
           BWD_TOL[dtype], case)
 
 
+#: Heads whose Q one block of csrc/ssd_bwd.cu's row and column passes
+#: sums before its products with B and C (kGroup, csrc/ssd_bwd_common.cuh).
+FP32_BWD_GROUP = 8
+#: Positions a tile of the kernel: each product that sums over positions
+#: (the chunk states, the gate's products) is formed afresh per tile and
+#: added in fp32.
+FP32_BWD_TILE = 64
+
+
 def _kernel_stages(x, dt, a_log, b, c, dy, d_final, chunk,
-                   dtype=torch.float32):
-    """The backward kernel's stages (csrc/ssd_bwd.cu) in plain torch,
-    for one group, computed in ``dtype``: cum; the chunk states S and R;
-    the forward scan (the state H before each chunk) and the reverse one
-    (dS); per chunk the gate's products and the state terms; dcum's
-    reverse cumsum."""
+                   dtype=torch.float32, passes=None, group=FP32_BWD_GROUP):
+    """The backward kernel's stages (csrc/ssd_bwd.cu) in plain torch, for
+    one group, computed in ``dtype``: cum; the chunk states S and R, each
+    summed over tiles of `FP32_BWD_TILE` steps; the forward scan (the
+    state H before each chunk) and the reverse one (dS); the state terms
+    per head (dy H, x dS, B dS^T), scaled per row; C B^T and dy x^T; dB's
+    and dC's products taken once per group of ``group`` heads on the
+    group's summed Q, the groups' parts summed in order; the gate's
+    products per tile of positions, each added in fp32; dcum's reverse
+    cumsum.  ``passes``: None takes every product exactly in ``dtype``;
+    1-3 takes it as the kernel does on the TF32 tensor cores
+    (`split_mm`, fp32)."""
     import torch.nn.functional as F
     bsz, s, h, p = x.shape
     n = b.shape[3]
     nc = -(-s // chunk)
     pad = nc * chunk - s
+    tile = FP32_BWD_TILE
+
+    def mm(eq, u, v):
+        return torch.einsum(eq, u, v) if passes is None else \
+            split_mm(eq, u, v, passes)
+
+    def tiled(eq, u, v, init=None):
+        """`mm` over the positions (axis 2 of both operands) a tile at
+        a time, each tile's product added in fp32, after ``init``."""
+        out = init
+        for t0 in range(0, chunk, tile):
+            part = mm(eq, u[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile])
+            out = part if out is None else out + part
+        return out
 
     def chunks(t, dims):
         return F.pad(t.to(dtype), (0, 0) * dims + (0, pad)).reshape(
@@ -487,8 +516,9 @@ def _kernel_stages(x, dt, a_log, b, c, dy, d_final, chunk,
     cum = torch.cumsum(dtt * a, dim=2)                       # (B,z,L,H)
     total = cum[:, :, -1]
     w = torch.exp(total[:, :, None] - cum) * dtt
-    st = torch.einsum("bzjh,bzjhp,bzjn->bzhpn", w, xx, bb)
-    rt = torch.einsum("bzih,bzihp,bzin->bzhpn", torch.exp(cum), dyy, cc)
+    ecum = torch.exp(cum)
+    st = tiled("bzjhp,bzjhn->bzhpn", xx, w[..., None] * bb[:, :, :, None])
+    rt = tiled("bzihp,bzihn->bzhpn", dyy, ecum[..., None] * cc[:, :, :, None])
     hs, ds = [], [None] * nc
     carry = torch.zeros(bsz, h, p, n, dtype=dtype)
     for z in range(nc):
@@ -503,21 +533,27 @@ def _kernel_stages(x, dt, a_log, b, c, dy, d_final, chunk,
     cum_h = cum.movedim(-1, 2)
     e = torch.where(tril, torch.exp(torch.where(
         tril, cum_h[..., :, None] - cum_h[..., None, :], 0.0)), 0.0)
-    cb = torch.einsum("bzin,bzjn->bzij", cc, bb)[:, :, None]
-    dxy = torch.einsum("bzihp,bzjhp->bzhij", dyy, xx)
+    cb = mm("bzin,bzjn->bzij", cc, bb)[:, :, None]
+    dxy = mm("bzihp,bzjhp->bzhij", dyy, xx)
     dt_j = dtt.movedim(-1, 2)[..., None, :]
     gate, q = cb * e * dt_j, e * dt_j * dxy
     wgt = q * cb
-    xds = torch.einsum("bzjhp,bzhpn->bzjhn", xx, ds)
-    dyh = torch.einsum("bzihp,bzhpn->bzihn", dyy, hs)
-    dx = torch.einsum("bzhij,bzihp->bzjhp", gate, dyy) + w[..., None] * \
-        torch.einsum("bzjn,bzhpn->bzjhp", bb, ds)
-    dc = torch.einsum("bzhij,bzjn->bzihn", q, bb) + \
-        torch.exp(cum)[..., None] * dyh
-    db = torch.einsum("bzhij,bzin->bzjhn", q, cc) + w[..., None] * xds
+    # The state terms, per head: dy_i H and x_j dS, scaled per row.
+    dyh = mm("bzihp,bzhpn->bzihn", dyy, hs)
+    xds = mm("bzjhp,bzhpn->bzjhn", xx, ds)
+    dx = tiled("bzihj,bzihp->bzjhp", gate.permute(0, 1, 3, 2, 4), dyy,
+               w[..., None] * mm("bzjn,bzhpn->bzjhp", bb, ds))
+    dc = db = 0
+    for h0 in range(0, h, group):
+        hsl = slice(h0, h0 + group)
+        qg = q[:, :, hsl].sum(2)                             # (B,z,i,j)
+        dc = dc + tiled("bzji,bzjn->bzin", qg.transpose(-1, -2), bb,
+                        (ecum[..., hsl, None] * dyh[:, :, :, hsl]).sum(3))
+        db = db + tiled("bzij,bzin->bzjn", qg, cc,
+                        (w[..., hsl, None] * xds[:, :, :, hsl]).sum(3))
     sdot = (xds * bb[:, :, :, None]).sum(-1)
     u = w * sdot
-    v = torch.exp(cum) * (dyh * cc[:, :, :, None]).sum(-1)
+    v = ecum * (dyh * cc[:, :, :, None]).sum(-1)
     dcum = wgt.sum(-1).movedim(2, -1) + v - wgt.sum(-2).movedim(2, -1) - u
     dcum[:, :, -1] += u.sum(2) + torch.exp(total) * (ds * hs).sum((-1, -2))
     rev = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
@@ -527,8 +563,8 @@ def _kernel_stages(x, dt, a_log, b, c, dy, d_final, chunk,
 
     def rows(t):
         return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
-    return (rows(dx), rows(ddt), d_a_log, rows(db.sum(3))[:, :, None],
-            rows(dc.sum(3))[:, :, None])
+    return (rows(dx), rows(ddt), d_a_log, rows(db)[:, :, None],
+            rows(dc)[:, :, None])
 
 
 @pytest.mark.parametrize("with_final", [False, True])
@@ -596,6 +632,94 @@ def test_plain_backward_fp32_error_against_float64():
     assert rel["d_a_log"] <= 1e-3
 
 
+
+
+# ---- the fp32 backward's tensor-core design (csrc/ssd_bwd.cu)
+# Every product on the TF32 tensor cores, each fp32 operand split into
+# hi + lo and each product taken as hi hi + (hi lo + lo hi)
+# (`split_mm`, passes = 3); the tiles' sums over positions added in fp32,
+# dB and dC folded over groups of 8 heads: `_kernel_stages(...,
+# passes=3)`.  Held to ``jax.vjp`` of the reference at the fp32 route's
+# tolerances: dx, ddt, db, dc within 1e-5 max |ref|, d_a_log within 1e-3
+# max |ref| (chip_smoke.py's `SSD_BWD_ATOL`, `SSD_BWD_DA_TOL`).
+FP32_BWD_CASES = [c for c in BWD_CASES if c[-1] == 1] + [
+    (1, 256, 8, 32, 32, 64, 1), (2, 300, 12, 16, 32, 128, 1),
+    (1, 512, 12, 64, 64, 256, 1), (1, 300, 4, 64, 128, 128, 1)]
+_FP32_BWD_WANT: dict = {}
+
+
+def _fp32_bwd_errors(case, with_final=True, passes=3):
+    """The largest ratio of |error| to the fp32 route's tolerance for each
+    gradient (<= 1 where it holds) of `_kernel_stages` with ``passes``
+    against ``jax.vjp`` of the reference, dy drawn apart from x (see
+    `_tc_bwd_errors`)."""
+    b, s, h, p, n, chunk, g = case
+    arrays = _inputs(b, s, h, p, n, g=g, seed=13)
+    rng = np.random.default_rng(14)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    d_final = rng.standard_normal((b, h, p, n)).astype(np.float32) \
+        if with_final else None
+    key = (case, with_final)
+    if key not in _FP32_BWD_WANT:
+        _FP32_BWD_WANT[key] = _jax_vjp(arrays, dy, d_final, chunk,
+                                       jnp.float32)
+    want = _FP32_BWD_WANT[key]
+    got = _kernel_stages(*(torch.from_numpy(a) for a in arrays),
+                         torch.from_numpy(dy),
+                         None if d_final is None else torch.from_numpy(
+                             d_final), chunk, passes=passes)
+    out = {}
+    for name, gv, wv in zip(("dx", "ddt", "d_a_log", "db", "dc"), got, want):
+        top = float(np.abs(wv).max())
+        tol = 1e-3 if name == "d_a_log" else 1e-5
+        out[name] = float(np.abs(gv.numpy() - wv).max() / (tol * top))
+    return out
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("case", FP32_BWD_CASES, ids=str)
+def test_split_tf32_backward_design_meets_the_fp32_tolerances(case,
+                                                              with_final):
+    """csrc/ssd_bwd.cu's arithmetic (three TF32 products per fp32
+    product, tiles' sums added in fp32, dB and dC folded over groups of 8
+    heads) against the reference's gradients at the fp32 route's
+    tolerances."""
+    errs = _fp32_bwd_errors(case, with_final)
+    print(case, with_final, {k: f"{v:.2f}" for k, v in errs.items()})
+    assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_fewer_tf32_passes_miss_the_fp32_backward_tolerances(passes):
+    """One TF32 product (hi hi), or two (hi hi + hi lo), per fp32 product
+    misses the fp32 tolerances at zamba2's chunk and widths (12 heads):
+    three is the fewest, which chip_smoke.py's fp32 bound of the backward
+    counts."""
+    errs = _fp32_bwd_errors(TC_BWD_WIDE, passes=passes)
+    print(passes, {k: f"{v:.2f}" for k, v in errs.items()})
+    assert max(errs.values()) > 1.0, errs
+
+
+def test_fp32_backward_passes_match_the_kernel_source():
+    """csrc/ssd_bwd.cu takes its products from the shared TF32 header at
+    its three passes, folds dB and dC over the group the model uses (the
+    shared backward header's), and the wrapper sizes its scratch with the
+    same group."""
+    import pathlib
+    import re
+    kernels = pathlib.Path(ops.__file__).parents[1]
+    src = (kernels / "ssd" / "csrc" / "ssd_bwd.cu").read_text()
+    assert '#include "../../csrc/tf32_mma.cuh"' in src
+    assert '#include "ssd_bwd_common.cuh"' in src
+    header = (kernels / "csrc" / "tf32_mma.cuh").read_text()
+    assert int(re.search(r"constexpr int kPasses = (\d+);",
+                         header).group(1)) == 3
+    assert src.count("static_assert(kPasses == 3") >= 1
+    common = (kernels / "ssd" / "csrc" / "ssd_bwd_common.cuh").read_text()
+    group = int(re.search(r"constexpr int kGroup = (\d+);",
+                          common).group(1))
+    assert group == FP32_BWD_GROUP == ops._GROUP
+    assert "__syncthreads" in src and "mma3(" in src
 
 # ---- the bf16 backward's tensor-core design (csrc/ssd_bwd_tc.cu)
 # bf16 terms of each fp32 operand the kernel splits: the weighted B in
@@ -758,15 +882,18 @@ def test_one_bf16_term_fewer_misses_the_backward_tolerances(product):
 
 def test_bf16_backward_terms_match_the_kernel_source():
     """The term counts and the group the model uses are the kernel's
-    constants, and the wrapper sizes its scratch with the same ones."""
+    constants (the group in the header both backward routes share), and
+    the wrapper sizes its scratch with the same ones."""
     import pathlib
     import re
-    src = (pathlib.Path(ops.__file__).parent / "csrc" /
-           "ssd_bwd_tc.cu").read_text()
+    csrc = pathlib.Path(ops.__file__).parent / "csrc"
+    src = (csrc / "ssd_bwd_tc.cu").read_text()
     found = {m.group(1).lower(): int(m.group(2)) for m in re.finditer(
         r"constexpr int kTerms(\w+) = (\d+);", src)}
     assert found == TC_BWD_TERMS
-    group = int(re.search(r"constexpr int kGroup = (\d+);", src).group(1))
+    assert '#include "ssd_bwd_common.cuh"' in src
+    group = int(re.search(r"constexpr int kGroup = (\d+);",
+                          (csrc / "ssd_bwd_common.cuh").read_text()).group(1))
     assert group == TC_BWD_GROUP
-    assert (ops._TC_GROUP, ops._TC_TERMS_H, ops._TC_TERMS_DS) == (
+    assert (ops._GROUP, ops._TC_TERMS_H, ops._TC_TERMS_DS) == (
         group, found["h"], found["ds"])
