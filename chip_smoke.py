@@ -124,7 +124,9 @@ the script started:
    each call one launch on its route (`ragged_dot_wgmma`,
    `ragged_dot_mma`); tolerance 1e-4 + 2^-7 |y| (one bf16 ulp: both
    sum in fp32 and round once); the same cases but the largest in fp32
-   on its fp32 route, 1e-4 + 1e-5 |y|; one call under
+   on its fp32 route (the TF32 tensor cores, the CUDA cores for K or N
+   off a multiple of 4), 1e-4 + 1e-5 |y| of the plain version's float64
+   sums (`plain_acc`); one call under
    ``torch.cuda.set_sync_debug_mode("error")``: the kernel reads the
    group offsets on the card, with no host sync.
 18-19. llm-serve and llm-forward-long for mixtral-8x7b (the moe family)
@@ -133,7 +135,8 @@ the script started:
    the fp32 expert stacks as stored: 768 over the two waves, all on the
    TMA + wgmma kernel, 108 in each teacher-forced run, on the run's
    route (the fp32 run computes the experts in fp32 too, on the
-   kernel's fp32 route), flash never;
+   kernel's fp32 route, every call on the TF32 tensor cores), flash
+   never;
    the long forward launches flash 4 times with the window 4096 at
    (1, 8192, 32, 128), GQA 32:8, and `ragged_dot` 12 times.  Then
    llm-moe-capacity (the capacity dispatch on the same model: no
@@ -144,7 +147,8 @@ the script started:
    and without the cast, plain, bounds with the weights at 4 and at 2
    bytes, and ``torch._grouped_mm`` (on bf16 weights, and timed with
    the cast) and a per-expert ``torch.matmul`` loop as yardsticks off
-   the path).
+   the path); then the fp32 route at mixtral's prefill gate/up and the
+   smoke shapes (`ragged_fp32_row`).
 20. the same for deepseek-v2-lite-16b uncut (27 layers, MLA, 64 routed
    experts top-6 and 2 shared; 64.9 GB of fp32 weights, every earlier
    model freed first; the peak printed): served, `ragged_dot` 81 a
@@ -254,11 +258,12 @@ the script started:
    alone, the earlier mma.sync kernels' (`RAGGED_BWD_EARLIER_MS`,
    quoted), the plain halves' ms, the bounds (`ragged_bwd_bound`) and
    `torch._grouped_mm` for dx and for dw on pre-cast weights.  Then the
-   fp32 route (the CUDA cores) at mixtral's captured gate/up shape with
-   x and dy cast to fp32 and at the smoke shapes the fp32 step feeds it
-   (`FP32_RAGGED_SMOKE`): each kernel's ms, its bounds at the CUDA
-   cores' rate and at three TF32 passes, and a library time
-   (`ragged_fp32_row`).
+   fp32 route (the TF32 tensor cores, checked by `LAUNCHES` key) at
+   mixtral's captured gate/up shape with x and dy cast to fp32 and at
+   the smoke shapes the fp32 step feeds it (`FP32_RAGGED_SMOKE`): each
+   kernel's ms beside the first CUDA-core kernels' where quoted
+   (`RAGGED_FP32_EARLIER_MS`), its bounds at three TF32 passes and at
+   the CUDA cores' rate, and a library time (`ragged_fp32_row`).
 25c. flash-bwd-vs-plain: flash attention's backward
    (`flash_attention_bwd`: ``flash_bwd_dq`` and ``flash_bwd_dkdv``,
    csrc/flash_attention_bwd.cu) at every flash path shape the serving
@@ -278,7 +283,8 @@ the script started:
    loss, grad norm and every updated parameter within `TRAIN_TOL` (see
    its comment); `ssd_bwd` launched once a Mamba2 layer and
    `ragged_dot_bwd` three times a MoE layer on the card, on their fp32
-   routes.
+   routes, and every `ragged_dot` and `ragged_dot_bwd` call on the TF32
+   tensor cores.
 27. dryrun: `launch.op_analysis` counts zamba2-1.2b's uncut train step
    at (2, 2048) (forward, recompute, backward, AdamW; `ssd` and
    `ssd_bwd` on the bf16 route) and mixtral-8x7b's no-cache forward at
@@ -507,10 +513,12 @@ ROUTES = ("bf16", "fp32")
 ROUTE_OF = {"bfloat16": "bf16", "float32": "fp32"}
 LLM_KEYS = tuple(f"{k}{r}" for k in ("ssd", "flash_attention")
                  for r in ("", "_bf16", "_fp32")) + tuple(
-    f"ragged_dot{r}" for r in ("", "_wgmma", "_mma", "_fp32"))
-# ragged_dot's route for a compute dtype: bf16 x (the fp32 expert stacks
-# rounded on load) on the TMA + wgmma kernel, fp32 on the CUDA cores.
-RAGGED_ROUTE = {"bf16": "wgmma", "fp32": "fp32"}
+    f"ragged_dot{r}" for r in ("", "_wgmma", "_mma", "_fp32", "_fp32_tc",
+                               "_fp32_cores"))
+# ragged_dot's route keys for a compute dtype: bf16 x (the fp32 expert
+# stacks rounded on load) on the TMA + wgmma kernel; fp32 on the TF32
+# tensor cores (its route and its kernel's key) at every path shape.
+RAGGED_ROUTE = {"bf16": ("wgmma",), "fp32": ("fp32", "fp32_tc")}
 # The moe family: mixtral-8x7b at its published widths cut to 4 of its 32
 # layers (46.7e9 parameters, 187 GB in fp32, do not fit one card; 4
 # layers hold 6.07e9), and deepseek-v2-lite-16b uncut (16.2e9, 64.9 GB
@@ -587,10 +595,10 @@ TRAIN_RUNS = {
 # the MoE runs (gate/up and down of each: bf16 x and dy, the fp32 stacks),
 # then at edges: K and N off 8 (the plain loads), one group holding every
 # row, rows before the first group and past the last, empty groups, the
-# fp32 route, bf16 weights.  (M, K, N, group sizes, x's type, w's type,
-# rows before the first group.)  Tolerances are the forward's
-# (`RAGGED_ATOL`, `RAGGED_RTOL`, by x's type: dw of fp32 weights is a bf16
-# value).
+# fp32 route (on the TF32 tensor cores, and K and N off 4 on the CUDA
+# cores), bf16 weights.  (M, K, N, group sizes, x's type, w's type, rows
+# before the first group.)  Tolerances are the forward's (`RAGGED_ATOL`,
+# `RAGGED_RTOL`, by x's type: dw of fp32 weights is a bf16 value).
 RAGGED_BWD_EDGES = [(300, 70, 198, [0, 100, 0, 150, 40], "bf16", "fp32", 0),
                     (257, 64, 96, [257], "bf16", "bf16", 0),
                     (520, 128, 4104, [300, 0, 220], "bf16", "fp32", 0),
@@ -598,6 +606,7 @@ RAGGED_BWD_EDGES = [(300, 70, 198, [0, 100, 0, 150, 40], "bf16", "fp32", 0),
                      37),
                     (1000, 256, 384, [100, 0, 300, 250, 0, 300], "fp32",
                      "fp32", 20),
+                    (300, 70, 198, [0, 100, 0, 150, 40], "fp32", "fp32", 3),
                     (4096, 4096, 1024, [1000, 0, 2000, 1096], "fp32",
                      "fp32", 0)]
 # ragged-dot-path and ragged-dot-bwd-vs-plain time the fp32 route (fp32 x
@@ -611,6 +620,9 @@ FP32_RAGGED_ARCH = "mixtral-8x7b"
 FP32_RAGGED_SMOKE = (("mixtral-8x7b", (2, 256)),
                      ("deepseek-v2-lite-16b", (2, 256)))
 FP32_RAGGED_REPS = 3
+# Calls profiled for the fp32 route's device ms (the profiler dropped
+# the kernels of most three-call sessions at the smoke shapes).
+FP32_RAGGED_PROFILED = 20
 # flash-bwd-vs-plain: the backward pair at each flash path shape the
 # serving phases captured (zamba2's (1, 8192, 32, 64); gemma3's (1, 8192,
 # 8, 256) with 4 KV heads, local and global; mixtral's (1, 8192, 32,
@@ -703,6 +715,17 @@ RAGGED_BWD_EARLIER_MS = {
     "mixtral-8x7b down": (10.53, 6.432, 4.220),
     "deepseek-v2-lite-16b gate/up": (2.184, 1.166, 1.023),
     "deepseek-v2-lite-16b down": (2.112, 1.147, 0.964)}
+# The fp32 route's times on its first CUDA-core kernels (ragged_dot_f32,
+# ragged_dx_f32, ragged_dw_f32; PERF.md section 6, the fp32 row's
+# "before"), by ragged_fp32_row's label and part; now on the TF32 tensor
+# cores.  Quoted in the phases' rows, never measured here, so the
+# kernels line leaves them out.
+RAGGED_FP32_EARLIER_MS = {
+    ("mixtral-8x7b prefill gate/up", "fwd"): 42.86,
+    ("mixtral-8x7b gate/up", "dx"): 44.19,
+    ("mixtral-8x7b gate/up", "dw"): 37.62}
+RAGGED_FP32_EARLIER_FROM = ("the first CUDA-core kernels, " +
+                            EARLIER_FROM)
 # The profiled training steps (train: the last step of each of
 # `TRAIN_PROFILED`): each label's kernels by name, for their share of the
 # step's device time; the backward kernels' labels first.
@@ -1459,8 +1482,9 @@ def llm_serve(cfg, model, dev, extra: dict) -> tuple[dict, dict]:
     for name, counts in tf_launches.items():
         want = {k: 0 for k in LLM_KEYS}
         want.update({"ssd": 2 * n_ssd, f"ssd_{name}": 2 * n_ssd,
-                     "ragged_dot": tf_forwards * n_rd,
-                     f"ragged_dot_{RAGGED_ROUTE[name]}": tf_forwards * n_rd})
+                     "ragged_dot": tf_forwards * n_rd})
+        want.update({f"ragged_dot_{r}": tf_forwards * n_rd
+                     for r in RAGGED_ROUTE[name]})
         check(counts == want,
               f"the {name} teacher-forced run launched {counts}, expected "
               f"{want} ({n_ssd} ssd in its forward, {n_ssd} in its "
@@ -1668,13 +1692,15 @@ def ragged_inputs(m, k, n, sizes, gen, dev, offset=False, dtype=None):
 
 
 def ragged_route(x, w, offset=False) -> str:
-    """The kernel `ragged_dot` must take: fp32 x the CUDA cores; bf16 x
-    the TMA + wgmma kernel where TMA takes the rows (K a multiple of 8,
-    N of 4 for fp32 weights or 8 for bf16, x on 16 bytes), else
-    mma.sync."""
+    """The kernel `ragged_dot` must take: fp32 x the TF32 tensor cores
+    where TMA takes the rows (K and N multiples of 4, x on 16 bytes),
+    else the CUDA cores; bf16 x the TMA + wgmma kernel where TMA takes the
+    rows (K a multiple of 8, N of 4 for fp32 weights or 8 for bf16, x on
+    16 bytes), else mma.sync."""
     import torch
     if x.dtype == torch.float32:
-        return "fp32"
+        aligned = x.shape[1] % 4 == 0 and w.shape[2] % 4 == 0
+        return "fp32_tc" if aligned and not offset else "fp32_cores"
     units = 4 if w.dtype == torch.float32 else 8
     aligned = x.shape[1] % 8 == 0 and w.shape[2] % units == 0
     return "wgmma" if aligned and not offset else "mma"
@@ -1692,7 +1718,8 @@ def ragged_vs_plain(dev) -> dict:
     (written as zeros); and one call under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
     sync.  Every call must add one launch, on the route it should take
-    (`ragged_route`)."""
+    (`ragged_route`; fp32 also to ``ragged_dot_fp32``).  fp32 results are
+    held to the plain version's float64 sums (`plain_acc`)."""
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ragged_dot import ragged_dot
@@ -1705,10 +1732,10 @@ def ragged_vs_plain(dev) -> dict:
         before = dict(LAUNCHES)
         got = ragged_dot(x, w, offs, route=route)
         torch.cuda.synchronize()
-        launched = (LAUNCHES["ragged_dot"] - before["ragged_dot"],
-                    LAUNCHES[f"ragged_dot_{want_route}"] -
-                    before[f"ragged_dot_{want_route}"])
-        check(launched == (1, 1),
+        keys = ["ragged_dot", f"ragged_dot_{want_route}"] + (
+            ["ragged_dot_fp32"] if x.dtype == torch.float32 else [])
+        launched = tuple(LAUNCHES[k] - before[k] for k in keys)
+        check(launched == (1,) * len(keys),
               f"ragged_dot {tuple(x.shape)} x {tuple(w.shape)} "
               f"{w.dtype}: launches {launched} on {want_route}")
         return got, want_route
@@ -1721,7 +1748,8 @@ def ragged_vs_plain(dev) -> dict:
         x, w, offs = ragged_inputs(m, k, n, sizes, gen, dev, offset, dtype)
         name = str(dtype).split(".")[1]
         got, route = call(x, w, offs, offset=offset)
-        err, ok = ragged_err(got, ragged_dot_ref(x, w, offs))
+        err, ok = ragged_err(got, ragged_dot_ref(x, w, offs,
+                                                 acc=plain_acc(x)))
         row = dict(m=m, k=k, n=n, groups=w.shape[0], dtype=name,
                    route=route, empty_groups=int((offs.diff() == 0).sum()),
                    x_at_offset_2=offset, max_abs_err=err)
@@ -1764,6 +1792,26 @@ def ragged_vs_plain(dev) -> dict:
                                 if c.get("dtype") != "float32"),
                 max_abs_err_fp32=max(c["max_abs_err"] for c in cases
                                      if c.get("dtype") == "float32"))
+
+
+def tol_ratio(got, want, rtol: float) -> float:
+    """The largest |got - want| over its tolerance, RAGGED_ATOL + rtol
+    |want| (at most 1 within it)."""
+    d = (got.double() - want.double()).abs()
+    if d.numel() == 0:
+        return 0.0
+    return float((d / (RAGGED_ATOL + rtol * want.double().abs())).max())
+
+
+def plain_acc(x):
+    """The sums of the plain version that the card's `ragged_dot` results
+    are held to: float64 for fp32 x (the exact sums rounded once: the
+    plain version's own fp32 sums, taken in row order, part from them by
+    more than the fp32 tolerance in dw over 2000-row groups, which
+    ragged-dot-bwd-vs-plain's ``plain_fp32_tol_ratio`` shows), fp32 for
+    bf16 x (the kernels' own)."""
+    import torch
+    return torch.float64 if x.dtype == torch.float32 else torch.float32
 
 
 def ragged_bound(m, k, n, groups_used, groups, w_bytes=4) -> dict:
@@ -1816,14 +1864,23 @@ def ragged_fp32_library(part: str, x, w, offs, dy):
 
 
 def ragged_fp32_row(label: str, part: str, x, w, offs, dy) -> tuple:
-    """``part`` ("fwd", "dx" or "dw") of the fp32 route at one shape: its
-    error against the plain version (checked), ms, the plain version's
-    ms, bounds (2 m k n FLOP at three TF32 passes, the least the card
-    could take for an fp32 result, and at the CUDA cores' fp32 rate, the
-    route's own arithmetic; each against the bytes moved once) and the
-    library's ms and error (`ragged_fp32_library`).  Returns (the row, the
-    kernel launches it made)."""
+    """``part`` ("fwd", "dx" or "dw") of the fp32 route at one shape: one
+    call that must launch the TF32 tensor-core kernels (its ``_fp32_tc``
+    key; every path shape takes them), its error against the plain
+    version's float64 sums (`plain_acc`, checked) and, beside it, against
+    the plain version's fp32 sums, and the kernel's and the fp32 plain
+    version's largest share of the tolerance from the float64 sums
+    (`tol_ratio`); ms and the kernel's own device ms
+    under the profiler (at the smoke shapes the wrapper's host time
+    exceeds the kernel's), the first CUDA-core kernel's ms where quoted
+    (`RAGGED_FP32_EARLIER_MS`), the plain version's ms,
+    bounds (2 m k n FLOP at three TF32 passes, the least the card could
+    take for an fp32 result, and at the CUDA cores' fp32 rate; each
+    against the bytes moved once) and the library's ms and error
+    (`ragged_fp32_library`).  Returns (the row, the forward launches it
+    made)."""
     import torch
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ragged_dot import ops as rd_ops
     from repro_torch.kernels.ragged_dot.ref import (ragged_dot_dw_ref,
                                                     ragged_dot_dx_ref,
@@ -1832,39 +1889,61 @@ def ragged_fp32_row(label: str, part: str, x, w, offs, dy) -> tuple:
     groups, _, n = w.shape
     used = int((offs.diff() > 0).sum())
     if part == "fwd":
+        key = "ragged_dot_fp32_tc"
+
         def kernel():
             return rd_ops.ragged_dot(x, w, offs)
 
-        def plain():
-            return ragged_dot_ref(x, w, offs)
+        def plain(acc=torch.float32):
+            return ragged_dot_ref(x, w, offs, acc=acc)
         nbytes = 4 * (m * k + m * n + used * k * n + groups + 1)
     else:
+        key = "ragged_dot_bwd_fp32_tc"
         bit = 1 if part == "dx" else 2
 
         def kernel():
             return rd_ops._launch_bwd(x, w, offs, dy, parts=bit)[bit - 1]
 
-        def plain():
+        def plain(acc=torch.float32):
             return (ragged_dot_dx_ref if bit == 1 else ragged_dot_dw_ref)(
-                x, w, offs, dy)
+                x, w, offs, dy, acc=acc)
         nbytes = ragged_bwd_bound(part, m, k, n, used, groups, 4,
                                   4)["bytes"]
-    got, want = kernel(), plain()
+    before = LAUNCHES[key]
+    got = rd_ops.ragged_dot(x, w, offs) if part == "fwd" else \
+        rd_ops.ragged_dot_bwd(x, w, offs, dy)[bit - 1]
+    check(LAUNCHES[key] == before + 1,
+          f"ragged_dot fp32 {part} at {label}: {key} launched "
+          f"{LAUNCHES[key] - before} times in one call")
+    want = plain(plain_acc(x))
     d = (got - want).abs()
     err = float(d.max()) if d.numel() else 0.0
     ok = bool((d <= RAGGED_ATOL + RAGGED_RTOL["float32"] * want.abs()).all())
     check(ok, f"ragged_dot fp32 {part} at {label}: max |d| {err}")
+    want32 = plain()
+    d = (got - want32).abs()
+    err32 = float(d.max()) if d.numel() else 0.0
+    ratios = dict(tol_ratio=tol_ratio(got, want, RAGGED_RTOL["float32"]),
+                  plain_fp32_tol_ratio=tol_ratio(want32, want,
+                                                 RAGGED_RTOL["float32"]))
     lib = ragged_fp32_library(part, x, w, offs, dy)
     d = (lib() - want).abs()
     lib_err = float(d.max()) if d.numel() else 0.0
-    del got, want, d
+    del got, want, want32, d
     flop = 2 * m * k * n
     t_bytes = nbytes / PEAK_BYTES_S
     t_tf32, t_fp32 = 3 * flop / PEAK_TF32_S, flop / PEAK_OPS_S
+    earlier = RAGGED_FP32_EARLIER_MS.get((label, part))
     row = dict(case=label, part=part, m=m, k=k, n=n, groups=groups,
                groups_used=used, x="float32", w="float32", route="fp32",
-               max_abs_err=err,
+               kernel="fp32_tc", max_abs_err=err,
+               max_abs_err_vs_fp32_plain=err32, **ratios,
                ms=cuda_ms(kernel, FP32_RAGGED_REPS),
+               device_ms=device_profile(
+                   lambda: [kernel() for _ in range(FP32_RAGGED_PROFILED)],
+                   calls=FP32_RAGGED_PROFILED)["device_ms"],
+               earlier_ms=earlier,
+               earlier_ms_from=RAGGED_FP32_EARLIER_FROM if earlier else None,
                plain_ms=cuda_ms(plain, 1),
                bound_ms=1e3 * max(t_tf32, t_bytes),
                bound_by="operations" if t_tf32 >= t_bytes else "bytes",
@@ -1874,7 +1953,8 @@ def ragged_fp32_row(label: str, part: str, x, w, offs, dy) -> tuple:
                library=f"torch._grouped_mm on the fp32 operands, allow_tf32 "
                        f"{torch.backends.cuda.matmul.allow_tf32}",
                library_max_abs_err=lib_err)
-    return row, 2 + FP32_RAGGED_REPS
+    return row, (2 + FP32_RAGGED_REPS + FP32_RAGGED_PROFILED
+                 if part == "fwd" else 0)
 
 
 def ragged_path(arch: str, cfg, caps: dict) -> list:
@@ -1982,6 +2062,10 @@ def ragged_path(arch: str, cfg, caps: dict) -> list:
     check(launched == calls and LAUNCHES["ragged_dot"] == sum(calls.values()),
           f"{arch}: ragged_dot launched {LAUNCHES['ragged_dot']} times, "
           f"{launched} by route, in {calls} calls")
+    # Every fp32 call on the TF32 tensor cores.
+    check(LAUNCHES["ragged_dot_fp32_tc"] == calls["fp32"],
+          f"{arch}: {LAUNCHES['ragged_dot_fp32_tc']} of {calls['fp32']} "
+          f"fp32 calls on the TF32 tensor cores")
     return rows, fp32_rows
 
 
@@ -2977,12 +3061,17 @@ def _card_vs_cpu(dev, name: str, arch: str, smoke: bool, reduced: dict,
                   f"train-card-vs-cpu {name}: {pname} moved past the first "
                   f"step's reach where its gradient is under 100 eps")
     # Each backward kernel once a layer, on its fp32 route; no flash at
-    # these lengths.
+    # these lengths; the grouped products, both ways, on the TF32 tensor
+    # cores.
     for kernel, want in (("ssd_bwd", ssd_calls(cfg)),
                          ("ragged_dot_bwd", ragged_calls(cfg))):
         got = (launches.get(kernel, 0), launches.get(f"{kernel}_fp32", 0))
         check(got == (want, want), f"train-card-vs-cpu {name}: {kernel} "
                                    f"launched {got} (all, fp32), not {want}")
+    for kernel in ("ragged_dot", "ragged_dot_bwd"):
+        got = (launches.get(kernel, 0), launches.get(f"{kernel}_fp32_tc", 0))
+        check(got[0] == got[1], f"train-card-vs-cpu {name}: {kernel} "
+                                f"launched {got} (all, on the tensor cores)")
     check(not launches.get("flash_attention", 0),
           f"train-card-vs-cpu {name}: flash launched at S = {s}")
     del card, host, card_model, host_model, card_opt, host_opt
@@ -3054,7 +3143,8 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
     the captured shapes each kernel's ms (both halves, each alone), its
     plain half's ms, its bound (`ragged_bwd_bound`) and
     `torch._grouped_mm`'s ms on pre-cast weights (a yardstick off the
-    path)."""
+    path).  fp32 results are held to the plain version's float64 sums
+    (`plain_acc`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3088,14 +3178,14 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
         m, k = x.shape
         groups, _, n = w.shape
         before = {r: LAUNCHES[f"ragged_dot_bwd_{r}"]
-                  for r in ("wgmma", "mma", "fp32")}
+                  for r in ("wgmma", "mma", "fp32", "fp32_tc", "fp32_cores")}
         got = rd_ops.ragged_dot_bwd(x, w, offs, dy)
         route = [r for r in before
                  if LAUNCHES[f"ragged_dot_bwd_{r}"] > before[r]]
         again = rd_ops.ragged_dot_bwd(x, w, offs, dy)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        want = ragged_dot_bwd_ref(x, w, offs, dy)
+        want = ragged_dot_bwd_ref(x, w, offs, dy, acc=plain_acc(x))
         name = str(x.dtype).split(".")[1]
         rtol = RAGGED_RTOL[name]
         errs, ok = {}, same
@@ -3106,6 +3196,14 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
         row = dict(case=label, m=m, k=k, n=n, groups=groups,
                    x=name, w=str(w.dtype).split(".")[1], route=route,
                    max_abs_err=errs, bit_identical=same, within=ok)
+        if name == "float32":
+            # Each gradient and the plain version's own fp32 sums, as
+            # shares of the tolerance from its float64 sums.
+            row["tol_ratio"] = {p_: tol_ratio(g_, w_, rtol) for p_, g_, w_
+                                in zip(("dx", "dw"), got, want)}
+            row["plain_fp32_tol_ratio"] = {
+                p_: tol_ratio(g_, w_, rtol) for p_, g_, w_ in zip(
+                    ("dx", "dw"), ragged_dot_bwd_ref(x, w, offs, dy), want)}
         del got, again, want
         if not label.startswith("edge"):
             used = int((offs.diff() > 0).sum())
@@ -3135,11 +3233,15 @@ def ragged_bwd_vs_plain(dev, moe_caps: dict) -> dict:
             del lib
         rows.append(row)
         # bf16 takes the TMA + wgmma kernels wherever K and N are
-        # multiples of 8 (every captured shape), mma.sync elsewhere.
-        want_route = "fp32" if name == "float32" else \
-            "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma"
-        check(route == [want_route], f"ragged_dot_bwd {label}: took "
-                                     f"{route}, not {want_route}")
+        # multiples of 8 (every captured shape), mma.sync elsewhere; fp32
+        # the TF32 tensor cores where they are multiples of 4.
+        if name == "float32":
+            want_route = ["fp32", "fp32_tc" if k % 4 == 0 and n % 4 == 0
+                          else "fp32_cores"]
+        else:
+            want_route = ["wgmma" if k % 8 == 0 and n % 8 == 0 else "mma"]
+        check(route == want_route, f"ragged_dot_bwd {label}: took "
+                                   f"{route}, not {want_route}")
         check(same, f"ragged_dot_bwd {label}: two calls differ")
         check(ok, f"ragged_dot_bwd {label}: outside the tolerance ({errs})")
         del x, w, offs, dy
@@ -3873,19 +3975,50 @@ def service_explain(dev) -> dict:
     return dict(phase="explain", launches=launches, runs=runs)
 
 
+def tf32_sass(libs: dict) -> dict | None:
+    """The TF32 tensor-core instructions (``HGMMA.*.F32.TF32``,
+    ``HMMA.*.F32.TF32``) in the SASS of each library with fp32 kernels on
+    them, by ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    for name in ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd",
+                 "ragged_dot", "ragged_dot_bwd"):
+        text = subprocess.run([tool, "-sass", libs[name]],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts = {}
+        for op in re.findall(r"\b(H[G]?MMA\.\S*F32\.TF32)\b", text):
+            counts[op] = counts.get(op, 0) + 1
+        out[name] = counts
+    return out
+
+
 def fp32_ragged(rows: list, part: str, checks: dict) -> dict:
     """The kernel table's fp32-route entry of `ragged_dot` (``part``
     "fwd") or one half of its backward ("dx", "dw"): its row at
     `FP32_RAGGED_ARCH`'s captured gate/up shape, the smoke shapes' rows
-    beside, and its launches in train-card-vs-cpu's fp32 steps."""
+    beside, and its launches on the TF32 tensor cores in
+    train-card-vs-cpu's fp32 steps."""
     mine = [r for r in rows if r["part"] == part]
-    key = "ragged_dot_fp32" if part == "fwd" else "ragged_dot_bwd_fp32"
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_rate_ms",
-            "library_ms", "library", "max_abs_err")
+    key = "ragged_dot_fp32_tc" if part == "fwd" else \
+        "ragged_dot_bwd_fp32_tc"
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fp32_rate_ms", "library_ms", "library", "max_abs_err")
     return dict({k: mine[0][k] for k in keys},
+                kernel={"fwd": "ragged_tf32_kernel<false>",
+                        "dx": "ragged_tf32_kernel<true>",
+                        "dw": "ragged_dw_tf32_kernel"}[part] +
+                " (3xTF32, wgmma.m64n128k8)",
                 source="src/repro_torch/kernels/ragged_dot/csrc/" + (
                     "ragged_dot.cu" if part == "fwd" else
                     "ragged_dot_bwd.cu"),
+                source_kernel="src/repro_torch/kernels/ragged_dot/csrc/"
+                              "ragged_tf32.cuh",
                 shape=[mine[0][k] for k in ("m", "k", "n", "groups")],
                 launches_card_vs_cpu={name: c["launches"].get(key, 0)
                                       for name, c in checks["runs"].items()},
@@ -4005,13 +4138,18 @@ def main() -> int:
               cuda=torch.version.cuda, python=sys.version.split()[0]))
     t0 = time.perf_counter()
     libs = _build.build_all()
+    sass = tf32_sass(libs)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries=sorted(libs),
               ptxas={name: [ln.strip() for ln in
                             _build.build_log(name).splitlines()
                             if "entry function" in ln
                             or "registers" in ln or "spill" in ln]
-                     for name in sorted(libs)}))
+                     for name in sorted(libs)},
+              sass_tf32=sass))
+    for name in ("ragged_dot", "ragged_dot_bwd"):
+        check(sass is None or any(k.startswith("HGMMA") for k in sass[name]),
+              f"{name}: no TF32 wgmma in its SASS ({sass and sass[name]})")
 
     # ---- the main path's graphs
     graphs = {}

@@ -59,14 +59,17 @@ and ``ops.py`` (the checked wrapper):
                     times its own weights), with the group offsets read
                     on the card: bf16 x on TMA and wgmma (fp32 or bf16
                     weights, rounded to bf16 on load; mma.sync for
-                    shapes TMA cannot take), fp32 on the CUDA cores —
+                    shapes TMA cannot take), fp32 on TMA and TF32 wgmma
+                    (3xTF32, ``csrc/ragged_tf32.cuh``; the CUDA cores
+                    for shapes TMA cannot take) —
                     the port's counterpart of
                     ``jax.lax.ragged_dot`` in
                     ``repro/models/moe.py::moe_ffn``, an XLA operation
                     with no Pallas kernel behind it; and its backward,
                     ``ragged_dot_bwd`` (dx and dw on TMA and wgmma for
-                    bf16 x, mma.sync for shapes TMA cannot take, the
-                    CUDA cores for fp32), the training path's
+                    bf16 x, mma.sync for shapes TMA cannot take; for
+                    fp32 on TF32 wgmma, the CUDA cores for shapes TMA
+                    cannot take), the training path's
 
 A wrapper runs the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  Under
@@ -83,9 +86,12 @@ a kernel with more than one route also adds one to the route it took:
 ``LAUNCHES[name + "_bf16"]`` or ``LAUNCHES[name + "_fp32"]`` (flash
 attention, the SSD scan and the three backwards),
 ``LAUNCHES["ragged_dot_wgmma"]``, ``["ragged_dot_mma"]`` or
-``["ragged_dot_fp32"]``, and a bf16
-``ragged_dot_bwd`` to ``["ragged_dot_bwd_wgmma"]`` or
-``["ragged_dot_bwd_mma"]`` besides.  The counts are
+``["ragged_dot_fp32"]`` (an fp32 launch also to
+``["ragged_dot_fp32_tc"]`` or ``["ragged_dot_fp32_cores"]``, the TF32
+tensor cores or the CUDA cores), and ``ragged_dot_bwd`` to
+``["ragged_dot_bwd_wgmma"]`` or ``["ragged_dot_bwd_mma"]`` (bf16),
+``["ragged_dot_bwd_fp32_tc"]`` or ``["ragged_dot_bwd_fp32_cores"]``
+(fp32) besides.  The counts are
 exact when several threads launch: every update holds one lock.
 
 A wrapper also tells the op counters of `launch.op_analysis` what its
@@ -115,10 +121,14 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
                              "ssd_bwd_fp32": 0,
                              "ragged_dot": 0, "ragged_dot_wgmma": 0,
                              "ragged_dot_mma": 0, "ragged_dot_fp32": 0,
+                             "ragged_dot_fp32_tc": 0,
+                             "ragged_dot_fp32_cores": 0,
                              "ragged_dot_bwd": 0, "ragged_dot_bwd_bf16": 0,
                              "ragged_dot_bwd_fp32": 0,
                              "ragged_dot_bwd_wgmma": 0,
                              "ragged_dot_bwd_mma": 0,
+                             "ragged_dot_bwd_fp32_tc": 0,
+                             "ragged_dot_bwd_fp32_cores": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_bf16": 0,
                              "flash_attention_bwd_fp32": 0}
@@ -127,8 +137,9 @@ LAUNCHES: dict[str, int] = {"selection_counts": 0, "conflict_matrix": 0,
 def count_launch(name: str, *routes: str) -> None:
     """Add one to ``LAUNCHES[name]`` and to ``LAUNCHES[f"{name}_{route}"]``
     for each of ``routes`` (the kernel that launched: "bf16" or "fp32",
-    ragged_dot's "wgmma", "mma" or "fp32", or both of its backward's:
-    "bf16" and "wgmma" or "mma"), under one lock (a ``+=`` on a dict entry
+    ragged_dot's "wgmma", "mma" or "fp32" with "fp32_tc" or "fp32_cores",
+    or both of its backward's: "bf16" and "wgmma" or "mma", "fp32" and
+    "fp32_tc" or "fp32_cores"), under one lock (a ``+=`` on a dict entry
     is a read and a write that two threads can interleave)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1

@@ -48,12 +48,15 @@ HEADERS = {
     "flash_attention_tc": ("csrc/sm90.cuh",),
     "ssd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh"),
     "ragged_dot": ("csrc/sm90.cuh", "csrc/mma_bf16.cuh",
-                   "csrc/wgmma_bf16.cuh", "ragged_dot/csrc/ragged_items.cuh",
-                   "ragged_dot/csrc/ragged_tc.cuh"),
+                   "csrc/wgmma_bf16.cuh", "csrc/tf32_mma.cuh",
+                   "ragged_dot/csrc/ragged_items.cuh",
+                   "ragged_dot/csrc/ragged_tc.cuh",
+                   "ragged_dot/csrc/ragged_tf32.cuh"),
     "ragged_dot_bwd": ("csrc/sm90.cuh", "csrc/mma_bf16.cuh",
-                       "csrc/wgmma_bf16.cuh",
+                       "csrc/wgmma_bf16.cuh", "csrc/tf32_mma.cuh",
                        "ragged_dot/csrc/ragged_items.cuh",
-                       "ragged_dot/csrc/ragged_tc.cuh"),
+                       "ragged_dot/csrc/ragged_tc.cuh",
+                       "ragged_dot/csrc/ragged_tf32.cuh"),
     "flash_attention_bwd": ("csrc/sm90.cuh", "csrc/tf32_mma.cuh",
                             "csrc/wgmma_bf16.cuh"),
     "ssd_bwd": ("csrc/tf32_mma.cuh", "csrc/sm90.cuh",

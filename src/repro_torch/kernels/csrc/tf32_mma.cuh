@@ -1,10 +1,12 @@
 // Helpers shared by the fp32 kernels (flash_attention/csrc/flash_attention.cu
-// and flash_attention_bwd.cu, ssd/csrc/ssd.cu and ssd_bwd.cu), whose
+// and flash_attention_bwd.cu, ssd/csrc/ssd.cu and ssd_bwd.cu,
+// ragged_dot/csrc/ragged_tf32.cuh), whose
 // products run on the TF32 tensor cores in a 3xTF32 split: each fp32
 // operand x as hi = tf32(x), lo = tf32(x - hi),
 // and each product as hi hi + (hi lo + lo hi), hi hi and the small terms in
-// separate fp32 accumulators.  mma.sync.m16n8k8 takes operands from
-// registers; wgmma.m64n64k8 takes B (and A, or A from registers) from
+// separate fp32 accumulators (the grouped product's: in one, a 32-deep
+// stage at a time, small terms first).  mma.sync.m16n8k8 takes operands from
+// registers; wgmma.m64nNk8 takes B (and A, or A from registers) from
 // shared memory, K-major under the 128-byte swizzle, the only layout its
 // TF32 form accepts.
 
@@ -144,6 +146,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TF32_R32
       ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : TF32_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+#define TF32_D64                                                           \
+  TF32_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),            \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TF32_R64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, fp32) (+)= A (64 x 8 tf32, registers) B^T (128 x 8, smem),
+// A's fragment as wgmma_rs's (the grouped product's fp32 kernels).
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TF32_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : TF32_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }

@@ -15,7 +15,8 @@
 //   w.to(torch.bfloat16) does.  The MoE FFN passes its fp32 expert
 //   stacks as they are stored, and the kernel rounds them as it loads
 //   them: no call casts a stack.  fp32 x with fp32 w (the port's fp32
-//   compute mode) takes the CUDA cores in fp32.
+//   compute mode) takes the TF32 tensor cores, three TF32 products for
+//   each fp32 one (ragged_tf32.cuh), or the CUDA cores in fp32.
 //
 // The offsets are read on the card: the caller never needs a group's
 // size on the host, so a MoE layer makes no host sync (a loop of
@@ -94,11 +95,22 @@
 // (K or N not a multiple of 8, or a base off 16 bytes) and fp32 weights
 // (rounded on load) take plain loads; the rest cp.async.
 //
-// fp32 (ragged_dot_f32_kernel): the same work items on 64-row tiles; a
-// block of 256 threads computes 64 x 64 outputs, 4 x 4 a thread, with
-// fp32 FMAs in k order from 16-deep slices in shared memory (plain
-// loads).  It is what the fp32 compute mode needs to hold the plain
-// version's fp32 sums, not a fast path (about 67e12 FLOP/s at best).
+// fp32 x and w, for K and N multiples of 4, x, w and y on 16 bytes and
+// G <= 1024 (every model path's shape): ragged_tf32_kernel<false>
+// (ragged_tf32.cuh), the TMA + wgmma design above on the TF32 tensor
+// cores: 128-row items, 32-deep stages (x's 128 rows split into TF32 hi
+// and lo panels by the producer warpgroup's spare warps, the weights'
+// 32 x 128 as four boxes), the weights as A split in registers, and per
+// 8-deep step three wgmma.m64n128k8 (hi hi, hi lo, lo hi) into a stage
+// sum that joins an fp32 total.  Bound: 2 M K N FLOP three times at the
+// TF32 rate (494e12), 5.8 ms at mixtral's gate/up; what holds it back is
+// shared memory: each 8-deep step reads its B panel in three products in
+// each warpgroup (32 bytes of B for every 1024 FLOP), and the split pass
+// reads each B element once and writes it twice.
+// Other fp32 inputs (ragged_dot_f32_kernel, the CUDA cores): the
+// mma.sync route's work items on 64-row tiles; a block of 256 threads
+// computes 64 x 64 outputs, 4 x 4 a thread, with fp32 FMAs in k order
+// from 16-deep slices in shared memory (plain loads).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -109,9 +121,11 @@
 
 #include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/tf32_mma.cuh"
 #include "../../csrc/wgmma_bf16.cuh"
 #include "ragged_items.cuh"
 #include "ragged_tc.cuh"
+#include "ragged_tf32.cuh"
 
 namespace {
 
@@ -605,6 +619,49 @@ extern "C" int ragged_dot_tc_launch(const void* x, const void* w,
   return w_fp32
              ? launch<float, 256>(tmx, tmw, op, yp, m, k, n, groups, sms, s)
              : launch<bf16, 256>(tmx, tmw, op, yp, m, k, n, groups, sms, s);
+}
+
+// The fp32 route on the TF32 tensor cores (ragged_tf32.cuh): x (m, k),
+// w (groups, k, n), offsets (groups + 1,) int32 and y (m, n), float32 on
+// the current device; k and n multiples of 4, x, w and y on 16 bytes,
+// groups <= 1024 (ops.fp32_tc_route).  Returns the launch's CUDA error
+// (0 on success), or 100000 plus the CUresult of a tensor map that could
+// not be encoded.
+extern "C" int ragged_dot_tf32_launch(const void* x, const void* w,
+                                      const void* offsets, void* y, int m,
+                                      int k, int n, int groups,
+                                      void* stream) {
+  using namespace tf;
+  if (m <= 0 || n <= 0) return 0;
+  if (k < 0 || !takes(k, n, groups,
+                      reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(y)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmx, tmw;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmw, 0, sizeof(tmw));
+  if (k > 0) {   // with k == 0 no item loads: every row is zero
+    const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(k) * 4};
+    const cuuint32_t xbox[2] = {kBK, kRows};
+    int r = tc::encode(&tmx, x, true, 2, xdim, xstride, xbox);
+    if (r != 0) return 100000 + r;
+    if (groups > 0) {
+      const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(n),
+                                  static_cast<cuuint64_t>(k),
+                                  static_cast<cuuint64_t>(groups)};
+      const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(n) * 4,
+                                     static_cast<cuuint64_t>(k) * n * 4};
+      const cuuint32_t wbox[3] = {32, kBK, 1};
+      r = tc::encode(&tmw, w, true, 3, wdim, wstride, wbox);
+      if (r != 0) return 100000 + r;
+    }
+  }
+  return launch<false>(tmx, tmw, static_cast<const int*>(offsets),
+                       static_cast<float*>(y), m, n, k, groups,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The other routes: x (m, k), w (groups, k, n), offsets (groups + 1,)

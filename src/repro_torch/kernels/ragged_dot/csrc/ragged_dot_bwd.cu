@@ -70,10 +70,22 @@
 // - dw: grid (N tile, K tile, group); each block walks its group's rows
 //   in ascending order, 32 a slice, and writes its tile once.  A = x^T
 //   and B = dy, both stored row by row, ldmatrix .trans for A.
-// fp32 (x and w fp32): the CUDA cores, 64 x 64 outputs a block of 256
+// fp32 (x and w fp32), for K and N multiples of 4, every pointer on 16
+// bytes and G <= 1024: the TF32 tensor cores, three TF32 products for
+// each fp32 one, summed a 32-deep stage at a time into an fp32 total
+// (ragged_tf32.cuh), bound by 3 x 2 M K N FLOP at the TF32 rate (5.8 ms
+// each at mixtral's gate/up) and held back by shared memory as the
+// forward is.
+// - dx is the forward's kernel (ragged_tf32_kernel<true>) with dy in x's
+//   place and w[g]'s 128 (K) x 32 (N) panel as A, read along its rows.
+// - dw (ragged_dw_tf32_kernel): the bf16 dw's items and row walk, with
+//   A = x^T from registers (read across its box rows, as the forward's
+//   weights) and B = dy^T: TF32 wgmma reads B K-major only, so the
+//   producer warpgroup's spare warps transpose each stage's dy rows into
+//   hi and lo panels, zeroing the rows past the group in x and dy.
+// Other fp32 inputs take the CUDA cores: 64 x 64 outputs a block of 256
 // threads, 4 x 4 a thread, fp32 FMAs in the reduction's order from
-// 16-deep slices in shared memory (plain loads): the fp32 compute mode's
-// route, not a fast one.
+// 16-deep slices in shared memory (plain loads).
 //
 // Every route is deterministic: every output is summed by one thread in
 // a fixed order.  The launchers are plain C functions (no PyTorch
@@ -90,9 +102,11 @@
 
 #include "../../csrc/mma_bf16.cuh"
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/tf32_mma.cuh"
 #include "../../csrc/wgmma_bf16.cuh"
 #include "ragged_items.cuh"
 #include "ragged_tc.cuh"
+#include "ragged_tf32.cuh"
 
 namespace {
 
@@ -721,14 +735,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(e);
-}
-
 template <typename TW, int BX>
 int launch_dx(const CUtensorMap& tmdy, const CUtensorMap& tmw,
               const int* offsets, bf16* dx, int m, int k, int n, int groups,
@@ -747,6 +753,192 @@ int launch_dx(const CUtensorMap& tmdy, const CUtensorMap& tmw,
 }
 
 }  // namespace tc
+
+// ------------------------------------ fp32 on the TF32 tensor cores: dw
+namespace tf {
+
+// A stage: x's 32 rows (4 boxes of 32 columns of K), dy's (4 boxes of 32
+// columns of N), and dy's rows transposed into a K-major B panel (128 n
+// rows of 32 row indices), split: hi, then lo.
+constexpr int kDwStages = 3;
+constexpr int kDwStageBytes = 4 * kPanel;
+constexpr int kDwSmem = kDwStages * kDwStageBytes + 1024;
+
+// dy's 32 rows of a stage (4 boxes of 32 columns) transposed into the
+// B panel at bt (row n holds the 32 rows' dy[., n]), split: hi at bt, lo
+// one panel on; rows at or past `keep` (other groups', or past M) as
+// zeros.  A thread moves 4 x 4 blocks (rows 4 r4.., columns 4 n4..);
+// the 8 lanes of a quarter warp take r4 = 0..7 and n4 mod 8 a rotation
+// of them, so both the reads (swizzled by the row) and the writes
+// (swizzled by n) meet 8 distinct 16-byte chunks.
+__device__ __forceinline__ void split_transpose(const uint8_t* raw,
+                                                uint8_t* bt, int keep,
+                                                int sid) {
+  for (int b = sid; b < 256; b += kSplitters) {
+    const int r4 = b & 7, h = b >> 3;
+    const int n4 = ((h & 3) << 3) | ((r4 + (h >> 2)) & 7);
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * r4 + i;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < keep)
+        f = *reinterpret_cast<const float4*>(raw + (n4 >> 3) * kBox +
+                                             swz(r, n4 & 7));
+      v[i][0] = f.x;
+      v[i][1] = f.y;
+      v[i][2] = f.z;
+      v[i][3] = f.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_split(bt, swz(4 * n4 + j, r4), kPanel,
+                  make_float4(v[0][j], v[1][j], v[2][j], v[3][j]));
+  }
+}
+
+// dw[g] = x[rows_g]^T dy[rows_g]: an item is (group, 128 columns of K,
+// 128 of N), K tiles fastest, so the blocks that run together read one
+// group's rows; each walks its group's rows in order, 32 a stage, and
+// writes its tile once (an empty group's as zeros).  A = x^T from
+// registers (perm_col, box_at, as the forward's weights); B = dy^T,
+// which the splitters transpose, since TF32 wgmma reads B K-major only.
+__global__ void __launch_bounds__(kThreads, 1)
+    ragged_dw_tf32_kernel(const __grid_constant__ CUtensorMap tmx,
+                          const __grid_constant__ CUtensorMap tmdy,
+                          const int* __restrict__ offsets,
+                          float* __restrict__ dw, int m, int k, int n,
+                          int groups) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[3 * kDwStages];   // full, ready, empty
+  __shared__ int edge[tc::kMaxGroups + 1];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k_tiles = (k + 127) / 128, n_tiles = (n + 127) / 128;
+  const int items = groups * k_tiles * n_tiles;
+
+  for (int j = tid; j <= groups; j += kThreads) edge[j] = offsets[j];
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[kDwStages + s]), kSplitters);
+      mbar_init(smem_u32(&bars[2 * kDwStages + s]), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) tc::scan_edges(edge, groups, m, lane);
+  __syncthreads();
+  auto item = [&](int i, int& grp, int& k0, int& n0) {
+    grp = i / (k_tiles * n_tiles);
+    const int rest = i - grp * k_tiles * n_tiles;
+    n0 = rest / k_tiles * 128;
+    k0 = (rest % k_tiles) * 128;
+  };
+
+  if (tid >= kConsumers) {   // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int sid = tid - kConsumers - 32;   // splitters: warps 1-3
+    if (sid < 0 && tid != kConsumers) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      int grp, k0, n0;
+      item(i, grp, k0, n0);
+      const int hi = edge[grp + 1];
+      for (int r0 = edge[grp]; r0 < hi; r0 += kBK) {
+        uint8_t* st = smem + stage * kDwStageBytes;
+        if (sid < 0) {
+          mbar_wait(smem_u32(&bars[2 * kDwStages + stage]), phase ^ 1);
+          const uint32_t full = smem_u32(&bars[stage]);
+          const uint32_t sa = smem_u32(st);
+          mbar_expect_tx(full, 2 * kPanel);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            tma_load_2d(sa + p * kBox, &tmx, full, k0 + 32 * p, r0);
+            tma_load_2d(sa + kPanel + p * kBox, &tmdy, full, n0 + 32 * p,
+                        r0);
+          }
+        } else {
+          mbar_wait(smem_u32(&bars[stage]), phase);
+          const int keep = hi - r0 < kBK ? hi - r0 : kBK;
+          // x's rows past the group: zeros (dw sums over the rows).
+          for (int e = sid; e < (kBK - keep) * 32; e += kSplitters)
+            *reinterpret_cast<uint4*>(st + (e & 31) / 8 * kBox +
+                                      (keep + (e >> 5)) * 128 +
+                                      (e & 7) * 16) = make_uint4(0, 0, 0, 0);
+          split_transpose(st + kPanel, st + 2 * kPanel, keep, sid);
+          fence_proxy_async();
+          mbar_arrive(smem_u32(&bars[kDwStages + stage]));
+        }
+        if (++stage == kDwStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+
+  // A consumer: A row g + 8 u of warp `warp` is K column col[u] of the
+  // item; its k indices (rows of the group) t and t + 4 of each k8 step.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  int col[2];
+  uint32_t aoff[4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) col[u] = perm_col(wg, warp, g, u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) aoff[e] = box_at(t + 4 * (e >> 1), col[e & 1]);
+  const uint64_t d0 = desc(smem_u32(smem) + 2 * kPanel);
+
+  float total[64], chunk[64];
+  uint32_t ah[kSteps][4], al[kSteps][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int grp, k0, n0;
+    item(i, grp, k0, n0);
+    const int lo = edge[grp], hi = edge[grp + 1];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) total[j] = 0.f;
+    for (int r0 = lo; r0 < hi; r0 += kBK) {
+      mbar_wait(smem_u32(&bars[stage]), phase);
+      mbar_wait(smem_u32(&bars[kDwStages + stage]), phase);
+      const uint8_t* xs = smem + stage * kDwStageBytes;
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(*reinterpret_cast<const float*>(xs + aoff[e] + 1024 * s),
+                ah[s][e], al[s][e]);
+      products(total, chunk, ah, al, d0 + ((stage * kDwStageBytes) >> 4));
+      mbar_arrive(smem_u32(&bars[2 * kDwStages + stage]));
+      if (++stage == kDwStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // total[4 j + 2 u + e] is (K row col[u], N column 8 j + 2 t + e).
+    float* outg = dw + static_cast<int64_t>(grp) * k * n;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int kr = k0 + col[u];
+      if (kr >= k) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        if (c < n)
+          *reinterpret_cast<float2*>(outg + static_cast<int64_t>(kr) * n +
+                                     c) =
+              make_float2(total[4 * j + 2 * u], total[4 * j + 2 * u + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace tf
 
 // ---------------------------------------------------------------- fp32
 constexpr int F_TILE = 64;   // output rows and columns a block computes
@@ -1070,5 +1262,93 @@ extern "C" int ragged_dot_dw_tc_launch(const void* x, const void* dy,
     ragged_dw_tc_kernel<bf16><<<blocks, kThreads, kDwSmem, s>>>(
         tmx, tmdy, op, static_cast<bf16*>(dw), m, k, n, groups);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 routes on the TF32 tensor cores (ragged_tf32.cuh): dx (m, k)
+// from dy (m, n) and w (groups, k, n), dw (groups, k, n) from x (m, k)
+// and dy, all float32; k and n multiples of 4, every pointer on 16
+// bytes, groups <= 1024 (ops.fp32_tc_route).  Return the launch's CUDA
+// error (0 on success), or 100000 plus the CUresult of a tensor map that
+// could not be encoded.
+extern "C" int ragged_dot_dx_tf32_launch(const void* dy, const void* w,
+                                         const void* offsets, void* dx,
+                                         int m, int k, int n, int groups,
+                                         void* stream) {
+  using namespace tf;
+  if (m <= 0 || k <= 0) return 0;
+  if (n < 0 || !takes(k, n, groups,
+                      reinterpret_cast<uintptr_t>(dy) |
+                          reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(dx)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmdy, tmw;
+  memset(&tmdy, 0, sizeof(tmdy));
+  memset(&tmw, 0, sizeof(tmw));
+  if (n > 0) {   // with n == 0 no item loads: every row is zero
+    const cuuint64_t ddim[2] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t dstride[1] = {static_cast<cuuint64_t>(n) * 4};
+    const cuuint32_t dbox[2] = {kBK, kRows};
+    int r = tc::encode(&tmdy, dy, true, 2, ddim, dstride, dbox);
+    if (r != 0) return 100000 + r;
+    if (groups > 0) {
+      const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(n),
+                                  static_cast<cuuint64_t>(k),
+                                  static_cast<cuuint64_t>(groups)};
+      const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(n) * 4,
+                                     static_cast<cuuint64_t>(k) * n * 4};
+      const cuuint32_t wbox[3] = {kBK, tc::kBW, 1};
+      r = tc::encode(&tmw, w, true, 3, wdim, wstride, wbox);
+      if (r != 0) return 100000 + r;
+    }
+  }
+  return launch<true>(tmdy, tmw, static_cast<const int*>(offsets),
+                      static_cast<float*>(dx), m, k, n, groups,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ragged_dot_dw_tf32_launch(const void* x, const void* dy,
+                                         const void* offsets, void* dw,
+                                         int m, int k, int n, int groups,
+                                         void* stream) {
+  using namespace tf;
+  if (groups <= 0 || k <= 0 || n <= 0) return 0;
+  if (m < 0 || !takes(k, n, groups,
+                      reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(dy) |
+                          reinterpret_cast<uintptr_t>(dw)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmx, tmdy;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmdy, 0, sizeof(tmdy));
+  if (m > 0) {   // with m == 0 every group is empty: dw is zero
+    const cuuint32_t box[2] = {32, kBK};
+    const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(k) * 4};
+    int r = tc::encode(&tmx, x, true, 2, xdim, xstride, box);
+    if (r != 0) return 100000 + r;
+    const cuuint64_t ddim[2] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(m)};
+    const cuuint64_t dstride[1] = {static_cast<cuuint64_t>(n) * 4};
+    r = tc::encode(&tmdy, dy, true, 2, ddim, dstride, box);
+    if (r != 0) return 100000 + r;
+  }
+  const long long items = static_cast<long long>(groups) *
+                          ((k + 127) / 128) * ((n + 127) / 128);
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int e = tc::sm_count(&sms);
+  if (e != 0) return e;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ragged_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDwSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ragged_dw_tf32_kernel<<<blocks, kThreads, kDwSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tmx, tmdy, static_cast<const int*>(offsets), static_cast<float*>(dw),
+      m, k, n, groups);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 // (ragged_dot.cu's forward, ragged_dot_bwd.cu's dx and dw): the group
 // edges and the persistent grid's work items, read from the offsets on
 // the card; weight pairs as bf16 registers of wgmma's A fragments; and the
-// host's tensor-map encoder.
+// host's SM count and tensor-map encoder (the fp32 kernels' too:
+// ragged_tf32.cuh).
 
 #pragma once
 
@@ -105,6 +106,15 @@ __device__ __forceinline__ Item item_at(int i, const int* cum,
   it.r_end = min(it.r0 + BX, end);
   it.n0 = ct * kBW;
   return it;
+}
+
+// The current device's SM count into sms; 0 or the CUDA error.
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

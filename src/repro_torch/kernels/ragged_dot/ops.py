@@ -14,13 +14,19 @@ Tensors on the CPU go to the plain version.  CUDA tensors go to
   K a multiple of 8, N a multiple of 4 (fp32 w) or 8 (bf16 w), x and w
   on 16 bytes and G <= 1024 (the model paths' shapes);
 - other bfloat16 inputs to the mma.sync kernel (``ragged_dot_kernel``);
-- float32 x and w to the CUDA-core fp32 kernel (the fp32 compute
-  mode's).
+- float32 x and w (the fp32 compute mode's) to the TF32 tensor cores
+  (``ragged_tf32_kernel`` in ``csrc/ragged_tf32.cuh``: TMA + wgmma,
+  three TF32 products for each fp32 product, each 32-deep stage summed
+  apart and joined to an fp32 total) where K and N are multiples of 4
+  from 16-byte bases and G <= 1024 (`fp32_tc_route`: every model
+  path's shape), else to the CUDA-core kernel (``ragged_dot_f32_kernel``).
 
 The kernels read the offsets on the card, so a call makes no host sync.
 Every launch adds one to ``LAUNCHES["ragged_dot"]`` and one to the
 route it took: ``LAUNCHES["ragged_dot_wgmma"]``,
-``LAUNCHES["ragged_dot_mma"]`` or ``LAUNCHES["ragged_dot_fp32"]``.
+``LAUNCHES["ragged_dot_mma"]`` or ``LAUNCHES["ragged_dot_fp32"]``; an
+fp32 launch also to its kernel's, ``["ragged_dot_fp32_tc"]`` or
+``["ragged_dot_fp32_cores"]``.
 
 Under autograd (grad enabled and x or w requiring it) a call is one
 `torch.autograd.Function` on every device, whose backward is
@@ -30,11 +36,14 @@ Under autograd (grad enabled and x or w requiring it) a call is one
 ``ragged_dot_dw``: dw[g] = x[rows_g]^T dy[rows_g]): bf16 x on TMA and
 wgmma where K and N are multiples of 8 from 16-byte bases (`bwd_tc_route`:
 every model path's shape), on mma.sync elsewhere (fp32 weights rounded
-on load, dw rounded to bf16 and written in w's type), fp32 on the CUDA
-cores.  Each backward call adds one to ``LAUNCHES["ragged_dot_bwd"]``
-and to ``["ragged_dot_bwd_bf16"]`` or ``["ragged_dot_bwd_fp32"]``, and a
-bf16 call to its kernels' route, ``["ragged_dot_bwd_wgmma"]`` or
-``["ragged_dot_bwd_mma"]``.
+on load, dw rounded to bf16 and written in w's type); fp32 on the TF32
+tensor cores where `fp32_tc_route` allows (dx the forward's kernel, dw
+with dy transposed into K-major panels as it lands), on the CUDA cores
+elsewhere.  Each backward call adds one to ``LAUNCHES["ragged_dot_bwd"]``
+and to ``["ragged_dot_bwd_bf16"]`` or ``["ragged_dot_bwd_fp32"]``, and to
+its kernels' route: ``["ragged_dot_bwd_wgmma"]`` or
+``["ragged_dot_bwd_mma"]`` (bf16), ``["ragged_dot_bwd_fp32_tc"]`` or
+``["ragged_dot_bwd_fp32_cores"]`` (fp32).
 
 On the ``meta`` device (the dry run's) a call takes the CUDA route's
 checks and returns outputs of the right shapes and types, computing
@@ -110,6 +119,16 @@ def _launcher(symbol: str, n_ints: int):
     return fn
 
 
+def fp32_tc_route(k: int, n: int, groups: int, ptrs) -> bool:
+    """Whether an fp32 call (forward, dx or dw) takes the TF32
+    tensor-core kernels: TMA copies rows of whole 16-byte units (K and N
+    multiples of 4) from 16-byte bases (``ptrs``: the operands' and the
+    outputs' addresses), and a block keeps at most `TC_MAX_GROUPS` group
+    edges (``tf::takes``)."""
+    return (k % 4 == 0 and n % 4 == 0 and groups <= TC_MAX_GROUPS
+            and all(p % 16 == 0 for p in ptrs))
+
+
 def tc_route(x, w) -> bool:
     """Whether a bfloat16 call takes the TMA + wgmma kernel: TMA copies
     rows of whole 16-byte units from 16-byte bases."""
@@ -165,11 +184,14 @@ def _launch(x, w, group_offsets, route):
     if x.is_meta or y.numel() == 0:
         return y
     w_fp32 = int(w.dtype == torch.float32)
-    if x.dtype == torch.float32:
+    fp32 = x.dtype == torch.float32
+    if fp32:
         if route is not None:
             raise ValueError(f"{_NAME}: float32 inputs take the fp32 "
-                             f"kernel, not {route!r}")
-        route = "fp32"
+                             f"kernels, not {route!r}")
+        route = "fp32_tc" if fp32_tc_route(
+            k, n, groups, (x.data_ptr(), w.data_ptr(), y.data_ptr())) \
+            else "fp32_cores"
     elif route is None:
         route = "wgmma" if tc_route(x, w) else "mma"
     elif route == "wgmma" and not tc_route(x, w):
@@ -183,18 +205,20 @@ def _launch(x, w, group_offsets, route):
         if route == "wgmma":
             err = _launcher("ragged_dot_tc_launch", 5)(
                 *ptrs, m, k, n, groups, w_fp32, stream)
+        elif route == "fp32_tc":
+            err = _launcher("ragged_dot_tf32_launch", 4)(
+                *ptrs, m, k, n, groups, stream)
         else:
             # cp.async moves 16 bytes: whole rows of 8 bf16 from 16-byte
             # bases.
             vec = int(k % 8 == 0 and n % 8 == 0 and
                       all(p % 16 == 0 for p in (ptrs[0], ptrs[1], ptrs[3])))
             err = _launcher("ragged_dot_launch", 7)(
-                *ptrs, m, k, n, groups, vec, int(route == "fp32"), w_fp32,
-                stream)
+                *ptrs, m, k, n, groups, vec, int(fp32), w_fp32, stream)
     if err != 0:
         raise RuntimeError(f"{_NAME} ({route}) launch failed: "
                            f"error {err}")
-    count_launch(_NAME, route)
+    count_launch(_NAME, *(("fp32", route) if fp32 else (route,)))
     return y
 
 
@@ -261,7 +285,9 @@ def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
     """(dx, dw): both kernels (``parts`` 3), or the dx kernel alone (1)
     or the dw kernel alone (2), for timing each (the one not launched is
     left unwritten).  bf16 x takes the TMA + wgmma kernels where
-    `bwd_tc_route` allows, else the mma.sync ones."""
+    `bwd_tc_route` allows, else the mma.sync ones; fp32 x the TF32
+    tensor-core kernels where `fp32_tc_route` allows, else the CUDA
+    cores."""
     m, k = x.shape
     groups, _, n = w.shape
     dx, dw = torch.empty_like(x), torch.empty_like(w)
@@ -269,15 +295,26 @@ def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
         return dx, dw
     dy = dy.to(x.dtype).contiguous()
     fp32 = x.dtype == torch.float32
-    route = None if fp32 else "wgmma" if bwd_tc_route(x, w, dy) else "mma"
     ptrs = (x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dw.data_ptr())
     x_p, w_p, o_p, dy_p, dx_p, dw_p = ptrs
+    if fp32:
+        route = "fp32_tc" if fp32_tc_route(
+            k, n, groups, (x_p, w_p, dy_p, dx_p, dw_p)) else "fp32_cores"
+    else:
+        route = "wgmma" if bwd_tc_route(x, w, dy) else "mma"
     w_fp32 = int(w.dtype == torch.float32)
     err = 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "wgmma":
+        if route == "fp32_tc":
+            if parts & 1:
+                err = _bwd_launcher("ragged_dot_dx_tf32_launch", 4)(
+                    dy_p, w_p, o_p, dx_p, m, k, n, groups, stream)
+            if err == 0 and parts & 2:
+                err = _bwd_launcher("ragged_dot_dw_tf32_launch", 4)(
+                    x_p, dy_p, o_p, dw_p, m, k, n, groups, stream)
+        elif route == "wgmma":
             if parts & 1:
                 err = _bwd_launcher("ragged_dot_dx_tc_launch", 5)(
                     dy_p, w_p, o_p, dx_p, m, k, n, groups, w_fp32, stream)
@@ -298,8 +335,8 @@ def _launch_bwd(x, w, group_offsets, dy, *, parts: int = 3):
                     x_p, dy_p, o_p, dw_p, *args, stream)
     kind = "fp32" if fp32 else "bf16"
     if err != 0:
-        raise RuntimeError(f"{_BWD} ({kind}, {route or 'cuda cores'}) "
-                           f"launch failed: error {err}")
+        raise RuntimeError(f"{_BWD} ({kind}, {route}) launch failed: "
+                           f"error {err}")
     if parts == 3:
-        count_launch(_BWD, kind, *(() if fp32 else (route,)))
+        count_launch(_BWD, kind, route)
     return dx, dw

@@ -31,44 +31,50 @@ def group_rows(group_offsets: torch.Tensor, m: int):
 
 
 def ragged_dot_ref(x: torch.Tensor, w: torch.Tensor,
-                   group_offsets: torch.Tensor) -> torch.Tensor:
+                   group_offsets: torch.Tensor, *,
+                   acc: torch.dtype = torch.float32) -> torch.Tensor:
     """x (M, K), w (G, K, N), group_offsets (G + 1,) int -> (M, N) in
-    x's type."""
+    x's type, each product summed in ``acc`` (float64: the exact sums
+    rounded once, which the card's fp32 checks hold the kernels to)."""
     m, n = x.shape[0], w.shape[2]
     out = torch.zeros((m, n), dtype=x.dtype, device=x.device)
     for g, lo, hi in group_rows(group_offsets, m):
         if hi > lo:
-            out[lo:hi] = (x[lo:hi].float() @ w[g].to(x.dtype).float()) \
+            out[lo:hi] = (x[lo:hi].to(acc) @ w[g].to(x.dtype).to(acc)) \
                 .to(x.dtype)
     return out
 
 
 def ragged_dot_bwd_ref(x: torch.Tensor, w: torch.Tensor,
-                       group_offsets: torch.Tensor, dy: torch.Tensor):
+                       group_offsets: torch.Tensor, dy: torch.Tensor, *,
+                       acc: torch.dtype = torch.float32):
     """The gradients of `ragged_dot_ref` given dy (M, N): (dx (M, K) in
     x's type, zero outside the groups; dw (G, K, N) in w's type, each
-    group's sum rounded to x's type first, zero for an empty group)."""
-    return (ragged_dot_dx_ref(x, w, group_offsets, dy),
-            ragged_dot_dw_ref(x, w, group_offsets, dy))
+    group's sum rounded to x's type first, zero for an empty group),
+    summed in ``acc``."""
+    return (ragged_dot_dx_ref(x, w, group_offsets, dy, acc=acc),
+            ragged_dot_dw_ref(x, w, group_offsets, dy, acc=acc))
 
 
-def ragged_dot_dx_ref(x, w, group_offsets, dy) -> torch.Tensor:
+def ragged_dot_dx_ref(x, w, group_offsets, dy, *,
+                      acc: torch.dtype = torch.float32) -> torch.Tensor:
     """dx alone: dy w[g]^T for each row's group (`ragged_dot_bwd_ref`)."""
     dx = torch.zeros_like(x)
-    dyf = dy.float()
+    dya = dy.to(acc)
     for g, lo, hi in group_rows(group_offsets, x.shape[0]):
         if hi > lo:
-            dx[lo:hi] = (dyf[lo:hi] @ w[g].to(x.dtype).float().T) \
+            dx[lo:hi] = (dya[lo:hi] @ w[g].to(x.dtype).to(acc).T) \
                 .to(x.dtype)
     return dx
 
 
-def ragged_dot_dw_ref(x, w, group_offsets, dy) -> torch.Tensor:
+def ragged_dot_dw_ref(x, w, group_offsets, dy, *,
+                      acc: torch.dtype = torch.float32) -> torch.Tensor:
     """dw alone: x[rows_g]^T dy[rows_g] for each group
     (`ragged_dot_bwd_ref`)."""
     dw = torch.zeros_like(w)
-    dyf = dy.float()
+    dya = dy.to(acc)
     for g, lo, hi in group_rows(group_offsets, x.shape[0]):
         if hi > lo:
-            dw[g] = (x[lo:hi].float().T @ dyf[lo:hi]).to(x.dtype)
+            dw[g] = (x[lo:hi].to(acc).T @ dya[lo:hi]).to(x.dtype)
     return dw

@@ -21,7 +21,9 @@ product) is held to its plain version at one bf16 ulp (1e-4 + 2^-7 |y|:
 both sum in fp32 and round once) on both bf16 kernels (TMA + wgmma,
 mma.sync), on fp32 weights rounded as they are loaded bit for bit as on
 the weights cast first, makes no host sync, and launches 3 times a MoE
-layer a forward, on the TMA kernel.  `selection_counts` runs on the .b1 tensor
+layer a forward, on the TMA kernel; its fp32 route (the TF32 tensor
+cores, the CUDA cores where TMA cannot take the rows), forward and
+backward, to the plain version's float64 sums at 1e-4 + 1e-5 |y|.  `selection_counts` runs on the .b1 tensor
 cores and the packed conflict kernel ORs group masks: both are held to
 plain versions bit for bit, and launch counts to exactness across
 threads.  Training: the SSD backward kernels (`ssd_bwd`: bf16 on the
@@ -697,14 +699,15 @@ def test_ragged_dot_equals_plain_version(cuda, case):
         assert _launched(before, route) == (1, 1)
         assert got.dtype == torch.bfloat16 and got.shape == (m, n)
         assert _ragged_ok(got, ragged_dot_ref(x, w, offs))
-    # The fp32 route (the fp32 compute mode's): the plain version's fp32
-    # sums within 1e-4 + 1e-5 |y|.
+    # The fp32 route (the fp32 compute mode's): the plain version's sums
+    # (in float64: the kernels sum in another order than its fp32 ones)
+    # within 1e-4 + 1e-5 |y|.
     x = x.float()
     before = dict(LAUNCHES)
     got = ragged_dot(x, w, offs)
     torch.cuda.synchronize()
     assert _launched(before, "fp32") == (1, 1)
-    want = ragged_dot_ref(x, w, offs)
+    want = ragged_dot_ref(x, w, offs, acc=torch.float64)
     assert got.dtype == torch.float32
     assert bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all())
 
@@ -1147,12 +1150,97 @@ def test_ragged_dot_bwd_equals_plain_version(cuda, case, route):
     want_kernels = (kernels if route == "fp32" else
                     (kernels[0] + tma, kernels[1] + (not tma)))
     assert _bwd_kernel_routes("ragged_dot_bwd") == want_kernels
-    want = ragged_dot_bwd_ref(x, w, offs, dy)
+    want = ragged_dot_bwd_ref(x, w, offs, dy, acc=torch.float64
+                              if route == "fp32" else torch.float32)
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     assert _ragged_bwd_ok(dx, want[0], x.dtype)
     assert _ragged_bwd_ok(dw, want[1], x.dtype)
     again = ops.ragged_dot_bwd(x, w, offs, dy)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+# The fp32 route: forward, dx and dw on the TF32 tensor cores (3xTF32,
+# csrc/ragged_tf32.cuh) where TMA takes the rows (K and N multiples of 4
+# from 16-byte bases), on the CUDA cores elsewhere, each against the
+# plain version's float64 sums at the fp32 tolerance (1e-4 + 1e-5 |ref|),
+# bit for bit from call to call.  (M, K, N, group sizes, rows before the
+# first group): the edges of chip_smoke.py's `RAGGED_BWD_EDGES` in fp32 (K
+# and N off 4, one group holding every row, N past 4096, rows outside the
+# groups, empty groups, a 2000-row group), tiles across group edges, and
+# deepseek's captured gate/up training shape (24576 rows routed over 64
+# experts).
+FP32_TC_CASES = [(1000, 256, 384, [100, 0, 300, 250, 0, 300], 20),
+                 (300, 70, 198, [0, 100, 0, 150, 40], 3),
+                 (300, 72, 202, [100, 100, 100], 0),
+                 (257, 64, 96, [257], 0), (520, 128, 4104, [300, 0, 220], 0),
+                 (600, 2048, 1408, [10] * 50 + [0] * 14, 37),
+                 (4096, 4096, 1024, [1000, 0, 2000, 1096], 0),
+                 (37, 36, 44, [5, 20, 3], 4), (50, 64, 64, [0, 0, 0], 0),
+                 (24576, 2048, 1408, "deepseek", 0)]
+
+
+@pytest.mark.parametrize("case", FP32_TC_CASES, ids=str)
+def test_ragged_dot_fp32_tensor_cores(cuda, case):
+    """fp32 forward, dx and dw against the plain version's float64 sums,
+    one launch each on its kernel's route key, the same bits twice."""
+    from repro_torch.kernels.ragged_dot import ops
+    from repro_torch.kernels.ragged_dot.ref import (ragged_dot_bwd_ref,
+                                                    ragged_dot_ref)
+    m, k, n, sizes, lead = case
+    if sizes == "deepseek":
+        gen = torch.Generator().manual_seed(64)
+        sizes = torch.multinomial(torch.ones(64), m, replacement=True,
+                                  generator=gen).bincount(minlength=64)
+        sizes = sizes.tolist()
+    _, w, offs = _ragged(m, k, n, sizes, cuda, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((m, k), generator=gen).to(cuda)
+    dy = torch.randn((m, n), generator=gen).to(cuda)
+    offs = offs + lead
+    kernel = "fp32_tc" if k % 4 == 0 and n % 4 == 0 else "fp32_cores"
+    before = dict(LAUNCHES)
+    y = ops.ragged_dot(x, w, offs)
+    dx, dw = ops.ragged_dot_bwd(x, w, offs, dy)
+    torch.cuda.synchronize()
+    for name in ("ragged_dot", "ragged_dot_bwd"):
+        for key in (name, f"{name}_fp32", f"{name}_{kernel}"):
+            assert LAUNCHES[key] - before[key] == 1, key
+    wants = (ragged_dot_ref(x, w, offs, acc=torch.float64),
+             *ragged_dot_bwd_ref(x, w, offs, dy, acc=torch.float64))
+    for got, want in zip((y, dx, dw), wants):
+        assert got.dtype == torch.float32
+        assert _ragged_bwd_ok(got, want, torch.float32)
+    if lead:
+        assert (y[:lead] == 0).all() and (dx[:lead] == 0).all()
+    assert torch.equal(y, ops.ragged_dot(x, w, offs))
+    again = ops.ragged_dot_bwd(x, w, offs, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+def test_ragged_dot_fp32_unaligned_bases_take_the_cuda_cores(cuda):
+    """fp32 inputs 2 elements into their storage, which TMA cannot take,
+    go to the CUDA-core kernels."""
+    from repro_torch.kernels.ragged_dot import ops
+    from repro_torch.kernels.ragged_dot.ref import (ragged_dot_bwd_ref,
+                                                    ragged_dot_ref)
+    x, w, offs = _ragged(200, 64, 96, [50, 0, 150], cuda)
+    x = x.float()
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 2, dtype=t.dtype,
+                          device=cuda)[2:].view(t.shape)
+        return out.copy_(t)
+    dy = torch.randn(200, 96, device=cuda)
+    before = dict(LAUNCHES)
+    y = ops.ragged_dot(shifted(x), w, offs)
+    dx, dw = ops.ragged_dot_bwd(x, w, offs, shifted(dy))
+    for key in ("ragged_dot_fp32_cores", "ragged_dot_bwd_fp32_cores"):
+        assert LAUNCHES[key] - before[key] == 1, key
+    assert _ragged_bwd_ok(y, ragged_dot_ref(x, w, offs, acc=torch.float64),
+                          torch.float32)
+    want = ragged_dot_bwd_ref(x, w, offs, dy, acc=torch.float64)
+    assert _ragged_bwd_ok(dx, want[0], torch.float32)
+    assert _ragged_bwd_ok(dw, want[1], torch.float32)
 
 
 def test_ragged_dot_bwd_unaligned_bases(cuda):
