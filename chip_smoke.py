@@ -217,28 +217,38 @@ the script started:
    (2, 2048) for 6 steps writing no checkpoint: finite falling losses,
    `ssd_bwd` 38 times a step (228, all bf16) and `ssd` twice as often
    (each Mamba2 layer's forward and its recomputation under the
-   per-block activation checkpoint), flash never.  Then mixtral-8x7b
-   (1 of 32 layers) and deepseek-v2-lite-16b (3 of 27) at (1, 4096), 4
-   steps each, and gemma3-4b (6 of 34: 5 local, 1 global) at (1, 8192),
-   3 steps (`TRAIN_RUNS`): finite falling losses; `ragged_dot_bwd` 3
-   times a MoE layer a step and `ragged_dot` twice as often (both on TMA
-   + wgmma, `ragged_dot_bwd_mma` never); `flash_attention_bwd` once a
-   layer a step and `flash_attention` twice; no plain version (`ref.*`)
-   called on a CUDA tensor.  Each run: tokens/s, the step wall, peak
+   per-block activation checkpoint), flash never.  Then every other
+   family that fits one card, cut in depth (`TRAIN_RUNS`): mamba2-2.7b
+   (60 of 64 layers) at (2, 2048), 4 steps (the ssm family: `ssd_bwd`
+   once a layer a step at N = 128, H = 80); mixtral-8x7b (1 of 32
+   layers) and deepseek-v2-lite-16b (3 of 27) at (1, 4096), 4 steps
+   each; gemma3-4b (6 of 34: 5 local, 1 global) at (1, 8192), 3 steps;
+   starcoder2-7b (2 of 32) at (1, 8192), 3 steps at lr 3e-5 (flash's
+   backward at D = 128 with a GQA group of 9); whisper-tiny uncut at (8,
+   448) over
+   1500 encoder frames, 4 steps (the encdec family; the one run that
+   launches no kernel, its row's ``no_kernel_expected``): finite
+   falling losses; `ssd` and `ssd_bwd`, `ragged_dot_bwd` (3 times a MoE
+   layer a step) and `ragged_dot` (twice as often; both on TMA + wgmma,
+   `ragged_dot_bwd_mma` never), `flash_attention_bwd` (once a layer a
+   step) and `flash_attention` (twice), each exactly by route; no plain
+   version (`ref.*`) called on a CUDA tensor; peak device memory under
+   `TRAIN_PEAK_BYTES`.  Each run: tokens/s, the step wall, peak
    device memory, the card's `nvidia-smi` name and power limit, its
-   seconds; the last step of zamba2's, mixtral's, deepseek's and
-   gemma3's runs is profiled under `torch.profiler` (untimed,
-   `TRAIN_PROFILED`): its top kernels, the shares of the three backward
-   kernels, the forward kernels, the GEMMs, the optimizer and the
-   elementwise kernels (`TRAIN_PROFILE_SHARES`), and the backward
-   kernels' share together.  The first `ssd_bwd` call of zamba2's run, and each projection's first
-   `ragged_dot_bwd` call of the MoE runs, are captured for the next
-   phases.
+   seconds; the last step of each of `TRAIN_PROFILED` (zamba2, mamba2,
+   mixtral, deepseek, gemma3, starcoder2) is profiled under
+   `torch.profiler` (untimed): its top kernels, the shares of the three
+   backward kernels, the forward kernels, the GEMMs, the optimizer and
+   the elementwise kernels (`TRAIN_PROFILE_SHARES`), and the backward
+   kernels' share together.  The first `ssd_bwd` call of zamba2's and
+   mamba2's runs, and each projection's first `ragged_dot_bwd` call of
+   the MoE runs, are captured for the next phases.
 25. ssd-bwd-vs-plain: the SSD backward kernel (`ssd_bwd`) against
    autograd through the plain scan on the card (`ref.ssd_chunked_bwd`
    on fp32 copies of the inputs) at `SSD_BWD_CASES` (zamba2's captured
    training shape (2, 2048, 64, 64), N = 64, chunk 256, with no d_final
-   and with one; mamba2's (2, 2048, 80, 64), N = 128; S off the chunk;
+   and with one; mamba2's captured (2, 2048, 80, 64), N = 128, and the
+   same shape on random inputs; S off the chunk;
    P = 130 and N = 12; chunk 1024), each in bf16 and fp32, within
    `SSD_BWD_TOL`; two calls give the same bits.  bf16 runs
    `ssd_bwd_tc.cu` (bf16 tensor cores), fp32 `ssd_bwd.cu` (TF32 tensor
@@ -267,7 +277,9 @@ the script started:
 25c. flash-bwd-vs-plain: flash attention's backward
    (`flash_attention_bwd`: ``flash_bwd_dq`` and ``flash_bwd_dkdv``,
    csrc/flash_attention_bwd.cu) at every flash path shape the serving
-   phases captured, in bf16 and fp32, against the plain backward one
+   phases captured (and starcoder2's (1, 8192, 36, 128), GQA 36:4, the
+   shape its training run differentiates: `FA_BWD_DENSE`), in bf16 and
+   fp32, against the plain backward one
    KV-head group at a time (`FA_BWD_TOL`); two calls give the same
    bits, and the forward's output is the same with and without its LSE;
    each call is one launch on its dtype's route (bf16: the wgmma
@@ -277,14 +289,22 @@ the script started:
    first CUDA-core fp32 ones), the plain halves' ms, the bounds
    (`flash_bwd_bound`) and SDPA's backward (`flash_bwd_vs_plain`).
 26. train-card-vs-cpu: one fp32 `train_step` on the card and on the
-   host from the same weights, for zamba2 at published widths cut to 6
-   layers (one shared-attention invocation) at (1, 512) and for the
-   mixtral and deepseek smoke configs at (2, 256) (`TRAIN_CHECKS`):
-   loss, grad norm and every updated parameter within `TRAIN_TOL` (see
-   its comment); `ssd_bwd` launched once a Mamba2 layer and
-   `ragged_dot_bwd` three times a MoE layer on the card, on their fp32
-   routes, and every `ragged_dot` and `ragged_dot_bwd` call on the TF32
-   tensor cores.
+   host from the same weights (`TRAIN_CHECKS`), for zamba2 at published
+   widths cut to 6 layers (one shared-attention invocation) at (1, 512);
+   the mixtral and deepseek smoke configs at (2, 256); past 4096^2 pairs,
+   zamba2 at 6 layers at (1, 4352) (flash's fp32 forward and backward at
+   D = 64, on TF32 wgmma) and starcoder2-7b at 1 layer at (1, 4352) (D =
+   128, on mma.sync; GQA 36:4); mamba2-2.7b at 2 layers at (1, 512)
+   (the SSD scan and its backward at N = 128); the qwen2-vl and whisper
+   smoke configs at (2, 256) (the vision prefix with M-RoPE, the
+   encoder and cross-attention: no kernel): loss, grad norm and every
+   updated parameter within `TRAIN_TOL` (see its comment); `ssd` twice
+   and `ssd_bwd` once a Mamba2 layer, `ragged_dot_bwd` three times a MoE
+   layer, flash once an attention call and again where the block is
+   recomputed (`flash_forwards`) and its backward once, each exactly and
+   all on the fp32 routes (`_bf16` never), and every `ragged_dot` and
+   `ragged_dot_bwd` call on the TF32 tensor cores; the host step's
+   seconds (`host_step_s`).
 27. dryrun: `launch.op_analysis` counts zamba2-1.2b's uncut train step
    at (2, 2048) (forward, recompute, backward, AdamW; `ssd` and
    `ssd_bwd` on the bf16 route) and mixtral-8x7b's no-cache forward at
@@ -569,20 +589,42 @@ RAGGED_CASES = [(8, 64, 96, [3, 0, 5, 0]), (300, 72, 200, [0, 100, 0, 150, 50]),
 # lm100m (12 x 768, GQA 12:4, tied; launch.train's default) with a
 # checkpoint every 5 steps and a failure injected at step 7, then on
 # zamba2-1.2b uncut at (2, 2048) for 6 steps writing no checkpoint
-# (every 1000 steps): 38 SSD backward launches a step.  Then the moe
-# family and attention past 4096^2 pairs at published widths, cut in
-# depth (``--layers``) to fit one card: AdamW's update holds about 7 fp32
-# copies of the parameters at its peak (zamba2's 1.170e9 peaked at 34.17
-# GB, 7.3 x 4 bytes a parameter), so mixtral-8x7b takes 1 of its 32
-# layers (1.713e9 parameters) and deepseek-v2-lite-16b 3 of 27 (2.174e9),
-# each at (1, 4096) for 4 steps (`ragged_dot` and its backward, 3 a MoE
-# layer); gemma3-4b 6 of 34 (5 local, 1 global; 1.237e9) at (1, 8192)
-# for 3 steps (flash and its backward at D = 256 on every layer).
+# (every 1000 steps): 38 SSD backward launches a step.  Then every other
+# family that fits one card, at published widths, cut in depth
+# (``--layers``) to fit: AdamW's update holds about 7.3 fp32 copies of
+# the parameters at its peak (zamba2's 1.170e9 peaked at 34.17 GB, 7.3 x
+# 4 bytes a parameter), and a run past 75 GB is cut one more layer.
+# mamba2-2.7b takes 60 of its 64 layers (2.552e9 parameters; on an H100
+# 80GB HBM3 this run peaked at 72.66 GB at 60 layers and at 74.91 GB at
+# 62, too near the limit) at (2, 2048) for 4 steps (the SSD scan and its
+# backward at N = 128, H = 80);
+# mixtral-8x7b 1 of its 32 layers
+# (1.713e9) and deepseek-v2-lite-16b 3 of 27 (2.174e9), each at (1, 4096)
+# for 4 steps (`ragged_dot` and its backward, 3 a MoE layer); gemma3-4b 6
+# of 34 (5 local, 1 global; 1.237e9) at (1, 8192) for 3 steps (flash and
+# its backward at D = 256 on every layer); starcoder2-7b 2 of 32 (its
+# serving cut, 0.887e9) at (1, 8192) for 3 steps (flash's backward at D =
+# 128 with a GQA group of 9; layernorm and the non-gated gelu MLP) at lr
+# 3e-5: at the default 3e-4 (and at 1e-4) Adam's first full step on its
+# 4608-wide layers throws the loss up, and 3 steps do not bring it back
+# under the first.  The reference does the same: at 1 layer and (1, 256)
+# on the host both trainers go 11.14, 25.56, 14.34 at 3e-4 and fall at
+# 3e-5 (tests/test_torch_train_families.py, ``-m slow``);
+# whisper-tiny uncut (36.5e6) at (8, 448), Whisper's decoder context, over
+# its 1500 encoder frames, for 4 steps: the encoder, the cross-attention
+# and the tied unembedding through a backward, with no kernel (1500^2 and
+# 448^2 pairs are under flash's 4096^2).  qwen2-vl-72b does not fit at
+# its published widths even at one layer (3.369e9 parameters, 98 GB by
+# the rule); its vision path trains only in train-card-vs-cpu, at smoke
+# widths.
 TRAIN_RUNS = {
     "lm100m": ["--steps", "20", "--batch", "8", "--seq", "256",
                "--ckpt-every", "5", "--inject-failure-at", "7"],
     "zamba2-1.2b": ["--arch", "zamba2-1.2b", "--steps", "6", "--batch",
                     "2", "--seq", "2048", "--ckpt-every", "1000"],
+    "mamba2-2.7b": ["--arch", "mamba2-2.7b", "--layers", "60", "--steps",
+                    "4", "--batch", "2", "--seq", "2048", "--ckpt-every",
+                    "1000"],
     "mixtral-8x7b": ["--arch", "mixtral-8x7b", "--layers", "1", "--steps",
                      "4", "--batch", "1", "--seq", "4096", "--ckpt-every",
                      "1000"],
@@ -590,7 +632,15 @@ TRAIN_RUNS = {
                              "3", "--steps", "4", "--batch", "1", "--seq",
                              "4096", "--ckpt-every", "1000"],
     "gemma3-4b": ["--arch", "gemma3-4b", "--layers", "6", "--steps", "3",
-                  "--batch", "1", "--seq", "8192", "--ckpt-every", "1000"]}
+                  "--batch", "1", "--seq", "8192", "--ckpt-every", "1000"],
+    "starcoder2-7b": ["--arch", "starcoder2-7b", "--layers", "2", "--steps",
+                      "3", "--batch", "1", "--seq", "8192", "--lr", "3e-5",
+                      "--ckpt-every", "1000"],
+    "whisper-tiny": ["--arch", "whisper-tiny", "--steps", "4", "--batch",
+                     "8", "--seq", "448", "--ckpt-every", "1000"]}
+# A training run's peak device memory must stay under this (a run past it
+# is cut one more layer).
+TRAIN_PEAK_BYTES = 75e9
 # ragged-dot-bwd-vs-plain: the backward pair at the shapes captured from
 # the MoE runs (gate/up and down of each: bf16 x and dy, the fp32 stacks),
 # then at edges: K and N off 8 (the plain loads), one group holding every
@@ -626,7 +676,10 @@ FP32_RAGGED_PROFILED = 20
 # flash-bwd-vs-plain: the backward pair at each flash path shape the
 # serving phases captured (zamba2's (1, 8192, 32, 64); gemma3's (1, 8192,
 # 8, 256) with 4 KV heads, local and global; mixtral's (1, 8192, 32,
-# 128), window 4096; qwen2-vl's (1, 8192, 64, 128), GQA 64:8), each in
+# 128), window 4096; qwen2-vl's (1, 8192, 64, 128), GQA 64:8; and
+# llm-dense-widths' `FA_BWD_DENSE` call, starcoder2's (1, 8192, 36, 128)
+# with 4 KV heads, a GQA group of 9, the one its training run
+# differentiates), each in
 # bf16 and fp32, on the card's own forward output and LSE and a seeded
 # dO, against the plain backward on fp32 copies one KV-head group at a
 # time.  Each gradient within `FA_BWD_TOL` of its max |ref|: fp32 the
@@ -638,32 +691,53 @@ FP32_RAGGED_PROFILED = 20
 # by the kernel and by blocks of keys and batched products by the plain
 # version (tests/test_torch_gpu.py holds 1e-5 at its smaller shapes).
 FA_BWD_TOL = {"float32": 3e-5, "bfloat16": 1e-2}
+FA_BWD_DENSE = ("starcoder2-7b",)
 # train-card-vs-cpu: one fp32 step from the same weights on the card and
 # on the host: zamba2 at its published widths cut to 6 layers (one
 # shared-attention invocation) at (1, 512), and the mixtral and
 # deepseek smoke configs (the grouped products' fp32 routes, forward
-# and backward) at (2, 256).  Loss and grad norm within 1e-4 (relative,
-# + 1e-6); every updated parameter within 1e-4 max |p| + 1e-6 of the
-# host's where the clipped gradient is at least 100 eps (the optimizer's
-# first-step slope g / (|g| + eps) is up to 1 / eps below that:
-# tests/test_torch_train.py), and within the most the step can move it,
-# lr (1 + wd |p|) each way, elsewhere.  name -> (arch, smoke, reduced,
-# (batch, seq)).
+# and backward) at (2, 256); then the fp32 routes of flash on a path,
+# past 4096^2 pairs (4352^2; `models.attention._flash_or_sdpa`): zamba2
+# at 6 layers at (1, 4352) (D = 64, the TF32 wgmma kernels; its shared
+# attention is not checkpointed, so one forward and one backward) and
+# starcoder2-7b at 1 layer at (1, 4352) (D = 128, the mma.sync kernels;
+# GQA 36:4, a group of 9; a forward and its recomputation, one
+# backward); mamba2-2.7b at 2 layers at (1, 512) (the SSD scan and its
+# backward at N = 128); the qwen2-vl and whisper smoke configs at (2,
+# 256) (the vision prefix with M-RoPE positions, the encoder and
+# cross-attention: no kernel).  Loss and grad norm within 1e-4
+# (relative, + 1e-6); every updated parameter within 1e-4 max |p| + 1e-6
+# of the host's where the clipped gradient is at least 100 eps (the
+# optimizer's first-step slope g / (|g| + eps) is up to 1 / eps below
+# that: tests/test_torch_train.py), and within the most the step can
+# move it, lr (1 + wd |p|) each way, elsewhere.  name -> (arch, smoke,
+# reduced, (batch, seq)).
 TRAIN_CHECKS = {"zamba2-1.2b": ("zamba2-1.2b", False, {"n_layers": 6},
                                 (1, 512)),
                 "mixtral-8x7b smoke": ("mixtral-8x7b", True, {}, (2, 256)),
                 "deepseek-v2-lite-16b smoke": ("deepseek-v2-lite-16b", True,
-                                               {}, (2, 256))}
+                                               {}, (2, 256)),
+                "zamba2-1.2b long": ("zamba2-1.2b", False, {"n_layers": 6},
+                                     (1, 4352)),
+                "starcoder2-7b long": ("starcoder2-7b", False,
+                                       {"n_layers": 1}, (1, 4352)),
+                "mamba2-2.7b": ("mamba2-2.7b", False, {"n_layers": 2},
+                                (1, 512)),
+                "qwen2-vl-72b smoke": ("qwen2-vl-72b", True, {}, (2, 256)),
+                "whisper-tiny smoke": ("whisper-tiny", True, {}, (2, 256))}
 TRAIN_TOL = 1e-4
 # ssd-bwd-vs-plain: the backward kernel against autograd through the
-# plain scan on the card (`ref.ssd_chunked_bwd`), on zamba2's training
-# shape captured from the train phase's first backward (with no
-# d_final, as the step gives it, and with a random one), mamba2's (2,
-# 2048, 80, 64) at N = 128, S off the chunk (1000, 300), P = 130 and N
-# = 12, and chunk 1024; each in bf16 and fp32.  (B, S, H, P, N, chunk,
-# d_final): a tuple of random inputs, or "captured".
-SSD_BWD_CASES = [("zamba2 train step", "captured", False),
-                 ("zamba2 train step, d_final", "captured", True),
+# plain scan on the card (`ref.ssd_chunked_bwd`), on zamba2's and
+# mamba2's training shapes captured from the train phase's first
+# backward of each (zamba2's with no d_final, as the step gives it, and
+# with a random one; mamba2's (2, 2048, 80, 64) at N = 128), mamba2's
+# shape on random inputs, S off the chunk (1000, 300), P = 130 and N =
+# 12, and chunk 1024; each in bf16 and fp32.  (B, S, H, P, N, chunk,
+# d_final): a tuple of random inputs, or the name of the train run whose
+# first call is taken.
+SSD_BWD_CASES = [("zamba2 train step", "zamba2-1.2b", False),
+                 ("zamba2 train step, d_final", "zamba2-1.2b", True),
+                 ("mamba2 train step", "mamba2-2.7b", False),
                  ("mamba2 (2, 2048, 80, 64) N=128",
                   (2, 2048, 80, 64, 128, 256), True),
                  ("S=1000 off the chunk", (1, 1000, 4, 64, 64, 256), True),
@@ -729,8 +803,8 @@ RAGGED_FP32_EARLIER_FROM = ("the first CUDA-core kernels, " +
 # The profiled training steps (train: the last step of each of
 # `TRAIN_PROFILED`): each label's kernels by name, for their share of the
 # step's device time; the backward kernels' labels first.
-TRAIN_PROFILED = ("zamba2-1.2b", "mixtral-8x7b", "deepseek-v2-lite-16b",
-                  "gemma3-4b")
+TRAIN_PROFILED = ("zamba2-1.2b", "mamba2-2.7b", "mixtral-8x7b",
+                  "deepseek-v2-lite-16b", "gemma3-4b", "starcoder2-7b")
 TRAIN_BWD_LABELS = ("ssd_bwd", "ragged_dot_bwd", "flash_attention_bwd")
 TRAIN_PROFILE_SHARES = {
     "ssd_bwd": ("ssd_bwd_",),
@@ -1308,6 +1382,15 @@ def attention_calls(cfg) -> int:
         return T.n_hybrid_attn_invocations(cfg)
     return cfg.n_layers if cfg.family in ("dense", "moe") and \
         cfg.attn_kind == "gqa" else 0
+
+
+def flash_forwards(cfg) -> int:
+    """The flash forward launches of one training step past 4096^2
+    pairs: each attention call's forward, and its recomputation where
+    the block runs under the per-block checkpoint (zamba2's shared
+    attention does not: `transformer._hybrid_apply`)."""
+    remat = cfg.remat == "block" and cfg.family != "hybrid"
+    return attention_calls(cfg) * (2 if remat else 1)
 
 
 def free_model() -> None:
@@ -2797,13 +2880,13 @@ def path_shapes(rows: list, kernel: str) -> list:
 
 
 # ------------------------------------------------ the service tier
-def llm_train(dev, card: str) -> tuple[dict, object, dict]:
+def llm_train(dev, card: str) -> tuple[dict, dict, dict]:
     """`launch.train.main` on each of `TRAIN_RUNS` (its printed lines
     kept), with the launch counts of every kernel and the calls of the
     plain versions that reached a CUDA tensor (which must be none).
-    Returns (the phase's row, the zamba2 run's first `ssd_bwd` call, a
-    `Capture`, and the MoE runs' `ragged_dot_bwd` calls by arch, each a
-    `Capture` kept on the host)."""
+    Returns (the phase's row, the ssm and hybrid runs' first `ssd_bwd`
+    calls by arch, each a `Capture`, and the MoE runs' `ragged_dot_bwd`
+    calls by arch, each a `Capture` kept on the host)."""
     import contextlib
     import io
     import re
@@ -2819,7 +2902,7 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     runs = {}
-    capture, moe_caps = None, {}
+    ssd_caps, moe_caps = {}, {}
     make_step = M.make_train_step
     step_s: list[float] = []
     profile_at: list = [None]   # the step to profile (not timed), or None
@@ -2941,6 +3024,10 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
         check(not plain_on_card, f"{arch}: plain versions ran on CUDA "
                                  f"tensors: {plain_on_card}")
 
+        check(runs[arch]["peak_mem_bytes"] < TRAIN_PEAK_BYTES,
+              f"{arch}: peak {runs[arch]['peak_mem_bytes'] / 1e9:.2f} GB, "
+              f"past {TRAIN_PEAK_BYTES / 1e9:.0f} GB: cut one more layer")
+
         def count(name):
             return LAUNCHES.get(name, 0)
         if arch == "lm100m":
@@ -2948,43 +3035,48 @@ def llm_train(dev, card: str) -> tuple[dict, object, dict]:
             check(len(history) == steps + 2,
                   f"lm100m: {len(history)} steps run, not {steps} + the 2 "
                   f"replayed from the step-5 checkpoint")
-        elif arch == LLM_ARCH:
-            capture = cap
-            want = 38 * steps
-            check(count("ssd_bwd") == want and count("ssd_bwd_bf16") == want,
-                  f"zamba2: ssd_bwd launched {count('ssd_bwd')} times "
-                  f"({count('ssd_bwd_bf16')} bf16), not {want}")
-            check(count("ssd") == 2 * want,
-                  f"zamba2: ssd launched {count('ssd')} times, not "
-                  f"{2 * want} (a forward and its recomputation a layer)")
-            check(count("flash_attention") == 0,
-                  "zamba2 at S = 2048 launched flash attention")
         else:
             # A forward and its recomputation under the per-block
-            # checkpoint, and one backward, each layer a step.
+            # checkpoint, and one backward, each layer a step (zamba2's
+            # shared attention is not checkpointed: `flash_forwards`).
             cfg = dataclasses.replace(get_config(arch), **reduced)
+            ssd = ssd_calls(cfg) * steps
             rd, fa = ragged_calls(cfg) * steps, attention_calls(cfg) * steps
+            fa_fwd = flash_forwards(cfg) * steps
             if seq * seq <= 4096 * 4096:
-                fa = 0   # the plain masked product takes the attention
-            for name, want in (("ragged_dot", 2 * rd),
+                fa = fa_fwd = 0   # the plain masked product takes it
+            for name, want in (("ssd", 2 * ssd), ("ssd_bf16", 2 * ssd),
+                               ("ssd_bwd", ssd), ("ssd_bwd_bf16", ssd),
+                               ("ragged_dot", 2 * rd),
                                ("ragged_dot_wgmma", 2 * rd),
                                ("ragged_dot_bwd", rd),
                                ("ragged_dot_bwd_bf16", rd),
                                ("ragged_dot_bwd_wgmma", rd),
                                ("ragged_dot_bwd_mma", 0),
-                               ("flash_attention", 2 * fa),
-                               ("flash_attention_bf16", 2 * fa),
+                               ("flash_attention", fa_fwd),
+                               ("flash_attention_bf16", fa_fwd),
                                ("flash_attention_bwd", fa),
                                ("flash_attention_bwd_bf16", fa)):
                 check(count(name) == want, f"{arch}: {name} launched "
                                            f"{count(name)} times, not {want}")
-            check(rd + fa > 0, f"{arch}: no backward kernel on its path")
+            # The encdec family alone runs no kernel on its path (its
+            # attention stays under flash's 4096^2 pairs): held to none.
+            runs[arch]["no_kernel_expected"] = not (ssd or rd or fa)
+            if cfg.family == "encdec":
+                check(not launches and not (ssd or rd or fa),
+                      f"{arch}: launched {launches} (the encdec path takes "
+                      f"no kernel at these lengths)")
+            else:
+                check(ssd + rd + fa > 0,
+                      f"{arch}: no backward kernel on its path")
+            if ssd:
+                ssd_caps[arch] = cap
             if rd:
                 moe_caps[arch] = moe_cap
         runs[arch]["seconds"] = time.perf_counter() - t_run
         free_model()
     return dict(phase="train", runs=runs,
-                seconds=time.perf_counter() - t_phase), capture, moe_caps
+                seconds=time.perf_counter() - t_phase), ssd_caps, moe_caps
 
 
 def train_card_vs_cpu(dev) -> dict:
@@ -3020,15 +3112,18 @@ def _card_vs_cpu(dev, name: str, arch: str, smoke: bool, reduced: dict,
                                       host[0].parameters()):
                 p_card.copy_(p_host)
         batch = data.batch(0)
-        reset_launches()
-        t0 = time.perf_counter()
-        (card_model, card_opt, _), card_m = card_step(card, batch)
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        launches = {k: v for k, v in LAUNCHES.items() if v}
-        t0 = time.perf_counter()
-        (host_model, host_opt, _), host_m = host_step(host, batch)
-        host_s = time.perf_counter() - t0
+        # The card, and the host's cores, to this process while the two
+        # steps are timed (the host's at 4352 tokens takes a minute).
+        with card_to_itself():
+            reset_launches()
+            t0 = time.perf_counter()
+            (card_model, card_opt, _), card_m = card_step(card, batch)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            t0 = time.perf_counter()
+            (host_model, host_opt, _), host_m = host_step(host, batch)
+            host_s = time.perf_counter() - t0
     opt = AdamW()
     lr = 3e-4
     metrics = {}
@@ -3060,20 +3155,26 @@ def _card_vs_cpu(dev, name: str, arch: str, smoke: bool, reduced: dict,
             check(bool((err[~well] <= move).all()),
                   f"train-card-vs-cpu {name}: {pname} moved past the first "
                   f"step's reach where its gradient is under 100 eps")
-    # Each backward kernel once a layer, on its fp32 route; no flash at
-    # these lengths; the grouped products, both ways, on the TF32 tensor
-    # cores.
-    for kernel, want in (("ssd_bwd", ssd_calls(cfg)),
-                         ("ragged_dot_bwd", ragged_calls(cfg))):
-        got = (launches.get(kernel, 0), launches.get(f"{kernel}_fp32", 0))
-        check(got == (want, want), f"train-card-vs-cpu {name}: {kernel} "
-                                   f"launched {got} (all, fp32), not {want}")
+    # Each backward kernel once a layer, on its fp32 route, and the SSD
+    # scan twice (a forward and its recomputation); flash past 4096^2
+    # pairs only (`flash_forwards`), its backward once an attention call;
+    # the grouped products, both ways, on the TF32 tensor cores.
+    fa = attention_calls(cfg) if s * s > 4096 * 4096 else 0
+    fa_fwd = flash_forwards(cfg) if fa else 0
+    for kernel, want in (("ssd", 2 * ssd_calls(cfg)),
+                         ("ssd_bwd", ssd_calls(cfg)),
+                         ("ragged_dot_bwd", ragged_calls(cfg)),
+                         ("flash_attention", fa_fwd),
+                         ("flash_attention_bwd", fa)):
+        got = tuple(launches.get(k, 0) for k in (
+            kernel, f"{kernel}_fp32", f"{kernel}_bf16"))
+        check(got == (want, want, 0), f"train-card-vs-cpu {name}: {kernel} "
+                                      f"launched {got} (all, fp32, bf16), "
+                                      f"not ({want}, {want}, 0)")
     for kernel in ("ragged_dot", "ragged_dot_bwd"):
         got = (launches.get(kernel, 0), launches.get(f"{kernel}_fp32_tc", 0))
         check(got[0] == got[1], f"train-card-vs-cpu {name}: {kernel} "
                                 f"launched {got} (all, on the tensor cores)")
-    check(not launches.get("flash_attention", 0),
-          f"train-card-vs-cpu {name}: flash launched at S = {s}")
     del card, host, card_model, host_model, card_opt, host_opt
     free_model()
     return dict(arch=arch, smoke=smoke, reduced=reduced, shape=list(shape),
@@ -3281,7 +3382,8 @@ def flash_bwd_bound(part: str, b, sq, sk, hq, hkv, d, nbytes, fp32=False,
 
 def flash_bwd_vs_plain(dev, captured: dict) -> dict:
     """Flash attention's backward (`flash_attention_bwd`: the dq and dk/dv
-    kernels) at every flash path shape (`time_specs`), in bf16 and fp32,
+    kernels) at every flash path shape (`time_specs`, then the
+    `FA_BWD_DENSE` archs' long forward calls), in bf16 and fp32,
     on the card's own forward output and LSE and a seeded dO: each
     gradient against the plain backward on fp32 copies, one KV-head
     group at a time, within `FA_BWD_TOL` of its max |ref|; two calls give
@@ -3300,7 +3402,10 @@ def flash_bwd_vs_plain(dev, captured: dict) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(28)
     rows = []
-    for arch, label, args, kwargs in time_specs(captured)[0]:
+    specs = time_specs(captured)[0] + [
+        (arch, "flash_long", cap.args, cap.kwargs) for arch, cap in (
+            (a, captured[a]["flash_long"]) for a in FA_BWD_DENSE)]
+    for arch, label, args, kwargs in specs:
         window, q_offset = kwargs.get("window"), kwargs.get("q_offset", 0)
         kw = dict(q_offset=q_offset, window=window)
         for dtype in (torch.bfloat16, torch.float32):
@@ -3456,10 +3561,11 @@ def ssd_bwd_bound(b, s, h, p, n, chunk, nbytes, fp32=False) -> dict:
                 bytes=nbytes, **extra)
 
 
-def ssd_bwd_vs_plain(dev, capture) -> dict:
+def ssd_bwd_vs_plain(dev, captures: dict) -> dict:
     """`ssd_bwd` on the card against the plain version on the card, at
-    `SSD_BWD_CASES` in both dtypes; two calls must give the same bits;
-    the kernel's ms, the plain version's and the bound at each shape."""
+    `SSD_BWD_CASES` in both dtypes (``captures``: the train runs' first
+    calls by arch); two calls must give the same bits; the kernel's ms,
+    the plain version's and the bound at each path shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -3467,14 +3573,14 @@ def ssd_bwd_vs_plain(dev, capture) -> dict:
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(25)
-    check(capture is not None and capture.calls,
-          "the zamba2 train run gave no ssd_bwd call to capture")
-    cap_args, cap_kw = capture.args, capture.kwargs
     rows = []
     for label, spec, with_final in SSD_BWD_CASES:
-        if spec == "captured":
-            x, dt, a_log, b, c, dy, _ = cap_args
-            chunk = cap_kw["chunk"]
+        if isinstance(spec, str):
+            capture = captures.get(spec)
+            check(capture is not None and capture.calls,
+                  f"the {spec} train run gave no ssd_bwd call to capture")
+            x, dt, a_log, b, c, dy, _ = capture.args
+            chunk = capture.kwargs["chunk"]
         else:
             bsz, s, h, p, n, chunk = spec
             def r(*shape):
@@ -3512,11 +3618,11 @@ def ssd_bwd_vs_plain(dev, capture) -> dict:
                                     zip(("dx", "ddt", "d_a_log", "db", "dc"),
                                         want)},
                        bit_identical=same, within=ok)
-            if spec == "captured" or label.startswith("mamba2"):
+            if isinstance(spec, str) or label.startswith("mamba2"):
                 nbytes = sum(t.numel() * t.element_size() for t in args) + \
                     sum(t.numel() * t.element_size() for t in got) + (
                         d_final.numel() * 4 if with_final else 0)
-                arch = "mamba2" if label.startswith("mamba2") else "zamba2"
+                arch = label.split()[0]
                 row.update(
                     ms=cuda_ms(lambda: ssd_ops.ssd_bwd(
                         *args, d_final, chunk=chunk), 10),
@@ -4036,13 +4142,14 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
     in the training run that took it, and its largest error."""
     flash = name.startswith("flash")
     part = name.rsplit("_", 1)[1]
+    key = "flash_attention_bwd" if flash else "ragged_dot_bwd"
     extra = {}
     if flash:
         rows = fa_bwd["cases"]
         main = next(r for r in rows if r["arch"] == "gemma3-4b" and
                     r["label"] == "flash_global" and r["dtype"] == "bfloat16")
         run = train_runs["gemma3-4b"]
-        launches = run["launches"].get("flash_attention_bwd", 0)
+        launches = run["launches"].get(key, 0)
         err = max(r["max_abs_err"][p] for r in rows
                   for p in (("dq",) if part == "dq" else ("dk", "dv")))
         source = "flash_attention/csrc/flash_attention_bwd.cu"
@@ -4065,7 +4172,7 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
         main = next(r for r in rows
                     if r["case"] == "mixtral-8x7b gate/up")
         run = train_runs["mixtral-8x7b"]
-        launches = run["launches"].get("ragged_dot_bwd", 0)
+        launches = run["launches"].get(key, 0)
         err = max(r["max_abs_err"][part] for r in rd_bwd["cases"])
         source = "ragged_dot/csrc/ragged_dot_bwd.cu"
         replaces = ("src/repro/models/moe.py:67 (jax.grad through "
@@ -4081,9 +4188,12 @@ def backward_row(name: str, rd_bwd: dict, fa_bwd: dict, train_runs: dict,
         replaces=replaces, launches=launches,
         launches_from=f"train, {run['argv'][1]} {run['reduced']}, "
                       f"{run['steps_run']} steps",
-        launches_card_vs_cpu={k: c["launches"].get(
-            "flash_attention_bwd" if flash else "ragged_dot_bwd", 0)
-            for k, c in checks.items()},
+        launches_train_by_arch={
+            arch: dict(launches=r["launches"].get(key, 0),
+                       reduced=r["reduced"], steps=r["steps_run"])
+            for arch, r in train_runs.items() if r["launches"].get(key)},
+        launches_card_vs_cpu={k: c["launches"].get(key, 0)
+                              for k, c in checks.items()},
         max_abs_err=err, ms=mine["ms"], ms_both_kernels=main["ms"],
         kernels=main["route"],
         plain_ms=mine["plain_ms"], bound_ms=mine["bound_ms"],
@@ -4494,14 +4604,15 @@ def main() -> int:
                  path_err["flash"])
 
     # ---- 24-26. training: launch.train.main on lm100m (a failure and a
-    # restart), zamba2-1.2b uncut, mixtral, deepseek and gemma3 cut in
-    # depth; the three backward kernels against their plain versions; one
-    # fp32 step on the card against the host
-    train_row, bwd_capture, moe_caps = llm_train(dev, card)
+    # restart), zamba2-1.2b and whisper-tiny uncut, mamba2, mixtral,
+    # deepseek, gemma3 and starcoder2 cut in depth; the three backward
+    # kernels against their plain versions; one fp32 step on the card
+    # against the host
+    train_row, ssd_caps, moe_caps = llm_train(dev, card)
     emit(train_row)
-    bwd_row = ssd_bwd_vs_plain(dev, bwd_capture)
+    bwd_row = ssd_bwd_vs_plain(dev, ssd_caps)
     emit(bwd_row)
-    del bwd_capture
+    del ssd_caps
     free_model()
     rd_bwd_row = ragged_bwd_vs_plain(dev, moe_caps)
     emit(rd_bwd_row)
@@ -4677,8 +4788,14 @@ def main() -> int:
              launches=zamba_train["launches"]["ssd_bwd"],
              launches_from=f"train, {LLM_ARCH} uncut, "
                            f"{zamba_train['steps_run']} steps",
-             launches_card_vs_cpu=check_row["runs"][LLM_ARCH]["launches"][
-                 "ssd_bwd"],
+             launches_train_by_arch={
+                 arch: dict(launches=r["launches"].get("ssd_bwd", 0),
+                            reduced=r["reduced"], steps=r["steps_run"])
+                 for arch, r in train_row["runs"].items()
+                 if r["launches"].get("ssd_bwd")},
+             launches_card_vs_cpu={
+                 k: c["launches"].get("ssd_bwd", 0)
+                 for k, c in check_row["runs"].items()},
              max_abs_err=max(bwd_main["max_abs_err"].values()),
              ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
              bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
@@ -4689,8 +4806,10 @@ def main() -> int:
                    f"step)",
              fp32=dict({key: bwd32[key] for key in (
                  "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                 "bound_per_head_bc_ms", "fp32_rate_bound_ms", "route")}, launches_card_vs_cpu=check_row["runs"][
-                     LLM_ARCH]["launches"].get("ssd_bwd_fp32", 0)),
+                 "bound_per_head_bc_ms", "fp32_rate_bound_ms", "route")},
+                 launches_card_vs_cpu={
+                     k: c["launches"].get("ssd_bwd_fp32", 0)
+                     for k, c in check_row["runs"].items()}),
              path_shapes=[{k: r[k] for k in (
                  "case", "dtype", "shape", "n", "chunk", "ms", "plain_ms",
                  "bound_ms", "bound_by", "max_abs_err")}

@@ -179,6 +179,38 @@ def _counted(name: str, flops: float, nbytes: float):
             c.kernel_end()
 
 
+#: The rows a plain product on the CPU takes at a time (`row_blocks`).
+ROW_BLOCK = 64
+
+
+def row_blocks(fn, a, dim: int = 0, out: int = 0):
+    """``fn(a)``, a product whose rows are ``a``'s entries along ``dim``
+    (the result's along ``out``), on the CPU in blocks of exactly
+    `ROW_BLOCK` rows, the last zero-padded.  torch's float32 GEMM on the
+    CPU picks its kernel and its blocking by the row count, so one
+    product over all the rows sums a row in another order with other
+    rows beside it (a decode step's few rows against the no-cache
+    forward's many: a bf16 ulp of deepseek's logits at K = 2048, where
+    XLA's CPU dot sums each row alike; tests/test_torch_decode_drift.py);
+    within one block shape it does not.  Up to K = 512 a block gives the
+    bits of one product over all the rows but a lone row's (torch's
+    gemv), so the smoke configs' values stand.  On other devices, and
+    under a dispatch mode (an op or FLOP counter, to which the padding
+    would add rows), ``fn(a)``."""
+    import torch
+    from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+    if a.device.type != "cpu" or is_in_torch_dispatch_mode():
+        return fn(a)
+    n = a.shape[dim]
+    pad = -n % ROW_BLOCK
+    if pad:
+        shape = list(a.shape)
+        shape[dim] = pad
+        a = torch.cat([a, a.new_zeros(shape)], dim)
+    return torch.cat([fn(blk) for blk in a.split(ROW_BLOCK, dim)],
+                     out).narrow(out, 0, n)
+
+
 def tensor_bytes(*tensors) -> int:
     """The bytes of ``tensors`` (None skipped)."""
     return sum(t.numel() * t.element_size() for t in tensors

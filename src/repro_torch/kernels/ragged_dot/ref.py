@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import row_blocks
+
 
 def group_rows(group_offsets: torch.Tensor, m: int):
     """Each group's rows ``(g, lo, hi)``, clamped as the kernels clamp
@@ -35,13 +37,16 @@ def ragged_dot_ref(x: torch.Tensor, w: torch.Tensor,
                    acc: torch.dtype = torch.float32) -> torch.Tensor:
     """x (M, K), w (G, K, N), group_offsets (G + 1,) int -> (M, N) in
     x's type, each product summed in ``acc`` (float64: the exact sums
-    rounded once, which the card's fp32 checks hold the kernels to)."""
+    rounded once, which the card's fp32 checks hold the kernels to).
+    Each group's rows are taken by `kernels.row_blocks`, so on the CPU a
+    row's sum does not depend on its group's size."""
     m, n = x.shape[0], w.shape[2]
     out = torch.zeros((m, n), dtype=x.dtype, device=x.device)
     for g, lo, hi in group_rows(group_offsets, m):
         if hi > lo:
-            out[lo:hi] = (x[lo:hi].to(acc) @ w[g].to(x.dtype).to(acc)) \
-                .to(x.dtype)
+            wg = w[g].to(x.dtype).to(acc)
+            out[lo:hi] = row_blocks(lambda u: (u.to(acc) @ wg).to(x.dtype),
+                                    x[lo:hi])
     return out
 
 

@@ -13,11 +13,16 @@ published widths (what fits one card).  It trains on one card: `build`
 hands the planner the one-device mesh (`launch.mesh.make_smoke_mesh`),
 prints its plan and installs no sharding rules (`launch.dryrun` traces
 the production meshes' plans on the ``meta`` device).  Every family
-trains on the card through hand-written forward and backward kernels:
-the Mamba2 layers' SSD scan (`ssd`, `ssd_bwd`), the moe family's grouped
+that fits one card trains there (``chip_smoke.py`` runs each: hybrid
+zamba2 and encdec whisper uncut, ssm mamba2 and the dense and moe configs
+cut in depth) through hand-written forward and backward kernels: the
+Mamba2 layers' SSD scan (`ssd`, `ssd_bwd`), the moe family's grouped
 products (`ragged_dot` and its dx/dw kernels) and attention over more
 than 4096^2 (query, key) pairs (flash attention and its dQ and dK/dV
-kernels); the rest is plain torch under autograd.
+kernels); the rest is plain torch under autograd.  qwen2-vl-72b does not
+fit at its published widths even cut to one layer (3.37e9 parameters,
+about 98 GB of weights, gradients and AdamW state); its vision prefix
+trains on the card at smoke widths.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
-from .layers import Dense, apply_rope, einsum
+from .layers import Dense, apply_rope, einsum, scores
 
 
 # ------------------------------------------------------------------ masking
@@ -52,8 +52,7 @@ def sdpa(q, k, v, mask, *, scale=None, logit_cap: float | None = None):
     g = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qh = q.reshape(b, sq, hkv, g, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) \
-        * scale
+    logits = scores("bqhgd,bkhd->bhgqk", qh, k, rows="q") * scale
     if logit_cap is not None:
         logits = logit_cap * torch.tanh(logits / logit_cap)
     if mask.dim() != 4 or mask.shape[1] != 1:
@@ -61,7 +60,7 @@ def sdpa(q, k, v, mask, *, scale=None, logit_cap: float | None = None):
                          f"{tuple(mask.shape)}")
     logits = torch.where(mask[:, :, None, :, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = einsum("bhgqk,bkhd->bqhgd", w, v)
+    out = einsum("bhgqk,bkhd->bqhgd", w, v, rows="q")
     return out.reshape(b, sq, hq, v.shape[-1])
 
 
@@ -183,16 +182,16 @@ class MLA(nn.Module):
                 s_max, device=x.device)[None, :])[None, None]
             if absorbed:
                 q_lat = einsum("bshn,lhn->bshl", q_nope,
-                               self.uk.w.to(q_nope.dtype))
-                logits = (torch.einsum("bshl,bkl->bhsk", q_lat.float(),
-                                       c_all.float())
-                          + torch.einsum("bshr,bkr->bhsk", q_pe.float(),
-                                         kpe_all.float()))
+                               self.uk.w.to(q_nope.dtype), rows="s")
+                logits = (scores("bshl,bkl->bhsk", q_lat, c_all, rows="s")
+                          + scores("bshr,bkr->bhsk", q_pe, kpe_all,
+                                   rows="s"))
                 w = torch.softmax(torch.where(mask, logits * scale, -1e30),
                                   dim=-1)
-                ctx_lat = einsum("bhsk,bkl->bshl", w.to(c_all.dtype), c_all)
+                ctx_lat = einsum("bhsk,bkl->bshl", w.to(c_all.dtype), c_all,
+                                 rows="s")
                 out = einsum("bshl,lhv->bshv", ctx_lat,
-                             self.uv.w.to(ctx_lat.dtype))
+                             self.uv.w.to(ctx_lat.dtype), rows="s")
             else:
                 out = self._naive(q_nope, q_pe, c_all, kpe_all, mask,
                                   n_heads, scale)
@@ -209,8 +208,10 @@ class MLA(nn.Module):
     def _naive(self, q_nope, q_pe, c_kv, k_pe, mask, n_heads, scale):
         """K and V materialised from the latent (B, S_k, kv_lora), the
         rope key shared by the heads, and the masked `sdpa`."""
-        k_nope = einsum("bkl,lhn->bkhn", c_kv, self.uk.w.to(c_kv.dtype))
-        val = einsum("bkl,lhv->bkhv", c_kv, self.uv.w.to(c_kv.dtype))
+        k_nope = einsum("bkl,lhn->bkhn", c_kv, self.uk.w.to(c_kv.dtype),
+                        rows="k")
+        val = einsum("bkl,lhv->bkhv", c_kv, self.uv.w.to(c_kv.dtype),
+                     rows="k")
         k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
             *k_pe.shape[:2], n_heads, k_pe.shape[-1])], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import row_blocks
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``; a CUDA device with no GPU raises."""
@@ -47,31 +49,56 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 # -------------------------------------------------------------- functions
-def product(fn, a, b):
+def product(fn, a, b, *, rows=None):
     """``fn(a, b)``, a product of two operands of one type, with its
     products summed in float32 and the result rounded once to that type,
     as the reference's bf16 dots compute.  cuBLAS sums bf16 products in
     fp32; torch's bf16 product on the CPU (oneDNN) sums in an order of
     its own that parts from an fp32 sum by an ulp now and then (enough to
     move a tied unembedding's logits by ~0.1), so there the operands are
-    cast to float32 first."""
+    cast to float32 first, and with ``rows`` (the dim of ``a`` whose
+    entries are independent rows, and the result's dim they become) the
+    product takes them by `kernels.row_blocks`, so that a row's value
+    does not depend on the rows beside it."""
     if a.device.type == "cpu" and a.dtype in (torch.bfloat16, torch.float16):
-        return fn(a.float(), b.float()).to(a.dtype)
+        b32 = b.float()
+        if rows is None:
+            return fn(a.float(), b32).to(a.dtype)
+        return row_blocks(lambda u: fn(u, b32), a.float(), *rows) \
+            .to(a.dtype)
     return fn(a, b)
 
 
-def einsum(eq: str, a, b):
-    """``torch.einsum(eq, a, b)`` summed as `product` sums."""
-    return product(lambda u, v: torch.einsum(eq, u, v), a, b)
+def scores(eq: str, a, b, *, rows: str):
+    """``torch.einsum(eq, a, b)`` on float32 copies of both operands, the
+    result in float32: the reference's fp32 products of bf16 values
+    (attention logits, the router's, a tied unembedding's), on the CPU
+    by `kernels.row_blocks` along ``rows`` (a letter of ``a``'s)."""
+    b = b.float()
+    return row_blocks(lambda u: torch.einsum(eq, u, b), a.float(),
+                      *_row_dims(eq, rows))
+
+
+def einsum(eq: str, a, b, *, rows: str):
+    """``torch.einsum(eq, a, b)`` summed as `product` sums; ``rows``: the
+    letter of ``a``'s independent rows."""
+    return product(lambda u, v: torch.einsum(eq, u, v), a, b,
+                   rows=_row_dims(eq, rows))
+
+
+def _row_dims(eq: str, letter: str) -> tuple[int, int]:
+    """(``letter``'s dim in the first operand, its dim in the result)."""
+    ins, out = eq.split("->")
+    return ins.split(",")[0].index(letter), out.index(letter)
 
 
 def dense(w, b, x, *, compute_dtype=torch.bfloat16):
     """x: (..., d_in) @ w: (d_in, *out) -> (..., *out), computed in
     ``compute_dtype`` (both operands cast, the result in that type)."""
     w = w.to(compute_dtype)
-    y = product(lambda u, v: torch.tensordot(u, v, dims=([u.dim() - 1],
-                                                          [0])),
-                x.to(compute_dtype), w)
+    y = product(lambda u, v: torch.tensordot(u, v, dims=([1], [0])),
+                x.to(compute_dtype).reshape(-1, x.shape[-1]), w,
+                rows=(0, 0)).reshape(*x.shape[:-1], *w.shape[1:])
     if b is not None:
         y = y + b.to(compute_dtype)
     return y
@@ -158,9 +185,13 @@ def embed(table, tokens, compute_dtype=torch.bfloat16):
 def unembed(table, x, compute_dtype=torch.bfloat16,
             logits_dtype=torch.float32):
     """Logits against the (possibly tied) embedding table, with
-    products in ``logits_dtype`` after casting to ``compute_dtype``."""
-    return torch.einsum("bsd,vd->bsv", x.to(compute_dtype).to(logits_dtype),
-                        table.to(compute_dtype).to(logits_dtype))
+    products in ``logits_dtype`` after casting to ``compute_dtype`` (on
+    the CPU as `scores` and `einsum` take them)."""
+    x, table = x.to(compute_dtype), table.to(compute_dtype)
+    if logits_dtype == torch.float32:
+        return scores("bsd,vd->bsv", x, table, rows="s")
+    return einsum("bsd,vd->bsv", x.to(logits_dtype), table.to(logits_dtype),
+                  rows="s")
 
 
 def causal_conv1d(w, b, x):

@@ -74,7 +74,7 @@ def route(p: MoE, xf, top_k: int):
     """fp32 router logits (T, E), the top-k gate weights softmaxed over k
     (T, k) and the experts (T, k), best first, ties to the lower
     expert."""
-    logits = xf.float() @ p.router.w.float()
+    logits = L.scores("td,de->te", xf, p.router.w, rows="t")
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     gate_w = torch.softmax(vals[:, :top_k], dim=-1)
     return logits, gate_w, idx[:, :top_k]

@@ -503,9 +503,13 @@ def _flop_count(fn) -> int:
 
 
 def _bwd_flop_count(fn, ins) -> int:
-    """FlopCounterMode's count of the backward alone of ``fn``."""
+    """FlopCounterMode's count of the backward alone of ``fn``.  The
+    forward runs under a counter of its own, as `op_analysis` counts a
+    whole step, so the graph is the one a counter sees (on the CPU the
+    plain products' rows are blocked only outside a dispatch mode:
+    `kernels.row_blocks`)."""
     ins = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
-    with torch.enable_grad():
+    with torch.enable_grad(), FlopCounterMode(display=False):
         out = fn(*ins)
         outs = out if isinstance(out, tuple) else (out,)
         grads = [torch.ones_like(o) for o in outs]

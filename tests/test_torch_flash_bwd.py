@@ -442,7 +442,8 @@ def test_fp32_backward_passes_match_the_kernel_source():
 LONG_SEQ = 4160     # 4160^2 > 4096^2: attention takes flash
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mixtral-8x7b",
+                                  "starcoder2-7b"])
 def test_fp32_train_step_past_4096_squared_pairs_matches_jax_grad(
         arch, monkeypatch):
     """The smoke config's gradients at (1, 4160), where both packages send

@@ -978,7 +978,10 @@ SSD_BWD_GPU_CASES = [(2, 2048, 64, 64, 64, 256), (2, 2048, 80, 64, 128, 256),
                      # 8 + 8 + 1 with P = 24, N = 40
                      (1, 300, 12, 64, 64, 128), (2, 130, 17, 24, 40, 32),
                      # S under one chunk (a short training sequence)
-                     (2, 100, 4, 64, 64, 256)]
+                     (2, 100, 4, 64, 64, 256),
+                     # mamba2's heads at N = 128: the fp32 training
+                     # check's (1, 512), and S off the chunk
+                     (1, 512, 80, 64, 128, 256), (1, 300, 80, 64, 128, 128)]
 
 
 def _hold_bwd(got, want, dtype):
@@ -1281,7 +1284,11 @@ FA_BWD_CASES = [
     (1, 300, 300, 8, 4, 256, 100, 0), (1, 200, 230, 4, 2, 192, 50, 30),
     (1, 129, 129, 2, 1, 200, None, 0), (1, 1, 512, 4, 2, 64, None, 511),
     # the path's widths: gemma3's global layer, mixtral's window
-    (1, 1024, 1024, 8, 4, 256, None, 0), (1, 1024, 1024, 32, 8, 128, 512, 0)]
+    (1, 1024, 1024, 8, 4, 256, None, 0), (1, 1024, 1024, 32, 8, 128, 512, 0),
+    # GQA groups of 9 (starcoder2's 36:4): D = 128 (fp32 on mma.sync), D =
+    # 64 (fp32 on wgmma) off the tiles, and starcoder2's heads
+    (1, 300, 300, 9, 1, 128, None, 0), (2, 200, 260, 18, 2, 64, None, 60),
+    (1, 1024, 1024, 36, 4, 128, None, 0)]
 
 
 def _flash_bwd_case(case, dtype, device, seed=0):
